@@ -1,8 +1,9 @@
 """Single-image inference API (port of ``spike2former_tpu/api.py``:
-``init_model``, ``inference_model``).
+``init_model``, ``inference_model``) and the training entry points
+``init_trainer`` / ``train_steps`` (``engine/train.py``).
 
 Runs on the card unless ``device="cpu"`` is passed; with no card and no
-device asked for, ``init_model`` raises.
+device asked for, ``init_model`` and ``init_trainer`` raise.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from .data.transforms import load_image, pad_to, resize_keep_ratio
 from .device import resolve_device
 from .engine.config import Config, build_model, get_config
 from .engine.inference import postprocess_pred, whole_logits
+from .engine.train import init_trainer, train_steps  # noqa: F401
 from .engine.weights import randomize_
 from .models.segmentor import Spike2Former
 

@@ -1,10 +1,10 @@
 """Config dataclasses, the flagship preset and dot-key overrides (port of
 ``spike2former_tpu/engine/config.py``, without JAX).
 
-Only the fields whole-image inference of the f32 SDTv2 MaskFormer reads
-are kept, so an override of anything else (``model.variant``, training
-knobs) is rejected as an unknown key; the other presets and the training
-config wait for later slices of the port.
+Only the fields that whole-image inference and the semantic train step
+of the f32 SDTv2 MaskFormer read are kept, so an override of anything else
+(``model.variant``, ``train.compact_gt``, ...) is rejected as an unknown
+key; the other presets wait for later slices of the port.
 """
 from __future__ import annotations
 
@@ -28,15 +28,36 @@ class ModelConfig:
     depths_stage4: int = 2
     dcn_group: int = 32
     compat: bool = False              # reference-exact layout quirks
+    norm_eval: bool = True            # freeze backbone BN in training
     collapse_t: bool = True           # skip provably-identical time steps
     eval_last_only: bool = True
+    lazy_masks: bool = True           # factored train-time mask logits
 
 
 @dataclass
 class DataConfig:
     dataset: str = "ade20k"
+    crop_size: tuple = (512, 512)     # train batches (synthetic until
+    batch_size: int = 6               # the data layer is ported)
     test_scale: tuple = (2048, 512)
     size_divisor: int = 32
+
+
+@dataclass
+class TrainConfig:
+    base_lr: float = 1e-3
+    weight_decay: float = 0.005
+    backbone_lr_mult: float = 0.1
+    clip_norm: float = 0.01
+    warmup_iters: int = 1500
+    total_iters: int = 160_000
+    max_gt: int = 64
+    # the JAX package defaults to its on-device auction matcher, which is
+    # not ported yet: only the exact host matcher is accepted
+    matcher: str = "host"
+    loss_at: str = "gt"               # 'gt' (the reference) | 'pred'
+    accum_steps: int = 1
+    seed: int = 0
 
 
 @dataclass
@@ -44,6 +65,7 @@ class Config:
     name: str = "custom"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def build_model(cfg: ModelConfig) -> Spike2Former:
@@ -56,7 +78,8 @@ def build_model(cfg: ModelConfig) -> Spike2Former:
         num_encoder_layers=cfg.num_encoder_layers,
         depths_stage3=cfg.depths_stage3, depths_stage4=cfg.depths_stage4,
         dcn_group=cfg.dcn_group, compat=cfg.compat,
-        collapse_t=cfg.collapse_t, eval_last_only=cfg.eval_last_only)
+        norm_eval=cfg.norm_eval, collapse_t=cfg.collapse_t,
+        eval_last_only=cfg.eval_last_only, lazy_masks=cfg.lazy_masks)
 
 
 def apply_overrides(cfg: Config, options: list[str]) -> Config:

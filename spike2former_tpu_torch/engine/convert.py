@@ -33,15 +33,18 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple, Any]]:
 
 def from_jax_variables(variables: Mapping[str, Any]
                        ) -> dict[str, torch.Tensor]:
-    """``variables`` (nested dicts of arrays with ``params`` and
-    ``batch_stats``) -> a state_dict for the port's model."""
+    """``variables`` (nested dicts of arrays with ``params`` and/or
+    ``batch_stats``: initial, or as a train step returns them, gradients
+    included) -> a state_dict, or the part of one, for the port's
+    model."""
     sd = {}
     for col in ("params", "batch_stats"):
         for path, leaf in _leaves(variables.get(col, {})):
             *mods, name = path
             if name in BN_LEAVES and mods and mods[-1] == "BatchNorm_0":
                 mods = mods[:-1]
-            arr = np.asarray(leaf, dtype=np.float32)
+            # a copy: arrays a JAX step hands back are read-only
+            arr = np.array(leaf, dtype=np.float32)
             if name == "kernel":
                 name = "weight"
                 arr = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4

@@ -1,0 +1,151 @@
+"""Semantic train step (port of ``make_train_step`` of
+``spike2former_tpu/engine/train.py``) and its library entry points
+``init_trainer`` / ``train_steps``, the loop of ``tools/train.py`` without
+the data layer.
+
+One step: forward in training mode (decoder-layer BNs on batch statistics,
+backbone BNs frozen under ``norm_eval``), GT slots from the semantic map,
+Hungarian matching of all supervised layers in one host call, CE + focal +
+dice, backward (through the DCNv3 backward kernel on the card), global-norm
+clipping and the grouped AdamW update.  Unlike the JAX step, which returns
+a new state, the step updates the model and optimizer in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Iterable
+
+import torch
+from torch.profiler import record_function
+
+from ..device import resolve_device
+from ..losses.criterion import maskformer_loss, semantic_to_instances
+from ..models.segmentor import Spike2Former, preprocess
+from .config import Config, TrainConfig, build_model, get_config
+from .optim import AdamW
+from .weights import randomize_
+
+
+@dataclass
+class TrainState:
+    """The model (its parameters and BN statistics), the optimizer state
+    and the number of steps taken."""
+
+    model: Spike2Former
+    optimizer: AdamW
+    step: int = 0
+
+
+def init_state(model: Spike2Former, train_cfg: TrainConfig) -> TrainState:
+    """Wrap ``model`` with a fresh AdamW of ``train_cfg``'s recipe."""
+    opt = AdamW(model.named_parameters(), base_lr=train_cfg.base_lr,
+                weight_decay=train_cfg.weight_decay,
+                backbone_lr_mult=train_cfg.backbone_lr_mult,
+                clip_norm=train_cfg.clip_norm,
+                warmup_iters=train_cfg.warmup_iters,
+                total_iters=train_cfg.total_iters)
+    return TrainState(model, opt)
+
+
+def make_train_step(num_classes: int, max_gt: int = 64,
+                    matcher: str = "host", loss_at: str = "gt",
+                    accum_steps: int = 1) -> Callable:
+    """Returns ``train_step(state, images_u8, sem_seg) -> (state,
+    metrics)``.
+
+    images_u8 [B, H, W, 3] RGB and sem_seg [B, H, W] int (255 = ignore) on
+    the model's device.  ``metrics`` holds the loss dict (``loss_cls``,
+    ``d{i}.loss_mask``, ..., ``total``, ``repaired_gt``), ``dropped_gt``
+    and ``grad_norm``, as 0-dim tensors.  After the step every parameter's
+    ``.grad`` holds the gradient it was updated with.
+
+    ``accum_steps > 1`` splits the batch into that many sequential
+    microbatches, each updating the BN statistics, and averages their
+    gradients (and metrics) before one optimizer update.
+
+    The stages run inside ``torch.profiler.record_function`` ranges
+    (``forward``, ``match_and_loss``, ``backward``, ``optimizer``), which
+    ``profile_train.py`` reads."""
+    if matcher != "host":
+        raise ValueError(f"matcher {matcher!r} is not ported; use 'host'")
+    if loss_at not in ("gt", "pred"):
+        raise ValueError(f"loss_at must be 'gt' or 'pred', got {loss_at!r}")
+
+    def microbatch(model, images, sem_seg) -> dict[str, torch.Tensor]:
+        with record_function("forward"):
+            cls_scores, mask_preds = model(preprocess(images))
+        with record_function("match_and_loss"):
+            gt = semantic_to_instances(sem_seg, num_classes, max_gt)
+            losses = maskformer_loss(cls_scores, mask_preds, gt,
+                                     num_classes=num_classes,
+                                     matcher=matcher, loss_at=loss_at)
+        with record_function("backward"):
+            (losses["total"] / accum_steps).backward()
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["dropped_gt"] = gt.dropped.sum().float()
+        return losses
+
+    def train_step(state: TrainState, images_u8: torch.Tensor,
+                   sem_seg: torch.Tensor):
+        model = state.model.train()
+        b = images_u8.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{accum_steps} microbatches")
+        for p in model.parameters():
+            p.grad = None
+        per_mb = [microbatch(model, im, seg) for im, seg in zip(
+            images_u8.chunk(accum_steps), sem_seg.chunk(accum_steps))]
+        metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
+                   for k in per_mb[0]}
+        with record_function("optimizer"):
+            metrics["grad_norm"] = state.optimizer.step()
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+@dataclass
+class Trainer:
+    cfg: Config
+    state: TrainState
+    step_fn: Callable
+    device: torch.device
+
+
+def init_trainer(config: str | Config, overrides: list[str] | None = None,
+                 device: str | torch.device | None = None,
+                 seed: int | None = None,
+                 state_dict: dict[str, torch.Tensor] | None = None
+                 ) -> Trainer:
+    """Build a model and its train step from a preset (or Config) on
+    ``device`` (the card unless ``device="cpu"``).  Weights come from
+    ``state_dict``, loaded strictly, or are drawn from ``seed``
+    (``engine/weights.py``), which defaults to ``cfg.train.seed``."""
+    dev = resolve_device(device)
+    cfg = get_config(config, overrides) if isinstance(config, str) else config
+    t = cfg.train
+    step_fn = make_train_step(cfg.model.num_classes, max_gt=t.max_gt,
+                              matcher=t.matcher, loss_at=t.loss_at,
+                              accum_steps=t.accum_steps)
+    model = build_model(cfg.model)
+    if state_dict is None:
+        randomize_(model, t.seed if seed is None else seed)
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    model.to(dev)
+    return Trainer(cfg, init_state(model, t), step_fn, dev)
+
+
+def train_steps(trainer: Trainer, batches: Iterable) -> list[dict]:
+    """Take one step per ``(images_u8 [B, H, W, 3], sem_seg [B, H, W])``
+    batch (numpy arrays or tensors); returns each step's metrics as
+    floats."""
+    out = []
+    for images, sem_seg in batches:
+        _, metrics = trainer.step_fn(
+            trainer.state, torch.as_tensor(images, device=trainer.device),
+            torch.as_tensor(sem_seg, device=trainer.device))
+        out.append({k: float(v) for k, v in metrics.items()})
+    return out

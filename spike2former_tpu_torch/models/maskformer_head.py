@@ -5,8 +5,11 @@ pixel decoder -> 3 scale levels (+ sine PE + level embed) -> decoder layers
 round-robin over the levels -> SDME output block (sigmoid -> Q-IF spike ->
 x alpha; linear classes averaged over T; mask embeddings by a 3-layer spiking
 MLP plus a query-mixing shortcut, a final spike, and an einsum with the mask
-features averaged over T).  Eval only; the ``valid_hw`` bucketing path and
-masked attention are not ported yet.
+features averaged over T).  In training mode (``model.train()``) every
+decoder layer's output is returned, the initial queries' too, and the
+query-axis BN uses batch statistics; with ``lazy_masks`` the mask logits
+come in the factored ``LazyMasks`` form.  The ``valid_hw`` bucketing path
+and masked attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..losses.criterion import LazyMasks
 from .attention import SpikeMLP3
 from .layers import BatchNorm, Spike
 from .pixel_decoder import DCNPixelDecoder
@@ -31,13 +35,15 @@ class MaskFormerHead(nn.Module):
                  encoder_ffn_channels: int = 1024,
                  num_encoder_layers: int = 6, dcn_group: int = 32,
                  dw_kernel_size: int = 5, alpha: float = 4.0,
-                 eval_last_only: bool = True, compat: bool = False):
+                 eval_last_only: bool = True, lazy_masks: bool = False,
+                 compat: bool = False):
         super().__init__()
         c, nq = feat_channels, num_queries
         self.c, self.alpha = c, alpha
         self.num_decoder_layers = num_decoder_layers
         self.num_feat_levels = num_feat_levels
         self.eval_last_only = eval_last_only
+        self.lazy_masks = lazy_masks
         self.pixel_decoder = DCNPixelDecoder(
             in_channels, c, out_channels, num_encoder_layers,
             encoder_ffn_channels, dcn_group, dw_kernel_size, compat=compat)
@@ -54,9 +60,10 @@ class MaskFormerHead(nn.Module):
         self.shortcut_kernel = nn.Parameter(torch.zeros(nq, nq))
         self.w = nn.Parameter(torch.ones(1))
 
-    def sdme(self, out: torch.Tensor, mask_features: torch.Tensor):
+    def sdme_embed(self, out: torch.Tensor):
         """out [L, T, B, nq, C] query features -> class scores
-        [L, B, nq, ncls+1] and mask logits [L, B, nq, h, w]."""
+        [L, B, nq, ncls+1] and post-spike mask embeddings [L, T, B, nq, C]
+        (the factored half of the mask logits)."""
         a = self.alpha
         out_sig = torch.sigmoid(out)
         out_spiked = a * self.spike(out_sig)
@@ -67,7 +74,12 @@ class MaskFormerHead(nn.Module):
         sc = torch.einsum("ltbqc,pq->ltbpc", a * self.spike(out_sig),
                           self.shortcut_kernel)
         sc = self.shortcut_bn(sc.movedim(3, -1)).movedim(-1, 3)
-        mask_embed = a * self.spike(mask_embed + self.w * sc)
+        return cls_scores, a * self.spike(mask_embed + self.w * sc)
+
+    def sdme(self, out: torch.Tensor, mask_features: torch.Tensor):
+        """out [L, T, B, nq, C] -> class scores [L, B, nq, ncls+1] and mask
+        logits [L, B, nq, h, w]."""
+        cls_scores, mask_embed = self.sdme_embed(out)
         t = mask_features.shape[0]
         mask_preds = torch.einsum("ltbqc,tbhwc->lbqhw", mask_embed,
                                   mask_features) / t
@@ -75,7 +87,9 @@ class MaskFormerHead(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor]):
         """feats: 4-level pyramid [T,B,h,w,c] -> (cls [L, B, nq, ncls+1],
-        masks [L, B, nq, H/2, W/2]), L = 1 with ``eval_last_only``."""
+        masks [L, B, nq, H/2, W/2]): L = 1 in eval mode with
+        ``eval_last_only``, else L = num_decoder_layers + 1; in training
+        mode with ``lazy_masks`` the masks are ``LazyMasks``."""
         c = self.c
         mask_features, memory, multi_scale = self.pixel_decoder(feats)
         t, b = memory.shape[:2]
@@ -97,9 +111,13 @@ class MaskFormerHead(nn.Module):
             query = getattr(self, f"decoder_{i}")(
                 query, inputs[lvl], inputs[lvl], qpos, pes[lvl])
             out_dec.append(query)
-        # the reference discards all but the last layer at inference
-        out = (query[None] if self.eval_last_only
-               else torch.stack(out_dec))
+        if self.training or not self.eval_last_only:
+            out = torch.stack(out_dec)
+        else:  # the reference discards all but the last layer at inference
+            out = query[None]
+        if self.training and self.lazy_masks:
+            cls_scores, mask_embed = self.sdme_embed(out)
+            return cls_scores, LazyMasks(mask_embed, mask_features)
         return self.sdme(out, mask_features)
 
 

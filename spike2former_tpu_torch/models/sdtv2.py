@@ -65,15 +65,20 @@ class SpikingMetaFormer(nn.Module):
     ``collapse_t``: every spike is a stateless elementwise quantizer and the
     same image is broadcast to all T steps, so the T slices are identical;
     compute one step instead of T.
+
+    ``norm_eval``: the reference trains with every backbone BN in eval mode
+    (sdtv2.py:571-575, config ``norm_eval=True``): running statistics stay
+    frozen while the affine parameters still train.  The training flag only
+    gates BN here, so ``train()`` keeps the backbone in eval mode.
     """
 
     def __init__(self, embed_dim: Sequence[int] = (64, 128, 256, 360),
                  num_heads: int = 8, mlp_ratio: int = 4, in_channels: int = 3,
                  T: int = 1, depths_stage3: int = 6, depths_stage4: int = 2,
-                 collapse_t: bool = False):
+                 collapse_t: bool = False, norm_eval: bool = False):
         super().__init__()
         e = embed_dim
-        self.T, self.collapse_t = T, collapse_t
+        self.T, self.collapse_t, self.norm_eval = T, collapse_t, norm_eval
         self.depths = (depths_stage3, depths_stage4)
         self.down1_1 = DownSampling(in_channels, e[0] // 2, 7, 2, 3,
                                     first_layer=True)
@@ -89,6 +94,9 @@ class SpikingMetaFormer(nn.Module):
         self.down4 = DownSampling(e[2], e[3], stride=1)
         for i in range(depths_stage4):
             setattr(self, f"block4_{i}", MSBlock(e[3], num_heads, mlp_ratio))
+
+    def train(self, mode: bool = True):
+        return super().train(mode and not self.norm_eval)
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
         """images: [B, H, W, 3] -> 4 pyramid levels [T, B, h, w, c]."""

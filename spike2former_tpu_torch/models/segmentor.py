@@ -34,12 +34,14 @@ class Spike2Former(nn.Module):
                  num_decoder_layers: int = 6, num_encoder_layers: int = 6,
                  depths_stage3: int = 6, depths_stage4: int = 2,
                  dcn_group: int = 32, compat: bool = False,
-                 collapse_t: bool = True, eval_last_only: bool = True):
+                 norm_eval: bool = True, collapse_t: bool = True,
+                 eval_last_only: bool = True, lazy_masks: bool = False):
         super().__init__()
         e = tuple(embed_dim)
         self.backbone = SpikingMetaFormer(
             e, num_heads=backbone_heads, T=T, depths_stage3=depths_stage3,
-            depths_stage4=depths_stage4, collapse_t=collapse_t)
+            depths_stage4=depths_stage4, collapse_t=collapse_t,
+            norm_eval=norm_eval)
         self.head = MaskFormerHead(
             in_channels=(e[0] // 2, e[0], e[1], e[3]),
             feat_channels=feat_channels, out_channels=feat_channels,
@@ -47,11 +49,15 @@ class Spike2Former(nn.Module):
             num_decoder_layers=num_decoder_layers,
             num_encoder_layers=num_encoder_layers,
             dcn_group=min(dcn_group, feat_channels),
-            eval_last_only=eval_last_only, compat=compat)
+            eval_last_only=eval_last_only, lazy_masks=lazy_masks,
+            compat=compat)
 
     def forward(self, images: torch.Tensor):
         """images [B, H, W, 3] normalized -> (cls [L, B, nq, ncls+1],
-        masks [L, B, nq, H/2, W/2])."""
+        masks [L, B, nq, H/2, W/2]): L = 1 in eval mode, every decoder
+        layer plus the initial queries in training mode (``model.train()``,
+        with the backbone's BNs frozen under ``norm_eval``), where
+        ``lazy_masks`` returns the masks as ``LazyMasks``."""
         return self.head(self.backbone(images))
 
     def predict_logits(self, images: torch.Tensor) -> torch.Tensor:

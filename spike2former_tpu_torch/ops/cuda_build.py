@@ -40,24 +40,39 @@ def library_path(source: str) -> Path:
             / f"lib{src.stem}.so")
 
 
+def build_all(sources) -> list[Path]:
+    """Compile each ``csrc/<source>`` whose keyed library does not exist,
+    one ``nvcc`` process per source, all started together; the compiler's
+    resource report (``-Xptxas -v``) goes to ``build.log`` beside each
+    library.  Returns the library paths in the order of ``sources``."""
+    libs = [library_path(src) for src in sources]
+    jobs = []
+    for src, lib in zip(sources, libs):
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, lib, tmp, cmd, proc))
+    failed = []
+    for src, lib, tmp, cmd, proc in jobs:
+        out, err = proc.communicate()
+        (lib.parent / "build.log").write_text(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {src}:\n{err}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
 def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its keyed library exists; the
-    compiler's resource report (``-Xptxas -v``) goes to ``build.log``
-    beside it."""
-    lib = library_path(source)
-    if lib.exists():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``csrc/<source>`` unless its keyed library exists."""
+    return build_all((source,))[0]
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -6,10 +6,14 @@ unpadded half-pixel space) and hands ``(value, py, px, mask)`` to
 ``dcnv3_sample``.  The sampler takes ``[N, HoWo, G, P]`` coordinates and
 returns ``[N, HoWo, G*Cg]``, so the JAX path's layout transposes disappear.
 
-``dcnv3_sample`` launches the CUDA kernel ``csrc/dcnv3_sample.cu`` (which
-replaces the TPU kernel ``dcnv3_sample_pallas_t5``) for a CUDA tensor, and
-takes the plain version ``dcnv3_sample_reference`` only for a tensor on the
-CPU.  It counts its launches in ``dcnv3_sample.launches``.
+``dcnv3_sample`` is differentiable.  For a CUDA tensor it is a
+``torch.autograd.Function`` whose forward launches ``csrc/dcnv3_sample.cu``
+(which replaces the TPU kernel ``dcnv3_sample_pallas_t5``) and whose
+backward launches ``csrc/dcnv3_sample_bwd.cu`` (which replaces
+``dcnv3_sample_pallas_t5_bwd``) through ``dcnv3_sample_backward``.  For a
+tensor on the CPU it is the plain version ``dcnv3_sample_reference``, with
+PyTorch's autograd of it.  Launches are counted in
+``dcnv3_sample.launches`` (forward) and ``dcnv3_sample_backward.launches``.
 """
 from __future__ import annotations
 
@@ -18,9 +22,6 @@ import functools
 
 import numpy as np
 import torch
-
-SOURCE = "dcnv3_sample.cu"
-
 
 def _reference_points(h_in, w_in, kernel_h, kernel_w, dilation_h, dilation_w,
                       stride_h, stride_w):
@@ -44,6 +45,25 @@ def _dilation_grid(h_in, w_in, kernel_h, kernel_w, dilation_h, dilation_w):
     return np.stack([gx / w_in, gy / h_in], axis=-1).reshape(-1, 2)
 
 
+def _floor_taps(py: torch.Tensor, px: torch.Tensor, h: int, w: int,
+                cg: int):
+    """The four floor-based bilinear taps of [N, HoWo, G, P] coordinates:
+    yields ``(wy, wx, dwy/dpy, dwx/dpx, in_map, idx)`` where ``idx``
+    [N, HoWo*G*P, Cg] indexes a ``[N, H*W*G, Cg]`` view of the value map
+    (clamped into the map; ``in_map`` says which taps count)."""
+    n, _, g, _ = py.shape
+    y0, x0 = torch.floor(py), torch.floor(px)
+    fy, fx = py - y0, px - x0
+    gidx = torch.arange(g, device=py.device).view(1, 1, g, 1)
+    for dy, wy, sy in ((0, 1.0 - fy, -1.0), (1, fy, 1.0)):
+        for dx, wx, sx in ((0, 1.0 - fx, -1.0), (1, fx, 1.0)):
+            yy, xx = y0 + dy, x0 + dx
+            ok = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+            flat = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
+            idx = (flat * g + gidx).reshape(n, -1, 1).expand(-1, -1, cg)
+            yield wy, wx, sy, sx, ok, idx
+
+
 def dcnv3_sample_reference(value: torch.Tensor, py: torch.Tensor,
                            px: torch.Tensor, mask: torch.Tensor
                            ) -> torch.Tensor:
@@ -56,49 +76,149 @@ def dcnv3_sample_reference(value: torch.Tensor, py: torch.Tensor,
     n, h, w, c = value.shape
     _, howo, g, p = py.shape
     cg = c // g
-    feat = value.float().reshape(n, h * w, g, cg)
-    y0 = torch.floor(py)
-    x0 = torch.floor(px)
-    fy, fx = py - y0, px - x0
+    feat = value.float().reshape(n, h * w * g, cg)
     out = value.new_zeros((n, howo, g, cg), dtype=torch.float32)
-    gidx = torch.arange(g, device=value.device).view(1, 1, g, 1)
-    for dy, wy in ((0, 1.0 - fy), (1, fy)):
-        for dx, wx in ((0, 1.0 - fx), (1, fx)):
-            yy, xx = y0 + dy, x0 + dx
-            ok = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
-            flat = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
-            wt = torch.where(ok, mask * wy * wx, 0.0)    # [N, HoWo, G, P]
-            # taps[n, o, g, p, :] = feat[n, flat[n, o, g, p], g, :]
-            idx = (flat * g + gidx).reshape(n, -1, 1).expand(-1, -1, cg)
-            taps = torch.gather(feat.reshape(n, h * w * g, cg), 1, idx)
-            taps = taps.reshape(n, howo, g, p, cg)
-            out += (wt[..., None] * taps).sum(3)
+    for wy, wx, _, _, ok, idx in _floor_taps(py, px, h, w, cg):
+        wt = torch.where(ok, mask * wy * wx, 0.0)    # [N, HoWo, G, P]
+        # taps[n, o, g, p, :] = value[n, tap pixel, g, :]
+        taps = torch.gather(feat, 1, idx).reshape(n, howo, g, p, cg)
+        out += (wt[..., None] * taps).sum(3)
     return out.reshape(n, howo, c).to(value.dtype)
 
 
+def dcnv3_sample_backward_reference(value: torch.Tensor, py: torch.Tensor,
+                                    px: torch.Tensor, mask: torch.Tensor,
+                                    dout: torch.Tensor):
+    """Plain version of the sampler's backward, written out: for each of
+    the four floor-based taps inside the map, with ``s = <F_tap, dout>``,
+
+      dvalue[tap] += m * wy * wx * dout      dmask += wy * wx * s
+      dpy += m * (dwy/dpy) * wx * s          dpx += m * wy * (dwx/dpx) * s
+
+    where ``dwy/dpy`` is -1 on the floor row and +1 on the next (likewise
+    x): the floor-based subgradient, also at exact integer coordinates.
+    Taps off the map give 0 to every term.
+
+    value [N, H, W, G*Cg]; py/px/mask [N, HoWo, G, P]; dout [N, HoWo, G*Cg]
+    -> (dvalue [N, H, W, G*Cg], dpy, dpx, dmask [N, HoWo, G, P]), f32.
+    """
+    n, h, w, c = value.shape
+    _, howo, g, p = py.shape
+    cg = c // g
+    feat = value.float().reshape(n, h * w * g, cg)
+    d = dout.float().reshape(n, howo, g, 1, cg)
+    dvalue = torch.zeros_like(feat)
+    dpy, dpx, dmask = (torch.zeros_like(py, dtype=torch.float32)
+                       for _ in range(3))
+    for wy, wx, sy, sx, ok, idx in _floor_taps(py, px, h, w, cg):
+        taps = torch.gather(feat, 1, idx).reshape(n, howo, g, p, cg)
+        s = torch.where(ok, (taps * d).sum(-1), 0.0)
+        dmask += wy * wx * s
+        dpy += mask * sy * wx * s
+        dpx += mask * wy * sx * s
+        wt = torch.where(ok, mask * wy * wx, 0.0)
+        dvalue.scatter_add_(1, idx, (wt[..., None] * d).reshape(n, -1, cg))
+    return dvalue.reshape(n, h, w, c), dpy, dpx, dmask
+
+
+SOURCE = "dcnv3_sample.cu"
+BWD_SOURCE = "dcnv3_sample_bwd.cu"
+CHANNELS_PER_GROUP = (1, 2, 4, 8, 16, 32)
+# each library's entry point: (name, tensor pointers); then 7 ints (n,
+# howo, groups, points, h, w, cg) and the stream
+_ENTRY = {SOURCE: ("dcnv3_sample_f32", 5),
+          BWD_SOURCE: ("dcnv3_sample_bwd_f32", 9)}
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library(source: str) -> ctypes.CDLL:
     from .cuda_build import load
 
-    lib = load(SOURCE)
-    lib.dcnv3_sample_f32.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.dcnv3_sample_f32.restype = ctypes.c_int
+    lib = load(source)
+    name, n_ptrs = _ENTRY[source]
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
-def build_kernel() -> None:
-    """Build (or find) and load the CUDA library."""
-    _library()
+def build_kernels() -> None:
+    """Build (or find) and load both CUDA libraries, the two ``nvcc``
+    runs side by side."""
+    from .cuda_build import build_all
+
+    build_all(tuple(_ENTRY))
+    for source in _ENTRY:
+        _library(source)
+
+
+def _launch(source: str, tensors, ints) -> None:
+    """Call ``source``'s entry point on PyTorch's current stream with the
+    tensors' pointers and ``ints``; raise if the launch fails."""
+    dev = tensors[0].device
+    name, _ = _ENTRY[source]
+    with torch.cuda.device(dev):
+        err = getattr(_library(source), name)(
+            *(t.data_ptr() for t in tensors), *ints,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _check_kernel_args(value: torch.Tensor, py: torch.Tensor,
+                       *others: tuple[str, torch.Tensor]) -> tuple:
+    """Raise on what the kernels do not take; returns
+    ``(n, h, w, c, howo, g, p)``."""
+    n, h, w, c = value.shape
+    if py.dim() != 4 or py.shape[0] != n:
+        raise ValueError(f"coordinates {tuple(py.shape)} do not match "
+                         f"value {tuple(value.shape)}")
+    _, howo, g, p = py.shape
+    for name, t in others[:2]:
+        if t.shape != py.shape:
+            raise ValueError(
+                f"{name} {tuple(t.shape)} != py {tuple(py.shape)}")
+    if c % g or (c // g) not in CHANNELS_PER_GROUP:
+        raise ValueError(f"channels {c} over {g} groups: the kernels "
+                         "take 1, 2, 4, 8, 16 or 32 channels a group")
+    for name, t in (("value", value), ("py", py)) + others:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != value.device:
+            raise ValueError(
+                f"{name} is on {t.device}, value on {value.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return n, h, w, c, howo, g, p
+
+
+class _SampleFunction(torch.autograd.Function):
+    """K1 forward, K2 backward, on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, sampler, value, py, px, mask):
+        ctx.save_for_backward(value, py, px, mask)
+        return sampler.launch(value, py, px, mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:  # a contiguous view at an odd offset
+            dout = dout.clone()
+        return (None, *dcnv3_sample_backward(*ctx.saved_tensors, dout))
 
 
 class _DCNv3Sample:
-    """Deformable bilinear sample: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor.  Shapes as ``dcnv3_sample_reference``.
+    """Deformable bilinear sample: the CUDA kernel (differentiable through
+    the backward kernel) for a CUDA tensor, the plain version for a CPU
+    tensor.  Shapes as ``dcnv3_sample_reference``.
 
-    ``launches`` counts the kernel launches (a plain int, on the wrapper
-    object so that it survives the name being rebound, as a test that
-    wraps the sampler does)."""
+    ``launches`` counts the forward kernel's launches (a plain int, on the
+    wrapper object so that it survives the name being rebound, as a test
+    that wraps the sampler does)."""
 
     def __init__(self):
         self.launches = 0
@@ -107,45 +227,50 @@ class _DCNv3Sample:
                  px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if not value.is_cuda:
             return dcnv3_sample_reference(value, py, px, mask)
-        n, h, w, c = value.shape
-        if py.dim() != 4 or py.shape[0] != n:
-            raise ValueError(f"coordinates {tuple(py.shape)} do not match "
-                             f"value {tuple(value.shape)}")
-        _, howo, g, p = py.shape
-        for name, t in (("px", px), ("mask", mask)):
-            if t.shape != py.shape:
-                raise ValueError(
-                    f"{name} {tuple(t.shape)} != py {tuple(py.shape)}")
-        if c % g or (c // g) not in (1, 2, 4, 8, 16, 32):
-            raise ValueError(f"channels {c} over {g} groups: the kernel "
-                             "takes 1, 2, 4, 8, 16 or 32 channels a group")
-        for name, t in (("value", value), ("py", py), ("px", px),
-                        ("mask", mask)):
-            if t.dtype != torch.float32:
-                raise TypeError(f"{name} must be float32, got {t.dtype}")
-            if t.device != value.device:
-                raise ValueError(
-                    f"{name} is on {t.device}, value on {value.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned")
+        return _SampleFunction.apply(self, value, py, px, mask)
+
+    def launch(self, value: torch.Tensor, py: torch.Tensor,
+               px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Launch the forward kernel (no autograd)."""
+        n, h, w, c, howo, g, p = _check_kernel_args(
+            value, py, ("px", px), ("mask", mask))
         out = torch.empty((n, howo, c), dtype=value.dtype,
                           device=value.device)
-        lib = _library()
-        with torch.cuda.device(value.device):
-            err = lib.dcnv3_sample_f32(
-                value.data_ptr(), py.data_ptr(), px.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), n, howo, g, p, h, w, c // g,
-                torch.cuda.current_stream(value.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f"dcnv3_sample kernel launch failed: cudaError {err}")
+        _launch(SOURCE, (value, py, px, mask, out),
+                (n, howo, g, p, h, w, c // g))
         self.launches += 1
         return out
 
 
+class _DCNv3SampleBackward:
+    """Gradients of the sampler: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  Shapes as
+    ``dcnv3_sample_backward_reference``; ``launches`` counts the kernel's
+    launches."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, value: torch.Tensor, py: torch.Tensor,
+                 px: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor):
+        if not value.is_cuda:
+            return dcnv3_sample_backward_reference(value, py, px, mask, dout)
+        n, h, w, c, howo, g, p = _check_kernel_args(
+            value, py, ("px", px), ("mask", mask), ("dout", dout))
+        if dout.shape != (n, howo, c):
+            raise ValueError(f"dout {tuple(dout.shape)} != "
+                             f"{(n, howo, c)}")
+        # the kernel scatters into dvalue with atomics: zero it first
+        dvalue = torch.zeros_like(value)
+        dpy, dpx, dmask = (torch.empty_like(py) for _ in range(3))
+        _launch(BWD_SOURCE, (value, py, px, mask, dout, dvalue, dpy, dpx,
+                             dmask), (n, howo, g, p, h, w, c // g))
+        self.launches += 1
+        return dvalue, dpy, dpx, dmask
+
+
 dcnv3_sample = _DCNv3Sample()
+dcnv3_sample_backward = _DCNv3SampleBackward()
 
 
 def dcnv3_core(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, *,

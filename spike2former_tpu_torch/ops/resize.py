@@ -1,6 +1,6 @@
-"""Bilinear resize with torch ``align_corners=False`` semantics (port of
-``spike2former_tpu/ops/resize.py``: ``resize_bilinear``,
-``resize_bilinear_hw``).
+"""Bilinear resize with torch ``align_corners=False`` semantics and the
+torch-style nearest resize (port of ``spike2former_tpu/ops/resize.py``:
+``resize_bilinear``, ``resize_bilinear_hw``, ``resize_nearest_torch``).
 
 The JAX package gathers by hand because ``jax.image.resize`` antialiases on
 downscale; here ``F.interpolate`` (no antialias) is the function itself.
@@ -31,3 +31,23 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     y = F.interpolate(y, size=tuple(out_hw), mode="bilinear",
                       align_corners=False)
     return y.permute(0, 2, 3, 1).reshape(*lead, *out_hw, c)
+
+
+def resize_nearest_torch(x: torch.Tensor, out_hw: tuple[int, int]
+                         ) -> torch.Tensor:
+    """Nearest resize of ``[..., H, W, C]`` as torch
+    ``F.interpolate(mode='nearest')`` does it: ``src = floor(dst * in/out)``
+    (asymmetric, not half-pixel), computed in f32 as the JAX package does.
+    Integer factors take a strided slice (downscale) or pixel repetition
+    (upscale); any dtype, integer maps included."""
+    *lead, h, w, c = x.shape
+    oh, ow = out_hw
+    if h % oh == 0 and w % ow == 0:
+        return x[..., ::h // oh, ::w // ow, :]
+    if oh % h == 0 and ow % w == 0:
+        return x.repeat_interleave(oh // h, -3).repeat_interleave(ow // w, -2)
+    ys = torch.floor(torch.arange(oh, dtype=torch.float32) * (h / oh))
+    xs = torch.floor(torch.arange(ow, dtype=torch.float32) * (w / ow))
+    ys = ys.long().clamp(max=h - 1).to(x.device)
+    xs = xs.long().clamp(max=w - 1).to(x.device)
+    return x[..., ys[:, None], xs[None, :], :]

@@ -68,3 +68,86 @@ def test_tiny_model_card_matches_cpu(cuda):
         want = cpu.predict_logits(x)
         got = gpu.predict_logits(x.to(cuda)).cpu()
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+# --- slice two: the backward kernel and the train step ----------------------
+
+def _coords(gen, n, howo, g, p, h, w):
+    py = torch.rand((n, howo, g, p), generator=gen) * (h + 4) - 2
+    px = torch.rand((n, howo, g, p), generator=gen) * (w + 4) - 2
+    py[0, :5] = py[0, :5].floor()  # exact integer coordinates
+    px[1, :7] = px[1, :7].round()
+    return py, px
+
+
+@pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
+def test_backward_kernel_matches_plain(cuda, cg):
+    """K2 against ``dcnv3_sample_backward_reference`` at atol 3e-4 /
+    rtol 1e-3 (tests/test_dcnv3.py's backward tolerance; the atomics sum
+    dvalue in a varying order)."""
+    gen = torch.Generator().manual_seed(10 + cg)
+    n, h, w, g, p, howo = 2, 9, 13, 4, 9, 60
+    value = torch.randn((n, h, w, g * cg), generator=gen)
+    py, px = _coords(gen, n, howo, g, p, h, w)
+    mask = torch.rand((n, howo, g, p), generator=gen)
+    dout = torch.randn((n, howo, g * cg), generator=gen)
+    want = dcnv3.dcnv3_sample_backward_reference(value, py, px, mask, dout)
+    before = dcnv3.dcnv3_sample_backward.launches
+    got = dcnv3.dcnv3_sample_backward(
+        *(t.to(cuda) for t in (value, py, px, mask, dout)))
+    torch.cuda.synchronize()
+    assert dcnv3.dcnv3_sample_backward.launches == before + 1
+    for gv, wv in zip(got, want):
+        torch.testing.assert_close(gv.cpu(), wv, atol=3e-4, rtol=1e-3)
+
+
+def test_dcnv3_core_autograd_card_matches_cpu(cuda):
+    """Gradients to x, offset and mask through ``dcnv3_core`` on the card
+    (K1 forward, K2 backward) equal those of the plain path on the CPU."""
+    gen = torch.Generator().manual_seed(3)
+    n, h, w, g, gc = 2, 7, 9, 4, 8
+    x = torch.randn((n, h, w, g * gc), generator=gen)
+    off = torch.randn((n, h, w, g * 18), generator=gen) * 2
+    mask = torch.rand((n, h, w, g * 9), generator=gen)
+    cot = torch.randn((n, h, w, g * gc), generator=gen)
+    grads = []
+    for dev in ("cpu", cuda):
+        ts = [t.clone().to(dev).requires_grad_() for t in (x, off, mask)]
+        (dcnv3.dcnv3_core(*ts, group=g, group_channels=gc)
+         * cot.to(dev)).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for gc_, gg in zip(*grads):
+        assert gg.abs().max() > 0
+        torch.testing.assert_close(gg, gc_, atol=3e-4, rtol=1e-3)
+
+
+def test_tiny_train_step_card_matches_cpu(cuda):
+    """One tiny train step on the card (through K1 and K2) against the
+    same step on the CPU: every loss at 1e-4 relative, grad_norm at 1e-3
+    relative (the atomics and cuDNN sum in other orders)."""
+    from spike2former_tpu_torch import api
+
+    opts = ["model.num_classes=5", "model.embed_dim=(8,16,24,32)",
+            "model.backbone_heads=4", "model.feat_channels=16",
+            "model.num_queries=4", "model.num_decoder_layers=1",
+            "model.num_encoder_layers=1", "model.depths_stage3=1",
+            "model.depths_stage4=1", "model.dcn_group=4",
+            "train.warmup_iters=1"]
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    blocks = rng.integers(0, 5, (2, 4, 4))
+    sem = np.kron(blocks, np.ones((16, 16), np.int64))
+    sem[:, :4] = 255
+    out = []
+    for dev in ("cpu", cuda):
+        tr = api.init_trainer("SDTv2_maskformer_DCNpixelDecoder_ade20k",
+                              opts, device=dev, seed=1)
+        before = dcnv3.dcnv3_sample_backward.launches
+        out.append(api.train_steps(tr, [(images, sem)])[0])
+        if dev != "cpu":
+            assert dcnv3.dcnv3_sample_backward.launches == before + 1
+    cpu, card = out
+    for k in cpu:
+        tol = 1e-3 if k == "grad_norm" else 1e-4
+        np.testing.assert_allclose(card[k], cpu[k], rtol=tol, atol=1e-6,
+                                   err_msg=k)

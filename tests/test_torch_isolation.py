@@ -29,7 +29,9 @@ def test_port_and_chip_smoke_import_without_jax():
     """A subprocess whose import system refuses jax, flax, optax and
     spike2former_tpu still imports every port module and chip_smoke."""
     modules = _port_modules() + ["chip_smoke"]
-    assert "spike2former_tpu_torch.ops.dcnv3" in modules
+    for name in ("ops.dcnv3", "losses.losses", "losses.matcher",
+                 "losses.criterion", "engine.train", "engine.optim"):
+        assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
 
@@ -62,6 +64,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         api.init_model(PRESET, overrides=["model.num_encoder_layers=1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_trainer(PRESET, overrides=["model.num_encoder_layers=1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -74,6 +78,36 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
         sys.path.remove(REPO)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_trainer_rejects_unported_matcher():
+    with pytest.raises(ValueError, match="not ported"):
+        api.init_trainer(PRESET, overrides=["train.matcher='auction'"],
+                         device="cpu")
+    with pytest.raises(AttributeError, match="unknown config key"):
+        api.init_trainer(PRESET, overrides=["train.compact_gt=32"],
+                         device="cpu")
+
+
+def test_trainer_draws_weights_from_train_seed():
+    """``train.seed`` picks the weights; the ``seed`` argument, when
+    passed, overrides it."""
+    opts = ["model.num_classes=5", "model.embed_dim=(8,16,24,32)",
+            "model.backbone_heads=4", "model.feat_channels=16",
+            "model.num_queries=4", "model.num_decoder_layers=1",
+            "model.num_encoder_layers=1", "model.depths_stage3=1",
+            "model.depths_stage4=1", "model.dcn_group=4"]
+
+    def weights(overrides, **kw):
+        tr = api.init_trainer(PRESET, opts + overrides, device="cpu", **kw)
+        return tr.state.model.state_dict()
+
+    default, five = weights([]), weights(["train.seed=5"])
+    assert any(not torch.equal(default[k], five[k]) for k in default)
+    for k, v in weights([], seed=5).items():
+        assert torch.equal(v, five[k]), k
+    for k, v in weights(["train.seed=5"], seed=0).items():
+        assert torch.equal(v, default[k]), k
 
 
 def test_cpu_tensor_takes_plain_sampler_without_counting():
