@@ -8,11 +8,13 @@ Run from the root of a checkout, with no arguments::
 Phases, each printing one flushed line with the seconds elapsed:
 
   (a) device: torch/CUDA versions, the card's name and power limit;
-  (b) build: ``nvcc`` builds ``csrc/dcnv3_sample.cu`` (K1, forward) and
-      ``csrc/dcnv3_sample_bwd.cu`` (K2, backward) for sm_90a, side by side;
+  (b) build: ``nvcc`` builds ``csrc/dcnv3_sample.cu`` (K1, forward),
+      ``csrc/dcnv3_sample_bwd.cu`` (K2, backward),
+      ``csrc/dcnv3_sample_grouped.cu`` (the grouped-layout forward, the
+      counterpart of K3-K6) and ``csrc/dcnv3_sample_grouped_bwd.cu`` (its
+      backward, K7) for sm_90a, the four side by side;
   (c) K1 against its plain PyTorch version at the flagship shapes (serve:
-      N in {1, 2}, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9, f32, TF32
-      off), with its time, the plain time, an ``F.grid_sample`` yardstick
+      N in {1, 2}, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9, f32), with its time, the plain time, an ``F.grid_sample`` yardstick
       and the byte bound;
   (k2) K2 against its plain version at the flagship train shape (N=6,
       32x32), for random (off-map), zero-offset and integer-coordinate
@@ -21,11 +23,25 @@ Phases, each printing one flushed line with the seconds elapsed:
   (grad) gradients to x, offset and mask through ``dcnv3_core`` at the
       flagship train shape, K1 forward and K2 backward, against autograd
       of the plain sampler on the same card tensors;
+  (grouped) the grouped-layout kernels at the flagship's full-width
+      shapes (serve: N=1, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9):
+      the forward in both layouts (gchw for K3/K5/K6, ghwc for K4) and
+      the backward (K7) against their plain versions and against K1/K2 on
+      the same data, for random (off-map), zero-offset and integer inputs;
+      autograd of both layouts at the train shape; their times, the plain
+      times, the ``F.grid_sample`` yardsticks and the byte bounds.  No
+      model path calls them: their launch counts on the serve and train
+      paths are read and reported (0);
   (d) the flagship SDTv2 MaskFormer at full width serves 3 requests through
       ``api.inference_model`` (K1 launch count 6 per request); K1 is held
       against the plain version at each of the 6 DCN calls of one request,
       and a tiny model's logits on the card against the CPU's;
   (e) median (and max) ms per request over 30 requests, and peak memory;
+  (tf32) ``whole_logits`` on the three requests' images in full f32, with
+      torch's default flags (TF32 on for cuDNN) and with TF32 on for both
+      cuDNN and matmuls: the share of pixels whose class agrees with f32
+      and the largest logit difference; the tiny model's card logits in
+      each mode against the CPU's;
   (train) the flagship at full width takes 2 warm-up and 5 timed train
       steps through ``api.init_trainer`` / ``api.train_steps`` at batch 6
       and 512x512 crops of seeded synthetic images and piecewise-constant
@@ -41,6 +57,7 @@ exits non-zero when no CUDA device is available.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
@@ -54,10 +71,12 @@ import torch.nn.functional as F
 
 from spike2former_tpu_torch import api
 from spike2former_tpu_torch.data.synthetic import synthetic_batch
-from spike2former_tpu_torch.engine.inference import whole_logits
+from spike2former_tpu_torch.device import f32_precision
+from spike2former_tpu_torch.engine.inference import (postprocess_pred,
+                                                      whole_logits)
 from spike2former_tpu_torch.engine.weights import randomize_
 from spike2former_tpu_torch.models.segmentor import Spike2Former
-from spike2former_tpu_torch.ops import cuda_build, dcnv3
+from spike2former_tpu_torch.ops import cuda_build, dcnv3, dcnv3_grouped
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
 KERNEL_TOL = 2e-5     # f32 sampler against its plain version
@@ -106,6 +125,11 @@ def cuda_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` runs of ``cuda_ms``."""
+    return statistics.median(cuda_ms(fn) for _ in range(reps))
 
 
 def host_ms(fn, iters: int = 100) -> float:
@@ -227,10 +251,13 @@ def phase_serve(im) -> dict:
             for hw in REQUEST_SHAPES]
 
     dcnv3.dcnv3_sample.launches = 0
+    zero_grouped_launches()
     preds = [api.inference_model(im, img) for img in imgs]
     torch.cuda.synchronize()
     launches = dcnv3.dcnv3_sample.launches
-    log("serve", f"3 requests served; dcnv3_sample launches={launches}")
+    grouped = grouped_launches()
+    log("serve", f"3 requests served; dcnv3_sample launches={launches}, "
+        f"grouped forward/backward launches={grouped}")
     check(launches == 6 * len(imgs),
           f"expected {6 * len(imgs)} DCN kernel launches, got {launches}")
     for img, pred in zip(imgs, preds):
@@ -284,7 +311,7 @@ def phase_serve(im) -> dict:
             api.inference_model(im, img)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-    return dict(launches=launches, max_abs_err=worst,
+    return dict(launches=launches, grouped=grouped, max_abs_err=worst,
                 request_ms=statistics.median(times), max_ms=max(times),
                 n=len(times),
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -292,12 +319,13 @@ def phase_serve(im) -> dict:
 
 def phase_small_reference() -> float:
     """A tiny model's logits on the card (kernel path) against the same
-    model on the CPU (plain path) at 64x64."""
+    model on the CPU (plain path) at 64x64, in f32 as the entry points
+    run it (this calls below them)."""
     cpu = randomize_(Spike2Former(T=1, **TINY), seed=1)
     gpu = copy.deepcopy(cpu).cuda()
     x = torch.from_numpy(np.random.default_rng(1).normal(
         0, 1, (1, 64, 64, 3)).astype(np.float32))
-    with torch.inference_mode():
+    with torch.inference_mode(), f32_precision():
         want = cpu.predict_logits(x)
         got = gpu.predict_logits(x.cuda()).cpu()
     err = (got - want).abs().max().item()
@@ -410,6 +438,267 @@ def phase_core_autograd(gen) -> float:
     return worst
 
 
+# the grouped-layout sampler (K3-K7) at the shapes the flagship's DCN
+# layers would hand it: a request's and a train step's /16 map
+GROUPED_SHAPES = (("serve", 1, 32, 44), ("train", 6, 32, 32))
+GROUPED_FORWARD = {  # JAX name -> (K number, output layout)
+    "dcnv3_sample_pallas_t": ("K3", "gchw"),
+    "dcnv3_sample_pallas": ("K4", "ghwc"),
+    "dcnv3_sample_pallas_t4": ("K5", "gchw"),
+    "dcnv3_sample_pallas_tg": ("K6", "gchw"),
+}
+GROUPED_BACKWARD = "dcnv3_sample_pallas_t_bwd"   # K7
+# each TPU kernel's wrapper line in spike2former_tpu/ops/pallas/dcnv3_kernel.py
+TPU_LINE = {"dcnv3_sample_pallas_t5": 440, "dcnv3_sample_pallas_t5_bwd": 773,
+            "dcnv3_sample_pallas_t": 125, "dcnv3_sample_pallas": 197,
+            "dcnv3_sample_pallas_t4": 307, "dcnv3_sample_pallas_tg": 566,
+            "dcnv3_sample_pallas_t_bwd": 954}
+
+
+def to_grouped(value, py, px, mask, dout=None):
+    """K1's layout -> the grouped one: value [N, H, W, G*Cg] -> feat
+    [N, G, H, W*Cg]; [N, HoWo, G, P] -> [N, G, P, HoWo]; dout
+    [N, HoWo, G*Cg] -> [N, G, Cg, HoWo]."""
+    n, h, w, c = value.shape
+    _, howo, g, p = py.shape
+    cg = c // g
+    feat = value.view(n, h, w, g, cg).permute(0, 3, 1, 2, 4).reshape(
+        n, g, h, w * cg)
+    out = [feat] + [t.permute(0, 2, 3, 1) for t in (py, px, mask)]
+    if dout is not None:
+        out.append(dout.view(n, howo, g, cg).permute(0, 2, 3, 1))
+    return [t.contiguous() for t in out]
+
+
+def grouped_yardstick(feat, py, px, mask, *, num_points, h_in, w_in, group,
+                      group_channels, out_layout):
+    """The grouped forward by ``F.grid_sample`` over [N*G, Cg, H, W] and
+    the mask-weighted sum over P, which gives [N, G, Cg, HoWo] directly:
+    timed only, never called by the port."""
+    n, howo = feat.shape[0], py.shape[-1]
+    ng, cg = n * group, group_channels
+    x = feat.view(ng, h_in, w_in, cg).permute(0, 3, 1, 2)
+    grid = torch.stack(((px + 0.5) / w_in * 2 - 1,
+                        (py + 0.5) / h_in * 2 - 1), -1)
+    s = F.grid_sample(x, grid.view(ng, num_points, howo, 2),
+                      mode="bilinear", padding_mode="zeros",
+                      align_corners=False)              # [NG, Cg, P, HoWo]
+    out = (s * mask.view(ng, 1, num_points, howo)).sum(2).view(
+        n, group, cg, howo)
+    return out if out_layout == "gchw" else out.transpose(2, 3).contiguous()
+
+
+def grouped_launches() -> tuple[int, int]:
+    return (dcnv3_grouped.dcnv3_sample_grouped.launches,
+            dcnv3_grouped.dcnv3_sample_grouped_backward.launches)
+
+
+def zero_grouped_launches() -> None:
+    dcnv3_grouped.dcnv3_sample_grouped.launches = 0
+    dcnv3_grouped.dcnv3_sample_grouped_backward.launches = 0
+
+
+def phase_grouped(gen) -> dict:
+    """(grouped): the grouped-layout forward kernel in both layouts (the
+    counterparts of K3, K4, K5 and K6) and its backward kernel (K7) at the
+    flagship's full-width shapes, each against its plain version and
+    against K1/K2 on the same data; autograd of both layouts at the train
+    shape; the timings."""
+    g, cg, p = 32, 8, 9
+    fwd = dcnv3_grouped.JAX_COUNTERPARTS
+    bwd = dcnv3_grouped.dcnv3_sample_grouped_backward
+    errs = {name: 0.0 for name in (*GROUPED_FORWARD, GROUPED_BACKWARD)}
+    times = {}
+    for shape, n, h, w in GROUPED_SHAPES:
+        static = dict(num_points=p, h_in=h, w_in=w, group=g,
+                      group_channels=cg)
+        howo = h * w
+        for kind in ("random", "zero", "integer"):
+            flat = sampler_inputs(n, h, w, g, cg, p, kind, gen)
+            dout_flat = torch.randn((n, howo, g * cg), generator=gen).cuda()
+            feat, py, px, mask, dout = to_grouped(*flat, dout_flat)
+            k1 = dcnv3.dcnv3_sample(*flat).view(n, howo, g, cg)
+            for name, (k, layout) in GROUPED_FORWARD.items():
+                got = fwd[name](feat, py, px, mask, **static)
+                torch.cuda.synchronize()
+                want = dcnv3_grouped.dcnv3_sample_grouped_reference(
+                    feat, py, px, mask, **static, out_layout=layout)
+                k1_l = k1.permute((0, 2, 3, 1) if layout == "gchw"
+                                  else (0, 2, 1, 3))
+                check(bool(torch.isfinite(got).all()),
+                      f"non-finite {k} ({shape}, {kind})")
+                e_plain = (got - want).abs().max().item()
+                e_k1 = (got - k1_l).abs().max().item()
+                check(e_plain <= KERNEL_TOL and e_k1 <= KERNEL_TOL,
+                      f"{k} ({layout}) vs plain {e_plain:.3g}, vs K1 "
+                      f"{e_k1:.3g} > {KERNEL_TOL} ({shape}, {kind})")
+                errs[name] = max(errs[name], e_plain, e_k1)
+                log("grouped", f"{k} {name} {layout} {shape} N={n} {h}x{w} "
+                    f"{kind}: max|kernel-plain|={e_plain:.3g} "
+                    f"max|kernel-K1|={e_k1:.3g}")
+            got = bwd(feat, py, px, mask, dout, **static)
+            torch.cuda.synchronize()
+            want = dcnv3_grouped.dcnv3_sample_grouped_backward_reference(
+                feat, py, px, mask, dout, **static)
+            dvalue, *dcoords = dcnv3.dcnv3_sample_backward(*flat, dout_flat)
+            k2 = to_grouped(dvalue, *dcoords)
+            line = []
+            for gname, gv, wv, kv in zip(("dfeat", "dpy", "dpx", "dmask"),
+                                         got, want, k2):
+                check(bool(torch.isfinite(gv).all()),
+                      f"non-finite K7 {gname} ({shape}, {kind})")
+                for ref, other in ((wv, "plain"), (kv, "K2")):
+                    err = (gv - ref).abs().max().item()
+                    check(torch.allclose(gv, ref, atol=BWD_ATOL,
+                                         rtol=BWD_RTOL),
+                          f"K7 {gname} vs {other} beyond atol {BWD_ATOL} "
+                          f"rtol {BWD_RTOL} ({shape}, {kind}): {err:.3g}")
+                    errs[GROUPED_BACKWARD] = max(errs[GROUPED_BACKWARD], err)
+                    line.append(f"{gname} vs {other} {err:.3g}")
+            log("grouped", f"K7 {GROUPED_BACKWARD} {shape} N={n} {h}x{w} "
+                f"{kind}: max|kernel-ref| " + ", ".join(line))
+
+        ins = to_grouped(*sampler_inputs(n, h, w, g, cg, p, "random", gen))
+        feat, py = ins[:2]
+        if shape == "train":
+            # autograd of both layouts against the plain version's
+            for name in ("dcnv3_sample_pallas_t", "dcnv3_sample_pallas"):
+                k, layout = GROUPED_FORWARD[name]
+                before = grouped_launches()
+                cot = torch.randn((n, g, cg, howo), generator=gen).cuda()
+                if layout == "ghwc":
+                    cot = cot.transpose(2, 3).contiguous()
+                grads = []
+                for fn in (dcnv3_grouped.dcnv3_sample_grouped,
+                           dcnv3_grouped.dcnv3_sample_grouped_reference):
+                    leaves = [t.clone().requires_grad_() for t in ins]
+                    out = fn(*leaves, **static, out_layout=layout)
+                    grads.append(torch.autograd.grad(out, leaves, cot))
+                check(grouped_launches() == (before[0] + 1, before[1] + 1),
+                      f"{layout} autograd did not run the grouped kernels "
+                      "once each")
+                line = []
+                for gname, gv, wv in zip(("dfeat", "dpy", "dpx", "dmask"),
+                                         *grads):
+                    err = (gv - wv).abs().max().item()
+                    check(torch.allclose(gv, wv, atol=BWD_ATOL,
+                                         rtol=BWD_RTOL),
+                          f"{layout} autograd {gname} kernel vs plain "
+                          f"beyond atol {BWD_ATOL} rtol {BWD_RTOL}: "
+                          f"{err:.3g}")
+                    check(wv.abs().max().item() > 0, f"{gname} is all 0")
+                    errs[name] = max(errs[name], err)
+                    line.append(f"{gname} {err:.3g}")
+                log("grouped", f"autograd {k} {layout} {shape} N={n}: "
+                    "max|kernel-plain| " + ", ".join(line))
+
+        out_elems = n * g * cg * howo
+        for name, (k, layout) in GROUPED_FORWARD.items():
+            t = dict(
+                ms=median_ms(lambda: fwd[name](*ins, **static)),
+                plain_ms=cuda_ms(lambda: dcnv3_grouped
+                                 .dcnv3_sample_grouped_reference(
+                                     *ins, **static, out_layout=layout),
+                                 iters=20),
+                library_ms=cuda_ms(lambda: grouped_yardstick(
+                    *ins, **static, out_layout=layout), iters=20),
+                bytes_ms=sampler_bytes(feat, py, out_elems)
+                / HBM_BYTES_PER_S * 1e3,
+                ops_ms=n * howo * g * p * (4 * cg * 2 + 16)
+                / F32_FLOPS_PER_S * 1e3)
+            times[name, shape] = t
+            lib_err = (grouped_yardstick(*ins, **static, out_layout=layout)
+                       - dcnv3_grouped.dcnv3_sample_grouped_reference(
+                           *ins, **static, out_layout=layout)
+                       ).abs().max().item()
+            log("grouped", f"{k} {name} {layout} {shape} N={n} timing: "
+                f"kernel_ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+                f"library_ms={t['library_ms']:.5f} "
+                f"(grid_sample max|diff|={lib_err:.3g}) "
+                f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
+                f"op_bound_us={t['ops_ms'] * 1e3:.3f}")
+        dout = torch.randn((n, g, cg, howo), generator=gen).cuda()
+        lib_ins = [t.clone().requires_grad_() for t in ins]
+        lib_out = grouped_yardstick(*lib_ins, **static, out_layout="gchw")
+        t = dict(
+            ms=median_ms(lambda: bwd(*ins, dout, **static)),
+            plain_ms=cuda_ms(lambda: dcnv3_grouped
+                             .dcnv3_sample_grouped_backward_reference(
+                                 *ins, dout, **static), iters=10),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, lib_ins, dout, retain_graph=True), iters=20),
+            bytes_ms=4 * (2 * feat.numel() + 6 * py.numel() + dout.numel())
+            / HBM_BYTES_PER_S * 1e3,
+            ops_ms=py.numel() * (4 * 4 * cg + 40) / F32_FLOPS_PER_S * 1e3)
+        times[GROUPED_BACKWARD, shape] = t
+        log("grouped", f"K7 {GROUPED_BACKWARD} {shape} N={n} timing: "
+            f"kernel_ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+            f"library_ms={t['library_ms']:.5f} "
+            f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
+            f"op_bound_us={t['ops_ms'] * 1e3:.3f}")
+    return dict(errs=errs, times=times)
+
+
+@contextlib.contextmanager
+def tf32(matmul: bool, cudnn: bool):
+    """Set the TF32 flags of matmuls and cuDNN for a block, then restore
+    them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def phase_tf32(im) -> dict:
+    """(tf32): what TF32 does to the flagship's logits and class maps.
+    ``whole_logits``, which sets no precision itself, runs on the three
+    serve images in full f32, with torch's default flags (TF32 on for
+    cuDNN only) and with TF32 on for both; each is held to f32 by the
+    share of pixels whose class agrees and the largest logit difference.
+    The tiny model's card logits in each mode are held to the CPU's."""
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for hw in REQUEST_SHAPES]
+    modes = {"f32": (False, False), "default": (False, True),
+             "tf32": (True, True)}
+    res = {}
+    for img in imgs:
+        padded, hw = api.resize_and_pad(im.cfg, img)
+        x = torch.from_numpy(padded[None]).cuda()
+        out = {}
+        for mode, flags in modes.items():
+            with tf32(*flags):
+                logits = whole_logits(im.model, x)
+            out[mode] = logits, postprocess_pred(logits, hw, img.shape[:2])
+        for mode in ("default", "tf32"):
+            agree = (out[mode][1] == out["f32"][1]).float().mean().item()
+            diff = (out[mode][0] - out["f32"][0]).abs().max().item()
+            res.setdefault(mode, []).append((agree, diff))
+            log("tf32", f"image {img.shape[:2]} {mode} vs f32: class "
+                f"agreement {agree:.6f}, max|logit diff|={diff:.6g} "
+                f"(max|logit| {out['f32'][0].abs().max().item():.6g}, "
+                f"classes in use {len(out['f32'][1].unique())})")
+    cpu = randomize_(Spike2Former(T=1, **TINY), seed=1)
+    gpu = copy.deepcopy(cpu).cuda()
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = cpu.predict_logits(x)
+        for mode, flags in modes.items():
+            with tf32(*flags):
+                got = gpu.predict_logits(x.cuda()).cpu()
+            diff = (got - want).abs().max().item()
+            res["tiny_" + mode] = diff
+            log("tf32", f"tiny model 64x64 card ({mode}) vs CPU: "
+                f"max|logit diff|={diff:.6g} (tol {MODEL_TOL})")
+    return res
+
+
 def phase_train() -> dict:
     """(train): full-width flagship train steps through the entry
     points."""
@@ -427,6 +716,7 @@ def phase_train() -> dict:
     torch.cuda.reset_peak_memory_stats()
     dcnv3.dcnv3_sample.launches = 0
     dcnv3.dcnv3_sample_backward.launches = 0
+    zero_grouped_launches()
     times, metrics = [], []
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
@@ -440,10 +730,12 @@ def phase_train() -> dict:
             f"grad_norm={m['grad_norm']:.6g} dropped_gt={m['dropped_gt']:g}")
     fwd = dcnv3.dcnv3_sample.launches
     bwd = dcnv3.dcnv3_sample_backward.launches
+    grouped = grouped_launches()
     steps = len(batches)
     log("train", f"{steps} steps: dcnv3_sample launches={fwd} "
         f"({fwd / steps:g} per step), dcnv3_sample_bwd launches={bwd} "
-        f"({bwd / steps:g} per step)")
+        f"({bwd / steps:g} per step), grouped forward/backward launches="
+        f"{grouped}")
     check(fwd == 6 * steps and bwd == 6 * steps,
           f"expected 6 K1 and 6 K2 launches per step, got {fwd}, {bwd} "
           f"over {steps} steps")
@@ -457,7 +749,7 @@ def phase_train() -> dict:
     log("train", "DCN offset and mask projections of all 6 encoder layers "
         "have non-zero gradients")
     timed = times[WARMUP_STEPS:]
-    return dict(launches=fwd, bwd_launches=bwd,
+    return dict(launches=fwd, bwd_launches=bwd, grouped=grouped,
                 step_ms=statistics.median(timed), max_ms=max(timed),
                 n=len(timed),
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -485,8 +777,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -498,9 +788,11 @@ def main() -> int:
 
     t = time.perf_counter()
     dcnv3.build_kernels()
-    log("build", f"{dcnv3.SOURCE}, {dcnv3.BWD_SOURCE} built in "
+    sources = (dcnv3.SOURCE, dcnv3.BWD_SOURCE, dcnv3.GROUPED_SOURCE,
+               dcnv3.GROUPED_BWD_SOURCE)
+    log("build", f"{', '.join(sources)} built in "
         f"{time.perf_counter() - t:.1f}s")
-    for src in (dcnv3.SOURCE, dcnv3.BWD_SOURCE):
+    for src in sources:
         lib = cuda_build.library_path(src)
         for line in (lib.parent / "build.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -510,6 +802,7 @@ def main() -> int:
     k = phase_kernel(gen)
     k2 = phase_backward_kernel(gen)
     grad_err = phase_core_autograd(gen)
+    gk = phase_grouped(gen)
 
     t = time.perf_counter()
     im = api.init_model(PRESET, seed=0)
@@ -519,6 +812,12 @@ def main() -> int:
     log("timing", f"median request_ms={s['request_ms']:.3f} (max "
         f"{s['max_ms']:.3f}, n={s['n']}) peak_mem_gib={s['peak_gib']:.3f} "
         f"on {smi}")
+    tf = phase_tf32(im)
+    for mode in ("default", "tf32"):
+        log("tf32", f"{mode} vs f32 over the 3 images: least class "
+            f"agreement {min(a for a, _ in tf[mode]):.6f}, largest logit "
+            f"difference {max(d for _, d in tf[mode]):.6g}; tiny model vs "
+            f"CPU {tf['tiny_' + mode]:.6g} (f32: {tf['tiny_f32']:.6g})")
     err = phase_small_reference()
     log("reference", f"tiny model 64x64 card vs CPU max|diff|={err:.3g} "
         f"(tol {MODEL_TOL})")
@@ -532,27 +831,36 @@ def main() -> int:
     log("train", f"tiny model 3 steps card vs CPU max rel|diff| of total="
         f"{t_err:.3g} (tol {TRAIN_RTOL})")
 
-    n1 = k[1]
-    bound = max(n1["bytes_ms"], n1["ops_ms"])
-    kernels = [dict(
-        name="dcnv3_sample", route="cuda",
-        source="spike2former_tpu_torch/csrc/dcnv3_sample.cu",
-        replaces="spike2former_tpu/ops/pallas/dcnv3_kernel.py:440",
-        launches=s["launches"] + tr["launches"],
-        max_abs_err=max(k["max_abs_err"], s["max_abs_err"]),
-        ms=n1["ms"], plain_ms=n1["plain_ms"], bound_ms=bound,
-        bound_by="bytes" if n1["bytes_ms"] >= n1["ops_ms"] else "operations",
-        library_ms=n1["library_ms"]), dict(
-        name="dcnv3_sample_bwd", route="cuda",
-        source="spike2former_tpu_torch/csrc/dcnv3_sample_bwd.cu",
-        replaces="spike2former_tpu/ops/pallas/dcnv3_kernel.py:773",
-        launches=tr["bwd_launches"],
-        max_abs_err=max(k2["max_abs_err"], grad_err),
-        ms=k2["ms"], plain_ms=k2["plain_ms"],
-        bound_ms=max(k2["bytes_ms"], k2["ops_ms"]),
-        bound_by=("bytes" if k2["bytes_ms"] >= k2["ops_ms"]
-                  else "operations"),
-        library_ms=k2["library_ms"])]
+    def row(name, source, tpu_name, launches, max_abs_err, t):
+        return dict(
+            name=name, route="cuda",
+            source=f"spike2former_tpu_torch/csrc/{source}",
+            replaces="spike2former_tpu/ops/pallas/dcnv3_kernel.py:"
+                     f"{TPU_LINE[tpu_name]}",
+            launches=launches, max_abs_err=max_abs_err, ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=max(t["bytes_ms"], t["ops_ms"]),
+            bound_by=("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                      else "operations"),
+            library_ms=t["library_ms"])
+
+    # K1 and K3-K6 at the serve shape, K2 and K7 at the train shape
+    kernels = [
+        row("dcnv3_sample", dcnv3.SOURCE, "dcnv3_sample_pallas_t5",
+            s["launches"] + tr["launches"],
+            max(k["max_abs_err"], s["max_abs_err"]), k[1]),
+        row("dcnv3_sample_bwd", dcnv3.BWD_SOURCE,
+            "dcnv3_sample_pallas_t5_bwd", tr["bwd_launches"],
+            max(k2["max_abs_err"], grad_err), k2)]
+    for name, (_, layout) in GROUPED_FORWARD.items():
+        kernels.append(row(
+            f"dcnv3_sample_grouped[{layout}] ({name})", dcnv3.GROUPED_SOURCE,
+            name, s["grouped"][0] + tr["grouped"][0], gk["errs"][name],
+            gk["times"][name, "serve"]))
+    kernels.append(row(
+        f"dcnv3_sample_grouped_bwd ({GROUPED_BACKWARD})",
+        dcnv3.GROUPED_BWD_SOURCE, GROUPED_BACKWARD,
+        s["grouped"][1] + tr["grouped"][1], gk["errs"][GROUPED_BACKWARD],
+        gk["times"][GROUPED_BACKWARD, "train"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,9 @@
 
 Runs on the card unless ``device="cpu"`` is passed; with no card and no
 device asked for, ``init_model`` and ``init_trainer`` raise.
+``inference_model`` and ``train_steps`` compute in full float32, as
+``model.dtype`` says, whatever the caller's TF32 flags
+(``device.f32_precision``), and leave those flags as they found them.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 
 from .data.metainfo import DATASETS
 from .data.transforms import load_image, pad_to, resize_keep_ratio
-from .device import resolve_device
+from .device import f32_precision, resolve_device
 from .engine.config import Config, build_model, get_config
 from .engine.inference import postprocess_pred, whole_logits
 from .engine.train import init_trainer, train_steps  # noqa: F401
@@ -55,18 +58,28 @@ def init_model(config: str | Config,
     return InferenceModel(cfg, model.to(dev).eval(), dev)
 
 
+def resize_and_pad(cfg: Config, img: np.ndarray
+                   ) -> tuple[np.ndarray, tuple[int, int]]:
+    """The eval transform of one RGB image: resize keeping the ratio to
+    ``cfg.data.test_scale``, then pad to a multiple of
+    ``cfg.data.size_divisor``.  Returns the padded [H, W, 3] image and the
+    resized (h, w) inside it."""
+    sample = resize_keep_ratio({"image": img, "sem_seg": None, "meta": {}},
+                               *cfg.data.test_scale)
+    h, w = sample["image"].shape[:2]
+    div = cfg.data.size_divisor or 1
+    sample = pad_to(sample, (-(-h // div) * div, -(-w // div) * div))
+    return sample["image"], (h, w)
+
+
 def inference_model(im: InferenceModel, image: str | np.ndarray
                     ) -> np.ndarray:
     """Whole-image inference on one image (path or RGB array): the class
     map at the original resolution, [H, W] int32."""
     img = load_image(image) if isinstance(image, str) else image
-    ori_shape = img.shape[:2]
-    sample = resize_keep_ratio({"image": img, "sem_seg": None, "meta": {}},
-                               *im.cfg.data.test_scale)
-    h, w = sample["image"].shape[:2]
-    div = im.cfg.data.size_divisor or 1
-    sample = pad_to(sample, (-(-h // div) * div, -(-w // div) * div))
-    x = torch.from_numpy(sample["image"][None]).to(im.device)
-    logits = whole_logits(im.model, x)
-    pred = postprocess_pred(logits, (h, w), ori_shape)
+    padded, hw = resize_and_pad(im.cfg, img)
+    x = torch.from_numpy(padded[None]).to(im.device)
+    with f32_precision():
+        logits = whole_logits(im.model, x)
+        pred = postprocess_pred(logits, hw, img.shape[:2])
     return pred[0].cpu().numpy()

@@ -1,5 +1,8 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and precision policy shared by the port's entry
+points."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -14,3 +17,21 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def f32_precision():
+    """Run the block in full float32 on the card: TF32 off for cuDNN's
+    convolutions and for matmuls, which torch's defaults (cuDNN on) and a
+    caller's settings may allow.  The models compute in float32, and the
+    quantized net amplifies TF32's rounding.  Only the flags that were on
+    are switched, and they are switched back on the way out."""
+    flags = [f for f in (torch.backends.cuda.matmul, torch.backends.cudnn)
+             if f.allow_tf32]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f in flags:
+            f.allow_tf32 = True

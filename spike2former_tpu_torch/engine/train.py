@@ -18,7 +18,7 @@ from typing import Callable, Iterable
 import torch
 from torch.profiler import record_function
 
-from ..device import resolve_device
+from ..device import f32_precision, resolve_device
 from ..losses.criterion import maskformer_loss, semantic_to_instances
 from ..models.segmentor import Spike2Former, preprocess
 from .config import Config, TrainConfig, build_model, get_config
@@ -141,11 +141,14 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
 def train_steps(trainer: Trainer, batches: Iterable) -> list[dict]:
     """Take one step per ``(images_u8 [B, H, W, 3], sem_seg [B, H, W])``
     batch (numpy arrays or tensors); returns each step's metrics as
-    floats."""
+    floats.  The steps run in full float32 whatever the caller's TF32
+    flags (``device.f32_precision``)."""
     out = []
-    for images, sem_seg in batches:
-        _, metrics = trainer.step_fn(
-            trainer.state, torch.as_tensor(images, device=trainer.device),
-            torch.as_tensor(sem_seg, device=trainer.device))
-        out.append({k: float(v) for k, v in metrics.items()})
+    with f32_precision():
+        for images, sem_seg in batches:
+            _, metrics = trainer.step_fn(
+                trainer.state,
+                torch.as_tensor(images, device=trainer.device),
+                torch.as_tensor(sem_seg, device=trainer.device))
+            out.append({k: float(v) for k, v in metrics.items()})
     return out

@@ -123,11 +123,17 @@ def dcnv3_sample_backward_reference(value: torch.Tensor, py: torch.Tensor,
 
 SOURCE = "dcnv3_sample.cu"
 BWD_SOURCE = "dcnv3_sample_bwd.cu"
+# the grouped-layout sampler and its backward (ops/dcnv3_grouped.py)
+GROUPED_SOURCE = "dcnv3_sample_grouped.cu"
+GROUPED_BWD_SOURCE = "dcnv3_sample_grouped_bwd.cu"
 CHANNELS_PER_GROUP = (1, 2, 4, 8, 16, 32)
-# each library's entry point: (name, tensor pointers); then 7 ints (n,
-# howo, groups, points, h, w, cg) and the stream
-_ENTRY = {SOURCE: ("dcnv3_sample_f32", 5),
-          BWD_SOURCE: ("dcnv3_sample_bwd_f32", 9)}
+# each library's entry point: (name, tensor pointers, ints); the ints are
+# (n, howo, groups, points, h, w, cg), then the grouped forward's layout
+# flag; the stream comes last
+_ENTRY = {SOURCE: ("dcnv3_sample_f32", 5, 7),
+          BWD_SOURCE: ("dcnv3_sample_bwd_f32", 9, 7),
+          GROUPED_SOURCE: ("dcnv3_sample_grouped_f32", 5, 8),
+          GROUPED_BWD_SOURCE: ("dcnv3_sample_grouped_bwd_f32", 9, 7)}
 
 
 @functools.cache
@@ -135,17 +141,17 @@ def _library(source: str) -> ctypes.CDLL:
     from .cuda_build import load
 
     lib = load(source)
-    name, n_ptrs = _ENTRY[source]
+    name, n_ptrs, n_ints = _ENTRY[source]
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
 def build_kernels() -> None:
-    """Build (or find) and load both CUDA libraries, the two ``nvcc``
-    runs side by side."""
+    """Build (or find) and load the four CUDA libraries (K1, K2 and the
+    grouped-layout pair), the ``nvcc`` runs side by side."""
     from .cuda_build import build_all
 
     build_all(tuple(_ENTRY))
@@ -157,7 +163,7 @@ def _launch(source: str, tensors, ints) -> None:
     """Call ``source``'s entry point on PyTorch's current stream with the
     tensors' pointers and ``ints``; raise if the launch fails."""
     dev = tensors[0].device
-    name, _ = _ENTRY[source]
+    name = _ENTRY[source][0]
     with torch.cuda.device(dev):
         err = getattr(_library(source), name)(
             *(t.data_ptr() for t in tensors), *ints,

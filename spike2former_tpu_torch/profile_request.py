@@ -29,7 +29,6 @@ import numpy as np
 import torch
 
 from . import api
-from .data.transforms import pad_to, resize_keep_ratio
 from .engine.inference import postprocess_pred, whole_logits
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
@@ -49,17 +48,13 @@ def _stages(im, img):
         out[name] = (now - t) * 1e3
         t = now
 
-    sample = resize_keep_ratio({"image": img, "sem_seg": None, "meta": {}},
-                               *im.cfg.data.test_scale)
-    h, w = sample["image"].shape[:2]
-    div = im.cfg.data.size_divisor
-    sample = pad_to(sample, (-(-h // div) * div, -(-w // div) * div))
+    padded, hw = api.resize_and_pad(im.cfg, img)
     mark("resize_pad")
-    x = torch.from_numpy(sample["image"][None]).to(im.device)
+    x = torch.from_numpy(padded[None]).to(im.device)
     mark("upload")
     logits = whole_logits(im.model, x)
     mark("forward")
-    pred = postprocess_pred(logits, (h, w), img.shape[:2])
+    pred = postprocess_pred(logits, hw, img.shape[:2])
     mark("postprocess")
     pred[0].cpu().numpy()
     mark("download")

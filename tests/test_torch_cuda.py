@@ -1,7 +1,8 @@
-"""The port's CUDA kernel on the card, held against its plain version.
+"""The port's CUDA kernels on the card, held against their plain versions,
+and the entry points' precision on the card.
 
 Marked ``cuda``: these tests skip without a GPU.  On a machine with one:
-``python -m pytest tests/test_torch_cuda.py``.
+``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 import copy
 
@@ -9,20 +10,35 @@ import numpy as np
 import pytest
 import torch
 
+from spike2former_tpu_torch import api
+from spike2former_tpu_torch.device import f32_precision
 from spike2former_tpu_torch.engine.weights import randomize_
 from spike2former_tpu_torch.models.segmentor import Spike2Former
-from spike2former_tpu_torch.ops import dcnv3
+from spike2former_tpu_torch.ops import dcnv3, dcnv3_grouped
 
 pytestmark = pytest.mark.cuda
 
+PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
+TINY_OPTS = ["model.num_classes=5", "model.embed_dim=(8,16,24,32)",
+             "model.backbone_heads=4", "model.feat_channels=16",
+             "model.num_queries=4", "model.num_decoder_layers=1",
+             "model.num_encoder_layers=1", "model.depths_stage3=1",
+             "model.depths_stage4=1", "model.dcn_group=4"]
+
 
 @pytest.fixture
-def cuda():
+def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture
+def cuda(card):
+    """The card, with TF32 off for tests that call below the entry
+    points, which set it themselves."""
+    with f32_precision():
+        yield card
 
 
 @pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
@@ -125,14 +141,7 @@ def test_tiny_train_step_card_matches_cpu(cuda):
     """One tiny train step on the card (through K1 and K2) against the
     same step on the CPU: every loss at 1e-4 relative, grad_norm at 1e-3
     relative (the atomics and cuDNN sum in other orders)."""
-    from spike2former_tpu_torch import api
-
-    opts = ["model.num_classes=5", "model.embed_dim=(8,16,24,32)",
-            "model.backbone_heads=4", "model.feat_channels=16",
-            "model.num_queries=4", "model.num_decoder_layers=1",
-            "model.num_encoder_layers=1", "model.depths_stage3=1",
-            "model.depths_stage4=1", "model.dcn_group=4",
-            "train.warmup_iters=1"]
+    opts = TINY_OPTS + ["train.warmup_iters=1"]
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
     blocks = rng.integers(0, 5, (2, 4, 4))
@@ -151,3 +160,153 @@ def test_tiny_train_step_card_matches_cpu(cuda):
         tol = 1e-3 if k == "grad_norm" else 1e-4
         np.testing.assert_allclose(card[k], cpu[k], rtol=tol, atol=1e-6,
                                    err_msg=k)
+
+
+# --- the entry points' precision ---------------------------------------------
+
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+@pytest.mark.parametrize("matmul_tf32", [False, True])
+def test_entry_points_compute_in_f32_whatever_the_tf32_flags(
+        card, monkeypatch, matmul_tf32):
+    """With TF32 on for cuDNN (torch's default) and for matmuls or not,
+    ``api.inference_model``'s logits and 3 steps of ``api.train_steps``
+    on the card agree with the CPU at 1e-3, as ``model.dtype='float32'``
+    asks, and the caller's flags are as they were after each call."""
+    saved = _tf32_flags()
+    flags = (matmul_tf32, True)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = flags
+    try:
+        logits = []
+        real = api.whole_logits
+
+        def capture(model, x):
+            logits.append(real(model, x).cpu())
+            return logits[-1]
+
+        monkeypatch.setattr(api, "whole_logits", capture)
+        opts = TINY_OPTS + ["data.test_scale=(128,96)"]
+        img = np.random.default_rng(0).integers(0, 256, (90, 120, 3),
+                                                dtype=np.uint8)
+        preds = []
+        for dev in ("cpu", None):
+            im = api.init_model(PRESET, overrides=opts, device=dev, seed=1)
+            preds.append(api.inference_model(im, img))
+            assert _tf32_flags() == flags
+        torch.testing.assert_close(logits[1], logits[0], atol=1e-3,
+                                   rtol=1e-3)
+
+        rng = np.random.default_rng(1)
+        images = rng.integers(0, 256, (3, 2, 64, 64, 3), dtype=np.uint8)
+        sem = np.kron(rng.integers(0, 5, (3, 2, 4, 4)),
+                      np.ones((16, 16), np.int64))
+        totals = []
+        for dev in ("cpu", None):
+            tr = api.init_trainer(PRESET, TINY_OPTS + [
+                "train.warmup_iters=1"], device=dev, seed=1)
+            totals.append([m["total"] for m in api.train_steps(
+                tr, list(zip(images, sem)))])
+            assert _tf32_flags() == flags
+        np.testing.assert_allclose(totals[1], totals[0], rtol=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = saved
+
+
+# --- the grouped-layout sampler (K3-K7) --------------------------------------
+
+def _grouped_case(gen, cg, n=2, g=4, h=9, w=13, p=9, howo=61):
+    """feat [N, G, H, W*Cg], coordinates and mask [N, G, P, HoWo] (some
+    taps off the map, some exact integers), dout [N, G, Cg, HoWo], and
+    the static arguments; HoWo odd."""
+    feat = torch.randn((n, g, h, w * cg), generator=gen)
+    py = torch.rand((n, g, p, howo), generator=gen) * (h + 4) - 2
+    px = torch.rand((n, g, p, howo), generator=gen) * (w + 4) - 2
+    py[0, :, :, :5] = py[0, :, :, :5].floor()
+    px[1, :, :, :7] = px[1, :, :, :7].round()
+    mask = torch.rand((n, g, p, howo), generator=gen)
+    dout = torch.randn((n, g, cg, howo), generator=gen)
+    return (feat, py, px, mask, dout), dict(
+        num_points=p, h_in=h, w_in=w, group=g, group_channels=cg)
+
+
+@pytest.mark.parametrize("layout", ["gchw", "ghwc"])
+@pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
+def test_grouped_kernel_matches_plain(cuda, cg, layout):
+    """The grouped forward kernel (K3/K5/K6 in gchw, K4 in ghwc) against
+    its plain version at tests/test_dcnv3.py's f32 tolerance."""
+    (feat, py, px, mask, _), static = _grouped_case(
+        torch.Generator().manual_seed(20 + cg), cg)
+    want = dcnv3_grouped.dcnv3_sample_grouped_reference(
+        feat, py, px, mask, **static, out_layout=layout)
+    sampler = dcnv3_grouped.dcnv3_sample_grouped
+    before = sampler.launches
+    got = sampler(*(t.to(cuda) for t in (feat, py, px, mask)), **static,
+                  out_layout=layout)
+    torch.cuda.synchronize()
+    assert sampler.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
+def test_grouped_backward_kernel_matches_plain(cuda, cg):
+    """The grouped backward kernel (K7) against its plain version at
+    atol 3e-4 / rtol 1e-3 (the atomics sum dfeat in a varying order)."""
+    arrays, static = _grouped_case(torch.Generator().manual_seed(40 + cg),
+                                   cg)
+    want = dcnv3_grouped.dcnv3_sample_grouped_backward_reference(
+        *arrays, **static)
+    bwd = dcnv3_grouped.dcnv3_sample_grouped_backward
+    before = bwd.launches
+    got = bwd(*(t.to(cuda) for t in arrays), **static)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    for gv, wv in zip(got, want):
+        torch.testing.assert_close(gv.cpu(), wv, atol=3e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("layout", ["gchw", "ghwc"])
+def test_grouped_autograd_card_matches_cpu(cuda, layout):
+    """Autograd through the grouped sampler on the card (forward kernel,
+    backward kernel, K4's cotangent transposed) against the plain path's
+    autograd on the CPU."""
+    (feat, py, px, mask, _), static = _grouped_case(
+        torch.Generator().manual_seed(7), 8)
+    grads = []
+    for dev in ("cpu", cuda):
+        ins = [t.clone().to(dev).requires_grad_()
+               for t in (feat, py, px, mask)]
+        out = dcnv3_grouped.dcnv3_sample_grouped(*ins, **static,
+                                                 out_layout=layout)
+        cot = torch.linspace(-1, 1, out.numel()).view(out.shape).to(dev)
+        grads.append([g.cpu() for g in torch.autograd.grad(out, ins, cot)])
+    for gc_, gg in zip(*grads):
+        assert gg.abs().max() > 0
+        torch.testing.assert_close(gg, gc_, atol=3e-4, rtol=1e-3)
+
+
+def test_grouped_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    (feat, py, _, _, dout), static = _grouped_case(
+        torch.Generator().manual_seed(0), 4)
+    feat, py, dout = feat.to(cuda), py.to(cuda), dout.to(cuda)
+    fwd = dcnv3_grouped.dcnv3_sample_grouped
+    bwd = dcnv3_grouped.dcnv3_sample_grouped_backward
+    odd = torch.zeros(py.numel() + 1, device=cuda)[1:].view(py.shape)
+    with pytest.raises(ValueError):
+        fwd(feat, py, py, py, **{**static, "group_channels": 3},
+            out_layout="gchw")
+    with pytest.raises(ValueError):
+        fwd(feat, py, py, py, **{**static, "w_in": 12}, out_layout="gchw")
+    with pytest.raises(TypeError):
+        bwd(feat, py, py, py, dout.double(), **static)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(feat, py, py.transpose(2, 3).contiguous().transpose(2, 3), py,
+            **static, out_layout="gchw")
+    with pytest.raises(ValueError, match="aligned"):
+        fwd(feat, py, py, odd, **static, out_layout="ghwc")
+    with pytest.raises(ValueError, match="cpu"):
+        fwd(feat, py, py.cpu(), py, **static, out_layout="gchw")

@@ -13,7 +13,7 @@ import torch
 
 import spike2former_tpu_torch
 from spike2former_tpu_torch import api
-from spike2former_tpu_torch.device import resolve_device
+from spike2former_tpu_torch.device import f32_precision, resolve_device
 from spike2former_tpu_torch.ops import dcnv3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,3 +120,27 @@ def test_cpu_tensor_takes_plain_sampler_without_counting():
     assert dcnv3.dcnv3_sample.launches == before
     torch.testing.assert_close(
         out, dcnv3.dcnv3_sample_reference(value, py, px, mask))
+
+
+@pytest.mark.parametrize("flags", [(False, True), (True, True),
+                                   (False, False)])
+def test_f32_precision_turns_tf32_off_and_restores_the_callers_flags(flags):
+    """The entry points' precision policy: inside, TF32 is off for
+    matmuls and cuDNN; on the way out, even through an exception, the
+    caller's flags are back, torch's default (cuDNN on) among them."""
+    def read():
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    saved = read()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = flags
+    try:
+        with pytest.raises(KeyError):
+            with f32_precision():
+                assert read() == (False, False)
+                raise KeyError
+        assert read() == flags
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = saved
