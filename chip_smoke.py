@@ -14,15 +14,21 @@ Phases, each printing one flushed line with the seconds elapsed:
       counterpart of K3-K6) and ``csrc/dcnv3_sample_grouped_bwd.cu`` (its
       backward, K7) for sm_90a, the four side by side;
   (c) K1 against its plain PyTorch version at the flagship shapes (serve:
-      N in {1, 2}, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9, f32), with its time, the plain time, an ``F.grid_sample`` yardstick
-      and the byte bound;
+      N in {1, 2}, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9, f32) and
+      on a 64x128 map too large for one block's tile, for random
+      (off-map), far (up to 10 px, out of the halo), zero-offset and
+      integer-coordinate inputs; at the serve and train shapes its time
+      with a warm and a cold L2 beside the grouped forward's on the same
+      data, the plain time, an ``F.grid_sample`` yardstick and the byte
+      bound;
   (k2) K2 against its plain version at the flagship train shape (N=6,
-      32x32), for random (off-map), zero-offset and integer-coordinate
-      inputs, with its time, the plain time, the ``F.grid_sample``
-      backward yardstick and the byte bound;
+      32x32) and on the 64x128 map, for the same four kinds of input;
+      at the train shape its time with a warm and a cold L2, the plain
+      time, the ``F.grid_sample`` backward yardstick and the byte bound;
   (grad) gradients to x, offset and mask through ``dcnv3_core`` at the
-      flagship train shape, K1 forward and K2 backward, against autograd
-      of the plain sampler on the same card tensors;
+      flagship train shape and on the 64x128 map with offsets up to
+      10 px, K1 forward and K2 backward, against autograd of the plain
+      sampler on the same card tensors;
   (grouped) the grouped-layout kernels at the flagship's full-width
       shapes (serve: N=1, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9):
       the forward in both layouts (gchw for K3/K5/K6, ghwc for K4) and
@@ -91,6 +97,7 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32, outside the tensor cores
 REQUEST_SHAPES = ((512, 683), (683, 512), (512, 512))
+FLUSH_BYTES = 128 * 2 ** 20   # more than the H100's 50 MB L2
 TINY = dict(num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
             feat_channels=16, num_queries=4, num_decoder_layers=1,
             num_encoder_layers=1, depths_stage3=1, depths_stage4=1,
@@ -108,23 +115,38 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, iters: int = 100, warmup: int = 5) -> float:
-    """Mean device ms of ``fn`` over ``iters`` back-to-back calls.  A spin
-    kernel holds the device first, so the host enqueues every call before
-    the start event runs and the events time device work, not the host's
-    per-call cost."""
+def cuda_ms(fn, iters: int = 100, warmup: int = 5, cold: bool = False
+            ) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls.  A spin kernel holds
+    the device first, so the host enqueues every call before the timed
+    work starts and the events time device work, not the host's per-call
+    cost.  ``cold``: a 128 MB buffer is written before each call, and only
+    the calls are timed, so each finds its inputs in device memory, not in
+    L2."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    if not cold:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(iters):
+    for i, (start, end) in enumerate(events):
+        buf.fill_(float(i))
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -161,13 +183,15 @@ def grid_sample_yardstick(value, py, px, mask):
     return out.view(n, g, cg, howo).permute(0, 3, 1, 2).reshape(n, howo, c)
 
 
-def sampler_inputs(n, h, w, g, cg, p, kind, gen):
-    """value and [N, HoWo, G, P] coordinates/mask on the card.  ``kind``:
-    'random' offsets large enough that taps leave the map, 'zero' offsets
-    (every coordinate an exact integer, one-hot centre mask: the identity),
-    'integer' offsets (exact integer coordinates, random mask)."""
-    dev = "cuda"
-    value = torch.randn((n, h, w, g * cg), generator=gen).to(dev)
+def sampler_inputs(n, h, w, g, cg, p, kind, gen, device="cuda"):
+    """value [N, H, W, G*Cg] and [N, HoWo, G, P] coordinates and mask
+    around each output pixel's 3x3 grid.  ``kind``: 'random' offsets
+    (3 px standard deviation: some taps leave the map), 'far' offsets
+    (uniform in +-10 px: most taps leave a band's halo), 'zero' offsets
+    (every coordinate an exact integer, one-hot centre mask: the
+    identity), 'integer' offsets (exact integer coordinates, random
+    mask)."""
+    value = torch.randn((n, h, w, g * cg), generator=gen)
     k = int(round(p ** 0.5))
     ii, jj = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
     kx, ky = torch.meshgrid(torch.arange(k), torch.arange(k), indexing="ij")
@@ -180,43 +204,64 @@ def sampler_inputs(n, h, w, g, cg, p, kind, gen):
     if kind == "random":
         py = by + 3 * torch.randn(shape, generator=gen)
         px = bx + 3 * torch.randn(shape, generator=gen)
+    elif kind == "far":
+        py = by + 20 * torch.rand(shape, generator=gen) - 10
+        px = bx + 20 * torch.rand(shape, generator=gen) - 10
     elif kind == "integer":
         py = by + torch.randint(-3, 4, shape, generator=gen).float()
         px = bx + torch.randint(-3, 4, shape, generator=gen).float()
-    else:
+    elif kind == "zero":
         py, px = by.clone(), bx.clone()
         mask = torch.zeros(shape)
         mask[..., p // 2] = 1.0
-    return (value, *(t.contiguous().to(dev) for t in (py, px, mask)))
+    else:
+        raise ValueError(kind)
+    return tuple(t.contiguous().to(device) for t in (value, py, px, mask))
 
 
 def sampler_bytes(value, py, out_elems):
     return 4 * (value.numel() + 3 * py.numel() + out_elems)
 
 
+# the flagship's /16 maps of a request (N=1, 2 at 32x44) and of a train
+# step (N=6 at 32x32), and a 64x128 map (a 1024x2048 image's), on which no
+# group fits one block of K2 and both kernels run bands with halos
+KERNEL_SHAPES = ((1, 32, 44), (2, 32, 44), (6, 32, 32), (1, 64, 128))
+# coordinates 3 px off their grid, up to 10 px off (most taps leave a
+# band's halo), zero offsets (exact integers, the identity), integer offsets
+KINDS = ("random", "far", "zero", "integer")
+
+
 def phase_kernel(gen) -> dict:
-    """(c): kernel against plain at the flagship /16 shapes of a request
-    (N=1, 2 at 32x44) and of a train step (N=6 at 32x32)."""
+    """(c): K1 against plain on ``KERNEL_SHAPES`` for each of ``KINDS``;
+    its time with a warm and a cold L2 beside the grouped forward's on the
+    same data, the plain time, the yardstick and the byte bound."""
     g, cg, p = 32, 8, 9
     worst = 0.0
     rec = {}
-    for n, h, w in ((1, 32, 44), (2, 32, 44), (6, 32, 32)):
-        for kind in ("random", "zero", "integer"):
+    for n, h, w in KERNEL_SHAPES:
+        plan = dcnv3.tile_plan(n, h, w, h * w, g, cg, p, backward=False)
+        log("kernel", f"N={n} {h}x{w}: tile plan {plan}, "
+            f"{plan.smem_bytes(w, cg, p, backward=False)} bytes of shared "
+            "memory a block")
+        for kind in KINDS:
             value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, kind, gen)
             got = dcnv3.dcnv3_sample(value, py, px, mask)
             torch.cuda.synchronize()
             want = dcnv3.dcnv3_sample_reference(value, py, px, mask)
             err = (got - want).abs().max().item()
             check(bool(torch.isfinite(got).all()), f"non-finite kernel out "
-                  f"({kind}, N={n})")
+                  f"({kind}, N={n} {h}x{w})")
             check(err <= KERNEL_TOL, f"kernel vs plain {err:.3g} > "
-                  f"{KERNEL_TOL} ({kind}, N={n})")
+                  f"{KERNEL_TOL} ({kind}, N={n} {h}x{w})")
             if kind == "zero":
                 ident = (got - value.reshape(got.shape)).abs().max().item()
                 check(ident <= KERNEL_TOL, f"identity case off by {ident:.3g}")
             worst = max(worst, err)
             log("kernel", f"N={n} {h}x{w} G={g} Cg={cg} P={p} {kind}: "
                 f"max|kernel-plain|={err:.3g}")
+        if h * w > 32 * 44:
+            continue
         value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, "random", gen)
         lib_err = (grid_sample_yardstick(value, py, px, mask)
                    - dcnv3.dcnv3_sample_reference(value, py, px, mask)
@@ -224,16 +269,36 @@ def phase_kernel(gen) -> dict:
         out_elems = n * h * w * g * cg
         bytes_ = sampler_bytes(value, py, out_elems)
         flops = n * h * w * g * p * (4 * cg * 2 + 16)
+        ins = to_grouped(value, py, px, mask)
+        static = dict(num_points=p, h_in=h, w_in=w, group=g,
+                      group_channels=cg)
+
+        def k1():
+            return dcnv3.dcnv3_sample(value, py, px, mask)
+
+        def grouped():
+            return dcnv3_grouped.dcnv3_sample_grouped(*ins, **static,
+                                                      out_layout="ghwc")
+
+        check((grouped().transpose(1, 2).reshape(out_elems)
+               - k1().reshape(out_elems)).abs().max().item() <= KERNEL_TOL,
+              "grouped forward vs K1")
         t = dict(
-            ms=cuda_ms(lambda: dcnv3.dcnv3_sample(value, py, px, mask)),
+            ms=median_ms(k1),
+            cold_ms=cuda_ms(k1, cold=True),
+            grouped_ms=median_ms(grouped),
+            grouped_cold_ms=cuda_ms(grouped, cold=True),
             plain_ms=cuda_ms(lambda: dcnv3.dcnv3_sample_reference(
                 value, py, px, mask), iters=20),
             library_ms=cuda_ms(lambda: grid_sample_yardstick(
                 value, py, px, mask), iters=20),
             bytes_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
             ops_ms=flops / F32_FLOPS_PER_S * 1e3,
-            wall_ms=host_ms(lambda: dcnv3.dcnv3_sample(value, py, px, mask)))
-        log("kernel", f"N={n} timing: kernel_ms={t['ms']:.5f} "
+            wall_ms=host_ms(k1))
+        log("kernel", f"N={n} {h}x{w} timing: kernel_ms={t['ms']:.5f} "
+            f"cold_l2_ms={t['cold_ms']:.5f} grouped_forward_ms="
+            f"{t['grouped_ms']:.5f} (cold {t['grouped_cold_ms']:.5f}, "
+            f"K1/grouped {t['ms'] / t['grouped_ms']:.3f}) "
             f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
             f"(grid_sample max|diff|={lib_err:.3g}) "
             f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
@@ -336,30 +401,40 @@ def phase_small_reference() -> float:
 
 def phase_backward_kernel(gen) -> dict:
     """(k2): K2 against plain at the flagship train shape (/16 of a 512
-    crop, batch 6)."""
-    n, g, cg, p, h, w = 6, 32, 8, 9, 32, 32
+    crop, batch 6) and on the 64x128 map, for each of ``KINDS``; its time
+    at the train shape with a warm and a cold L2."""
+    g, cg, p = 32, 8, 9
     worst = 0.0
-    for kind in ("random", "zero", "integer"):
-        value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, kind, gen)
-        dout = torch.randn((n, h * w, g * cg), generator=gen).cuda()
-        got = dcnv3.dcnv3_sample_backward(value, py, px, mask, dout)
-        torch.cuda.synchronize()
-        want = dcnv3.dcnv3_sample_backward_reference(value, py, px, mask,
-                                                     dout)
-        errs = []
-        for name, gv, wv in zip(("dvalue", "dpy", "dpx", "dmask"), got,
-                                want):
-            check(bool(torch.isfinite(gv).all()),
-                  f"non-finite K2 {name} ({kind})")
-            check(torch.allclose(gv, wv, atol=BWD_ATOL, rtol=BWD_RTOL),
-                  f"K2 {name} vs plain beyond atol {BWD_ATOL} rtol "
-                  f"{BWD_RTOL} ({kind}): {(gv - wv).abs().max().item():.3g}")
-            errs.append((gv - wv).abs().max().item())
-            worst = max(worst, errs[-1])
-        log("k2", f"N={n} {h}x{w} G={g} Cg={cg} P={p} {kind}: max|kernel-"
-            f"plain| dvalue={errs[0]:.3g} dpy={errs[1]:.3g} "
-            f"dpx={errs[2]:.3g} dmask={errs[3]:.3g}")
+    for n, h, w in ((6, 32, 32), (1, 64, 128)):
+        plan = dcnv3.tile_plan(n, h, w, h * w, g, cg, p, backward=True)
+        log("k2", f"N={n} {h}x{w}: tile plan {plan}, "
+            f"{plan.smem_bytes(w, cg, p, backward=True)} bytes of shared "
+            f"memory a block, {n * g // plan.groups * plan.bands} blocks, "
+            f"whole map {plan.whole(h)}")
+        for kind in KINDS:
+            value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, kind,
+                                                 gen)
+            dout = torch.randn((n, h * w, g * cg), generator=gen).cuda()
+            got = dcnv3.dcnv3_sample_backward(value, py, px, mask, dout)
+            torch.cuda.synchronize()
+            want = dcnv3.dcnv3_sample_backward_reference(value, py, px,
+                                                         mask, dout)
+            errs = []
+            for name, gv, wv in zip(("dvalue", "dpy", "dpx", "dmask"), got,
+                                    want):
+                check(bool(torch.isfinite(gv).all()),
+                      f"non-finite K2 {name} ({kind}, {h}x{w})")
+                check(torch.allclose(gv, wv, atol=BWD_ATOL, rtol=BWD_RTOL),
+                      f"K2 {name} vs plain beyond atol {BWD_ATOL} rtol "
+                      f"{BWD_RTOL} ({kind}, {h}x{w}): "
+                      f"{(gv - wv).abs().max().item():.3g}")
+                errs.append((gv - wv).abs().max().item())
+                worst = max(worst, errs[-1])
+            log("k2", f"N={n} {h}x{w} G={g} Cg={cg} P={p} {kind}: "
+                f"max|kernel-plain| dvalue={errs[0]:.3g} dpy={errs[1]:.3g} "
+                f"dpx={errs[2]:.3g} dmask={errs[3]:.3g}")
 
+    n, h, w = 6, 32, 32
     value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, "random", gen)
     dout = torch.randn((n, h * w, g * cg), generator=gen).cuda()
     # the yardstick: F.grid_sample's backward and the weighted sum's,
@@ -374,19 +449,23 @@ def phase_backward_kernel(gen) -> dict:
     coords = py.numel()
     bytes_ = 4 * (2 * value.numel() + 6 * coords + dout.numel())
     flops = coords * (4 * 4 * cg + 40)
+    def k2():
+        return dcnv3.dcnv3_sample_backward(value, py, px, mask, dout)
+
     t = dict(
-        ms=cuda_ms(lambda: dcnv3.dcnv3_sample_backward(
-            value, py, px, mask, dout)),
+        ms=median_ms(k2),
+        cold_ms=cuda_ms(k2, cold=True),
         plain_ms=cuda_ms(lambda: dcnv3.dcnv3_sample_backward_reference(
             value, py, px, mask, dout), iters=10),
         library_ms=cuda_ms(lambda: torch.autograd.grad(
             lib_out, ins, dout, retain_graph=True), iters=20),
         bytes_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
         ops_ms=flops / F32_FLOPS_PER_S * 1e3,
-        wall_ms=host_ms(lambda: dcnv3.dcnv3_sample_backward(
-            value, py, px, mask, dout)),
+        wall_ms=host_ms(k2),
         max_abs_err=worst)
     log("k2", f"N={n} timing: kernel_ms={t['ms']:.5f} "
+        f"cold_l2_ms={t['cold_ms']:.5f} "
+        f"library/kernel={t['library_ms'] / t['ms']:.2f} "
         f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
         f"(grid_sample backward max|diff| {lib_err}) "
         f"bytes={bytes_} byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
@@ -400,13 +479,18 @@ def phase_core_autograd(gen) -> float:
     the flagship train shape, through K1 and K2, against autograd of the
     plain sampler on the same card tensors.  This holds the wiring of the
     autograd function: the order of its inputs, dpy against dpx, and the
-    sign of the coordinate gradient."""
-    n, h, w, g, cg, p = 6, 32, 32, 32, 8, 9
+    sign of the coordinate gradient.  On the 64x128 map, with offsets
+    uniform in +-10 px, K2 runs bands with halos and spills."""
+    g, cg, p = 32, 8, 9
     worst = 0.0
-    for kind, scale in (("random", 3.0), ("zero", 0.0)):
+    for n, h, w, kind in ((6, 32, 32, "random"), (6, 32, 32, "zero"),
+                          (1, 64, 128, "far")):
         x = torch.randn((n, h, w, g * cg), generator=gen).cuda()
-        offset = (scale * torch.randn((n, h, w, g * p * 2),
-                                      generator=gen)).cuda()
+        shape = (n, h, w, g * p * 2)
+        offset = {"random": lambda: 3 * torch.randn(shape, generator=gen),
+                  "zero": lambda: torch.zeros(shape),
+                  "far": lambda: 20 * torch.rand(shape, generator=gen) - 10,
+                  }[kind]().cuda()
         mask = torch.rand((n, h, w, g * p), generator=gen).cuda()
         dout = torch.randn((n, h, w, g * cg), generator=gen).cuda()
         fwd, bwd = (dcnv3.dcnv3_sample.launches,

@@ -1,132 +1,332 @@
-// DCNv3 deformable bilinear sampling, forward, for Hopper (sm_90a).
+// DCNv3 deformable bilinear sampling, forward, for Hopper (sm_90a): K1.
 //
-// Replaces the TPU kernel dcnv3_sample_pallas_t5 (body _sampling_kernel_t5,
-// tent=True) in spike2former_tpu/ops/pallas/dcnv3_kernel.py.  It computes the
-// function, not the TPU algorithm: the one-hot selector matmuls and the
-// pltpu.repeat channel expansion exist only because scalar gathers serialize
-// on a TPU.  Here each thread owns one (n, o, g) output row and loops over
-// the P points:
+// Replaces the TPU kernel dcnv3_sample_pallas_t5 (wrapper at :440, body
+// _sampling_kernel_t5 at :362) in spike2former_tpu/ops/pallas/dcnv3_kernel.py.
+// It computes the function, not the TPU algorithm: the one-hot selector
+// matmuls and the pltpu.repeat channel expansion exist only because scalar
+// gathers serialize on a TPU.
 //
 //   out[n, o, g*Cg + c] = sum_p m * bilinear(value[n, :, :, g*Cg + c]; py, px)
 //
 // with floor-based taps (y0 = floor(py), y0 + 1; likewise x), zero padding
-// outside [0, H) x [0, W), and f32 accumulation in registers.  Floor-based
+// outside [0, H) x [0, W), NaN coordinates dropped, and f32 accumulation in
+// registers, p by p and tap by tap in the order of the grouped forward
+// (dcnv3_sample_grouped.cu), so the two give the same values.  Floor-based
 // taps are kept even when a coordinate is an exact integer: zero offsets put
 // every tap there, and the backward kernel relies on the same convention.
 //
-// Layouts: value [N, H, W, G*Cg] channels-last, so one tap of Cg = 8 f32
-// channels is two 16-byte loads; py/px/mask [N, HoWo, G, P]; out
-// [N, HoWo, G*Cg].
+// Layouts: value [N, H, W, G*Cg] channels-last; py/px/mask [N, HoWo, G, P];
+// out [N, HoWo, G*Cg].
 //
-// Bound: memory.  Per call it must read 3 * N*HoWo*G*P*4 bytes of
-// coordinates and mask, the value map once (N*H*W*G*Cg*4 bytes; taps of
-// neighbouring points hit in L1/L2) and write N*HoWo*G*Cg*4 bytes.  The
-// arithmetic (about 4 taps * Cg * 2 flops per point) is far below the f32
-// rate.  This first version does no shared-memory tiling and does not fuse
-// the coordinate math; both are left for later work.
+// Bound: memory.  Per call it must read the value map once
+// (N*H*W*G*Cg*4 bytes), 3 * N*HoWo*G*P*4 bytes of coordinates and mask, and
+// write N*HoWo*G*Cg*4 bytes: 33.8 MB at the flagship train shape (N=6,
+// 32x32, G=32, Cg=8, P=9), 10.1 us at 3.35 TB/s; 7.75 MB (2.3 us) at the
+// serve shape (N=1, 32x44).  The arithmetic (about 4 taps * Cg * 2 flops a
+// point) is far below the f32 rate.  What costs time is the gather: each
+// output pixel reads 36 taps of Cg channels, in this layout a lone 32-byte
+// sector each, the next pixel's 1 KB away, so a warp's taps miss L1; and a
+// thread per (o, g) reads its 9 coordinates at a 1152-byte stride.
+//
+// Design (the host's tile_plan in ops/dcnv3.py picks the tile):
+//   - a block stages its groups' whole map (or, for a map too large, the
+//     rows around a band of output pixels) in shared memory with cp.async,
+//     pixel-major as in device memory, the pixel stride padded to an odd
+//     number of 16-byte quads so that 8 lanes reading 8 neighbouring pixels
+//     hit 8 different bank quads.  Every tap of a point whose two rows are
+//     staged is read from there, four taps' loads issued together; a column
+//     or row off the map reads its clamped neighbour with weight 0.  Taps of
+//     rows outside a band's staged rows read device memory;
+//   - each warp takes 32 items (output pixel, group) at a time and copies
+//     their coordinates into a buffer with cp.async, consecutive lanes on
+//     consecutive floats of each item's P-float run (lane i then reads its
+//     own P floats at an odd stride: no bank conflicts); a block's first
+//     chunk arrives with its tile, in one wait;
+//   - with as many (image, group) pairs as SMs or more (train: 192), one
+//     wave of resident blocks walks the items in order, two groups a
+//     block, and stages a pair's maps once when its range enters it; with
+//     fewer (serve: 32), one block an SM takes a band of one group's
+//     output pixels (4 bands at serve), each staging the whole map;
+//   - outputs go out as 16-byte stores (Cg % 4 == 0).
+// The plans were chosen by measurement at the flagship shapes, on an NVIDIA
+// H100 80GB HBM3 at a 700 W power limit (PERF.md §6, the design steps): at
+// serve one group a block in 4 bands took 0.01165 ms against 0.01451 for
+// resident blocks; at train two groups a block in resident blocks took
+// 0.03262 ms against 0.03471 for one group.  What keeps K1 from its byte
+// bound is the shared-memory data path: a warp's random taps conflict on
+// banks.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "dcnv3_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace dcnv3;
 
+// Threads a block (ops/dcnv3.py:_warps): 512, and 256 at Cg = 32, whose
+// accumulator and taps need more than the 128 registers a thread that
+// 512 threads leave.  One block an SM (__launch_bounds__(.., 1)): the
+// tile and the coordinate buffers fill the shared memory at the flagship
+// shapes anyway, so the compiler may use those registers.
 template <int CG>
-__device__ __forceinline__ void tap(float (&acc)[CG],
-                                    const float* __restrict__ src, float wt) {
-  if constexpr (CG % 4 == 0) {
+constexpr int kThreads = CG >= 32 ? 256 : 512;
+
+// Floats between neighbouring pixels of the shared tile: the staged
+// groups' gb*CG channels, padded to an odd number of 16-byte quads so that
+// 8 lanes reading 16 bytes of 8 neighbouring pixels hit 8 different bank
+// quads (at 32 bytes a pixel they would pair up on 4).
+__host__ __device__ __forceinline__ int tile_stride(int gb, int cg) {
+  return gb * cg % 8 ? gb * cg : gb * cg + 4;
+}
+
+// Copy value rows [y_lo, y_hi) of groups [g0, g0 + gb) of image n into
+// shared memory, pixel-major (s[pixel*pix_stride + gl*CG + c]), with
+// cp.async: the copies fly without registers; the caller commits and
+// waits.
+template <int CG>
+__device__ __forceinline__ void stage(float* s, const float* __restrict__ value,
+                                      const Tile& t, int gb, int h, int w,
+                                      int c_all, int pix_stride) {
+  constexpr int V = CG >= 4 ? 4 : CG;
+  const int per_pix = gb * CG / V;  // vectors of a pixel's staged groups
+  const int items = (t.y_hi - t.y_lo) * w * per_pix;
+  const float* src = value + (static_cast<size_t>(t.n) * h + t.y_lo) * w *
+                                 c_all + t.g0 * CG;
+  for (int i = threadIdx.x; i < items; i += kThreads<CG>)
+    __pipeline_memcpy_async(
+        s + i / per_pix * pix_stride + i % per_pix * V,
+        src + static_cast<size_t>(i / per_pix) * c_all + i % per_pix * V,
+        V * sizeof(float));
+}
+
+// acc += wt * value[tap (yy, xx)] from device memory, for a tap outside
+// the staged rows; `feat` points at the thread's group's channels of
+// image n.
+template <int CG>
+__device__ __forceinline__ void tap_global(float (&acc)[CG],
+                                           const float* __restrict__ feat,
+                                           int yy, int xx, int w, int c_all,
+                                           float wt) {
+  constexpr int V = CG >= 4 ? 4 : CG;
+  const float* src = feat + (static_cast<size_t>(yy) * w + xx) * c_all;
 #pragma unroll
-    for (int c = 0; c < CG; c += 4) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(src + c));
-      acc[c] += wt * f.x;
-      acc[c + 1] += wt * f.y;
-      acc[c + 2] += wt * f.z;
-      acc[c + 3] += wt * f.w;
-    }
-  } else {
+  for (int c = 0; c < CG; c += V) {
+    float v[V];
+    load_vec<V>(v, src + c);
 #pragma unroll
-    for (int c = 0; c < CG; ++c) acc[c] += wt * __ldg(src + c);
+    for (int k = 0; k < V; ++k) acc[c + k] += wt * v[k];
   }
 }
 
 template <int CG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads<CG>, 1)
 dcnv3_sample_kernel(const float* __restrict__ value,
                     const float* __restrict__ py,
                     const float* __restrict__ px,
                     const float* __restrict__ mask,
-                    float* __restrict__ out, int rows, int howo, int groups,
-                    int points, int h, int w) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;  // (n, o, g)
-  if (row >= rows) return;
-  const int g = row % groups;
-  const int n = row / (groups * howo);
+                    float* __restrict__ out, int n_img, int howo, int groups,
+                    int points, int h, int w, int gb, int bands, int rows,
+                    int halo) {
+  constexpr int V = CG >= 4 ? 4 : CG;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int c_all = groups * CG;
-  const float* __restrict__ feat =
-      value + static_cast<size_t>(n) * h * w * c_all + g * CG;
-  const size_t coord = static_cast<size_t>(row) * points;
-
-  float acc[CG];
-#pragma unroll
-  for (int c = 0; c < CG; ++c) acc[c] = 0.f;
-
-  for (int p = 0; p < points; ++p) {
-    const float y = py[coord + p];
-    const float x = px[coord + p];
-    const float m = mask[coord + p];
-    const float y0f = floorf(y);
-    const float x0f = floorf(x);
-    // every tap off the map (this also drops NaN coordinates)
-    if (!(y0f >= -1.f && y0f <= h - 1.f && x0f >= -1.f && x0f <= w - 1.f))
-      continue;
-    const int y0 = static_cast<int>(y0f);
-    const int x0 = static_cast<int>(x0f);
-    const float fy = y - y0f;
-    const float fx = x - x0f;
-    const float wy0 = 1.f - fy, wx0 = 1.f - fx;
-    if (y0 >= 0) {
-      const float* r = feat + static_cast<size_t>(y0) * w * c_all;
-      if (x0 >= 0) tap<CG>(acc, r + static_cast<size_t>(x0) * c_all, m * wy0 * wx0);
-      if (x0 + 1 < w) tap<CG>(acc, r + static_cast<size_t>(x0 + 1) * c_all, m * wy0 * fx);
-    }
-    if (y0 + 1 < h) {
-      const float* r = feat + static_cast<size_t>(y0 + 1) * w * c_all;
-      if (x0 >= 0) tap<CG>(acc, r + static_cast<size_t>(x0) * c_all, m * fy * wx0);
-      if (x0 + 1 < w) tap<CG>(acc, r + static_cast<size_t>(x0 + 1) * c_all, m * fy * fx);
-    }
-  }
-
-  float* __restrict__ dst = out + static_cast<size_t>(row) * CG;
-  if constexpr (CG % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < CG; c += 4)
-      *reinterpret_cast<float4*>(dst + c) =
-          make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+  const int pix_stride = tile_stride(gb, CG);
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  float* buf = smem + rows * w * pix_stride + warp * 3 * 32 * points;
+  // A unit is one image and gb groups: howo*gb items (o, gl), gl fastest.
+  // bands == 0 (whole maps staged): a 1-D grid of resident blocks, each
+  // walking an equal range of the units' items in order and staging a
+  // unit's maps when its range enters it.  Otherwise block (band, chunk,
+  // image) takes one band of one unit, with the map rows around it (all
+  // of them when rows >= h).
+  const int per_unit = howo * gb;
+  const int chunks = groups / gb;
+  int lo, hi;
+  Tile t;
+  if (bands == 0) {
+    const int total = n_img * chunks * per_unit;
+    const int per = (total + gridDim.x - 1) / gridDim.x;
+    lo = blockIdx.x * per;
+    hi = min(total, lo + per);
+    t.y_lo = 0;
+    t.y_hi = h;
   } else {
+    t = block_tile(howo, h, gb, bands, rows, halo);
+    const int unit = t.n * chunks + t.g0 / gb;
+    lo = unit * per_unit + t.o_lo * gb;
+    hi = unit * per_unit + t.o_hi * gb;
+  }
+  t.o_lo = 0;
+
+  int staged = -1;  // the unit whose maps are in shared memory
+  for (int i = lo; i < hi;) {
+    const int unit = i / per_unit;
+    const int a = i - unit * per_unit;
+    const int b = min(hi - unit * per_unit, per_unit);
+    i += b - a;
+    t.n = unit / chunks;
+    t.g0 = unit % chunks * gb;
+    const float* __restrict__ img =
+        value + static_cast<size_t>(t.n) * h * w * c_all;
+    // each warp takes 32 items at a time
+    for (int j0 = a + warp * 32, k = 0; j0 < b || (k == 0 && unit != staged);
+         j0 += kThreads<CG>, ++k) {
+      const int count = max(0, min(32, b - j0));
+      if (k == 0 && unit != staged) {
+        // the unit's maps and each warp's first 32 items in one wait
+        __syncthreads();  // every warp is done with the last unit's maps
+        stage<CG>(smem, value, t, gb, h, w, c_all, pix_stride);
+        if (count)
+          fetch_coords(buf, py, px, mask, t, j0, count, gb, groups, points,
+                       howo, lane);
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        staged = unit;
+      } else {
+        __syncwarp();
+        fetch_coords(buf, py, px, mask, t, j0, count, gb, groups, points,
+                     howo, lane);
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncwarp();
+      }
+      if (lane >= count) continue;
+      const int j = j0 + lane;
+      const int gl = j % gb;
+      const int g = t.g0 + gl;
+      const size_t row =
+          (static_cast<size_t>(t.n) * howo + j / gb) * groups + g;
+      const float* s = smem + gl * CG;
+      const float* __restrict__ feat = img + g * CG;
+      const float* mine = buf + lane * points;
+
+      float acc[CG];
 #pragma unroll
-    for (int c = 0; c < CG; ++c) dst[c] = acc[c];
+      for (int c = 0; c < CG; ++c) acc[c] = 0.f;
+
+      for (int p = 0; p < points; ++p) {
+        const float y = mine[p];
+        const float x = mine[32 * points + p];
+        const float m = mine[64 * points + p];
+        const float y0f = floorf(y);
+        const float x0f = floorf(x);
+        // every tap off the map (this also drops NaN coordinates)
+        if (!(y0f >= -1.f && y0f <= h - 1.f && x0f >= -1.f && x0f <= w - 1.f))
+          continue;
+        const int y0 = static_cast<int>(y0f);
+        const int x0 = static_cast<int>(x0f);
+        const float fy = y - y0f;
+        const float fx = x - x0f;
+        const float wy0 = 1.f - fy, wx0 = 1.f - fx;
+        // a tap off the map reads its clamped neighbour with weight 0
+        const bool vx0 = x0 >= 0, vx1 = x0 + 1 < w;
+        const float w00 = y0 >= 0 && vx0 ? m * wy0 * wx0 : 0.f;
+        const float w01 = y0 >= 0 && vx1 ? m * wy0 * fx : 0.f;
+        const float w10 = y0 + 1 < h && vx0 ? m * fy * wx0 : 0.f;
+        const float w11 = y0 + 1 < h && vx1 ? m * fy * fx : 0.f;
+        const int ya = max(y0, 0), yb = min(y0 + 1, h - 1);
+        const int xa = max(x0, 0), xb = min(x0 + 1, w - 1);
+        if (ya >= t.y_lo && yb < t.y_hi) {
+          // both rows staged: four taps from shared memory, loads issued
+          // together
+          const float* r0 = s + (ya - t.y_lo) * w * pix_stride;
+          const float* r1 = s + (yb - t.y_lo) * w * pix_stride;
+#pragma unroll
+          for (int c = 0; c < CG; c += V) {
+            float v00[V], v01[V], v10[V], v11[V];
+            load_vec<V>(v00, r0 + xa * pix_stride + c);
+            load_vec<V>(v01, r0 + xb * pix_stride + c);
+            load_vec<V>(v10, r1 + xa * pix_stride + c);
+            load_vec<V>(v11, r1 + xb * pix_stride + c);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              acc[c + k] += w00 * v00[k];
+              acc[c + k] += w01 * v01[k];
+              acc[c + k] += w10 * v10[k];
+              acc[c + k] += w11 * v11[k];
+            }
+          }
+          continue;
+        }
+        // a row outside the staged band: tap by tap, from device memory
+        // where the row is not staged
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy) {
+          const int yy = dy ? yb : ya;
+          const bool in_tile = yy >= t.y_lo && yy < t.y_hi;
+#pragma unroll
+          for (int dx = 0; dx < 2; ++dx) {
+            const float wt = dy ? (dx ? w11 : w10) : (dx ? w01 : w00);
+            if (wt == 0.f) continue;
+            const int xx = dx ? xb : xa;
+            if (in_tile) {
+              const float* src = s + ((yy - t.y_lo) * w + xx) * pix_stride;
+#pragma unroll
+              for (int c = 0; c < CG; c += V) {
+                float v[V];
+                load_vec<V>(v, src + c);
+#pragma unroll
+                for (int k = 0; k < V; ++k) acc[c + k] += wt * v[k];
+              }
+            } else {
+              tap_global<CG>(acc, feat, yy, xx, w, c_all, wt);
+            }
+          }
+        }
+      }
+
+      float* __restrict__ dst = out + row * CG;
+#pragma unroll
+      for (int c = 0; c < CG; c += V) {
+        if constexpr (V == 4) {
+          *reinterpret_cast<float4*>(dst + c) =
+              make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) dst[c + k] = acc[c + k];
+        }
+      }
+    }
   }
 }
 
 template <int CG>
 cudaError_t launch(const float* value, const float* py, const float* px,
                    const float* mask, float* out, int n, int howo, int groups,
-                   int points, int h, int w, cudaStream_t stream) {
-  const int rows = n * howo * groups;
-  const int blocks = (rows + kThreads - 1) / kThreads;
-  dcnv3_sample_kernel<CG><<<blocks, kThreads, 0, stream>>>(
-      value, py, px, mask, out, rows, howo, groups, points, h, w);
+                   int points, int h, int w, int gb, int bands, int rows,
+                   int halo, int device, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(tile_stride(gb, CG)) * rows * w +
+                       kThreads<CG> / 32 * 3 * 32 * points) * sizeof(float);
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = device_facts<&dcnv3_sample_kernel<CG>>(
+      device, &sms, bands == 0 ? &per_sm : nullptr, kThreads<CG>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bands, groups / gb, n);
+  if (bands == 0)  // one wave of resident blocks, no more than 32-item chunks
+    grid = dim3(min((n * howo * groups + 31) / 32, max(1, per_sm) * sms));
+  dcnv3_sample_kernel<CG><<<grid, kThreads<CG>, smem, stream>>>(
+      value, py, px, mask, out, n, howo, groups, points, h, w, gb, bands,
+      rows, halo);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Launches on `stream` and does
-// not synchronise; returns the cudaError_t of the launch.
+// Plain C entry point, loaded with ctypes.  Launches on `stream` of CUDA
+// device `device`, the current one, and does not synchronise; returns the
+// cudaError_t of the launch.  (gb, bands, rows, halo) is the tile plan of
+// ops/dcnv3.py:tile_plan.
 extern "C" int dcnv3_sample_f32(const void* value, const void* py,
                                 const void* px, const void* mask, void* out,
                                 int n, int howo, int groups, int points,
-                                int h, int w, int cg, void* stream) {
+                                int h, int w, int cg, int gb, int bands,
+                                int rows, int halo, int device,
+                                void* stream) {
   const auto* v = static_cast<const float*>(value);
   const auto* y = static_cast<const float*>(py);
   const auto* x = static_cast<const float*>(px);
@@ -134,13 +334,22 @@ extern "C" int dcnv3_sample_f32(const void* value, const void* py,
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (n * howo * groups == 0) return cudaSuccess;
+  if (gb < 1 || groups % gb || bands < 0 || rows < 0 || halo < 0 ||
+      (bands == 0 && rows < h))
+    return cudaErrorInvalidValue;
   switch (cg) {
-    case 1: return launch<1>(v, y, x, m, o, n, howo, groups, points, h, w, s);
-    case 2: return launch<2>(v, y, x, m, o, n, howo, groups, points, h, w, s);
-    case 4: return launch<4>(v, y, x, m, o, n, howo, groups, points, h, w, s);
-    case 8: return launch<8>(v, y, x, m, o, n, howo, groups, points, h, w, s);
-    case 16: return launch<16>(v, y, x, m, o, n, howo, groups, points, h, w, s);
-    case 32: return launch<32>(v, y, x, m, o, n, howo, groups, points, h, w, s);
-    default: return cudaErrorInvalidValue;
+#define DCNV3_CASE(CG)                                                      \
+  case CG:                                                                  \
+    return launch<CG>(v, y, x, m, o, n, howo, groups, points, h, w, gb,     \
+                      bands, rows, halo, device, s);
+    DCNV3_CASE(1)
+    DCNV3_CASE(2)
+    DCNV3_CASE(4)
+    DCNV3_CASE(8)
+    DCNV3_CASE(16)
+    DCNV3_CASE(32)
+#undef DCNV3_CASE
+    default:
+      return cudaErrorInvalidValue;
   }
 }

@@ -1,83 +1,157 @@
-// DCNv3 deformable bilinear sampling, backward, for Hopper (sm_90a).
+// DCNv3 deformable bilinear sampling, backward, for Hopper (sm_90a): K2.
 //
-// Replaces the TPU kernel dcnv3_sample_pallas_t5_bwd (body
-// _sampling_kernel_t5_bwd, tent=True) in
+// Replaces the TPU kernel dcnv3_sample_pallas_t5_bwd (wrapper at :773, body
+// _sampling_kernel_t5_bwd at :639) in
 // spike2former_tpu/ops/pallas/dcnv3_kernel.py.  It computes the gradient of
 // the forward in dcnv3_sample.cu, not the TPU algorithm: the Pallas kernel
 // builds one-hot row/column selectors and runs three batched matmuls plus a
 // pltpu.repeat channel expansion because scalar gathers serialize on a TPU.
-// Here each thread owns one (n, o, g) row, loads its Cg upstream gradients
-// dout[n, o, g*Cg:(g+1)*Cg] once, and loops over the P points.  For each of
-// the four floor-based taps inside the map, with s = <F_tap, dout>:
+// For each (n, o, g) row and each of the P points, for each of the four
+// floor-based taps inside the map, with s = <F_tap, dout[n, o, g]>:
 //
-//   dvalue[n, tap, g*Cg + c] += m * wy * wx * dout[c]   (atomicAdd)
+//   dvalue[n, tap, g*Cg + c] += m * wy * wx * dout[c]
 //   dmask += wy * wx * s
 //   dpy   += m * (dwy/dpy) * wx * s,   dwy/dpy = -1 (row y0), +1 (row y0+1)
 //   dpx   += m * wy * (dwx/dpx) * s,   likewise
 //
-// Taps off the map give 0 to every term.  The coordinate gradient stays
-// floor-based at exact integer coordinates (F[y0+1] - F[y0]): zero offsets
-// at init put every coordinate there, and the TPU kernel keeps the same
-// convention (dcnv3_kernel.py, compare-based s0/s1 taps).
+// Taps off the map give 0 to every term, NaN coordinates are dropped.  The
+// coordinate gradient stays floor-based at exact integer coordinates
+// (F[y0+1] - F[y0]): zero offsets at init put every coordinate there, and
+// the TPU kernel keeps the same convention (compare-based s0/s1 taps).
 //
 // Layouts as the forward: value and dvalue [N, H, W, G*Cg] channels-last;
 // py/px/mask and dpy/dpx/dmask [N, HoWo, G, P]; dout [N, HoWo, G*Cg].
-// dvalue must be zeroed by the caller.  The atomics make the summation
-// order of dvalue vary from run to run (f32 rounding only).
 //
 // Bound: memory.  Per call it must read the value map, 3 * N*HoWo*G*P*4
 // bytes of coordinates and mask and the upstream gradient, and write dvalue
-// and 3 * N*HoWo*G*P*4 bytes of coordinate and mask gradients.  The
-// arithmetic (about 4 taps * 4 * Cg flops per point) is far below the f32
-// rate.  This first version scatters with scalar atomics straight to
-// global memory; shared-memory tiling of dvalue, vector atomics and fusing
-// the coordinate math are left for later work.
+// and 3 * N*HoWo*G*P*4 bytes of coordinate and mask gradients: 61.3 MB at
+// the flagship train shape (N=6, 32x32, G=32, Cg=8, P=9), 18.3 us at
+// 3.35 TB/s.  The arithmetic (about 4 taps * 4 * Cg flops per point) is far
+// below the f32 rate.  What costs time is the scatter into dvalue: 36 taps
+// of Cg channels per row, 6*1024*32*9*4*8 = 56.6 M additions at that
+// shape, which the first version issued as scalar atomics to device memory
+// (0.645 ms on an NVIDIA H100, 35x the bound).
+//
+// Design (the host's tile_plan in ops/dcnv3.py picks the tile):
+//   - a block takes one group of one image and a band of HoWo / 256 output
+//     pixels, one item (output pixel, group) a thread.  It stages the
+//     group's whole map (or, for a map too large, the rows around its band)
+//     in shared memory with cp.async, pixel-major, and keeps beside it a
+//     zeroed accumulator of kShared of the Cg channels, in channel planes
+//     so that a warp's adds at neighbouring pixels hit neighbouring banks;
+//   - for a tap whose rows are staged, <F, dout> is read from shared memory
+//     (a point's four taps together, a column or row off the map clamped
+//     with weight 0), channels [0, kShared) of m * wy * wx * dout are added
+//     into the accumulator and the others straight into dvalue with one
+//     16-byte vector atomic per 4 channels (red.global.add.v4.f32; float2 or
+//     scalar for Cg 2 and 1); a tap outside the staged rows reads and adds
+//     in device memory.  Nothing is added for a weight of 0 (three of the
+//     four taps at an exact integer coordinate);
+//   - at the end the block adds its accumulator into dvalue with vector
+//     atomics (bands overlap, so the wrapper zero-fills dvalue), or, when
+//     one block owns a group's whole map (one band: maps of 256 pixels or
+//     fewer), stores it and needs no zero-fill;
+//   - each warp copies its 32 items' coordinates into a shared buffer with
+//     cp.async, consecutive lanes on consecutive floats of each item's P
+//     floats, and writes dpy/dpx/dmask back the same way.
+// Why the split: sm_90 has no shared-memory f32 add.  atomicAdd compiles to
+// a compare-and-swap loop (ATOMS.CAST.SPIN), and a warp's random taps
+// conflict on banks and collide on words.  Measured at the train shape on
+// an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md §6, the design
+// steps), one group a block in four bands: all 8 channels in shared memory
+// 0.245 ms, none (every add a vector atomic into L2) 0.183 ms, 4 of 8
+// 0.156 ms, as both units then work at once.  One group a block: in eight
+// bands two groups (a block's coordinate reads then waste half as many
+// sector bytes) took 0.174 ms with no channel shared and 0.323 with 4,
+// one group 0.186 and 0.200.  The atomics sum dvalue in an order that
+// varies from run to run (f32 rounding only).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "dcnv3_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace dcnv3;
 
+// Threads a block (ops/dcnv3.py:_warps): 256, and 128 at Cg = 32, whose
+// upstream gradient, taps and adds need more than the 128 registers a
+// thread the compiler allows 256 threads
 template <int CG>
-__device__ __forceinline__ void load_row(float (&dst)[CG],
-                                         const float* __restrict__ src) {
-  if constexpr (CG % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < CG; c += 4) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(src + c));
-      dst[c] = f.x;
-      dst[c + 1] = f.y;
-      dst[c + 2] = f.z;
-      dst[c + 3] = f.w;
-    }
+constexpr int kThreads = CG >= 32 ? 128 : 256;
+
+// Channels of a staged tap added in the shared accumulator, the first
+// kShared of each group's Cg (the split in the note above; mirrored by
+// ops/dcnv3.py:SHARED_CHANNELS); the others go to dvalue as vector atomics.
+template <int CG>
+constexpr int kShared = CG < 4 ? CG : 4;
+
+// dst[0:V] += v, one vector atomic (sm_90: red.global.add.v4.f32 / .v2).
+template <int V>
+__device__ __forceinline__ void add_vec(float* dst, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (V == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
   } else {
-#pragma unroll
-    for (int c = 0; c < CG; ++c) dst[c] = __ldg(src + c);
+    atomicAdd(dst, v[0]);
   }
 }
 
-// One tap at (y, x), known to lie inside the map: scatter wt * dout into
-// dvalue and return <F(y, x), dout>.
-template <int CG>
-__device__ __forceinline__ float tap(const float* __restrict__ feat,
-                                     float* __restrict__ dfeat,
-                                     const float (&d)[CG], long long offset,
-                                     float wt) {
-  float f[CG];
-  load_row<CG>(f, feat + offset);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < CG; ++c) {
-    s += f[c] * d[c];
-    atomicAdd(dfeat + offset + c, wt * d[c]);
+template <int V>
+__device__ __forceinline__ void store_vec(float* dst, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    *dst = v[0];
   }
-  return s;
+}
+
+// dvalue[tap] += wt * d: channels [0, kShared) into the shared
+// accumulator (pixel i of the tile; atomicAdd, a compare-and-swap loop on
+// sm_90), the others, or all when the tap is not staged (staged false),
+// straight into dvalue (`dst`, the tap's channels of the group) with
+// vector atomics.
+template <int CG>
+__device__ __forceinline__ void scatter(float* acc, int i, int plane,
+                                        bool staged, float* dst,
+                                        const float (&d)[CG], float wt) {
+  constexpr int V = CG >= 4 ? 4 : CG;
+#pragma unroll
+  for (int c = 0; c < CG; c += V) {
+    float add[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) add[k] = wt * d[c + k];
+    if (staged && c < kShared<CG>) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) atomicAdd(acc + (c + k) * plane + i, add[k]);
+    } else {
+      add_vec<V>(dst + c, add);
+    }
+  }
+}
+
+// <F, d> for the CG channels at `src` (shared or device memory).
+template <int CG>
+__device__ __forceinline__ float dot(const float* src, const float (&d)[CG]) {
+  constexpr int V = CG >= 4 ? 4 : CG;
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < CG; c += V) {
+    float f[V];
+    load_vec<V>(f, src + c);
+#pragma unroll
+    for (int k = 0; k < V; ++k) sum += f[k] * d[c + k];
+  }
+  return sum;
 }
 
 template <int CG>
-__global__ void __launch_bounds__(kThreads)
-dcnv3_sample_bwd_kernel(const float* __restrict__ value,
+__device__ __forceinline__ void sample_bwd(const float* __restrict__ value,
                         const float* __restrict__ py,
                         const float* __restrict__ px,
                         const float* __restrict__ mask,
@@ -85,99 +159,299 @@ dcnv3_sample_bwd_kernel(const float* __restrict__ value,
                         float* __restrict__ dvalue,
                         float* __restrict__ dpy,
                         float* __restrict__ dpx,
-                        float* __restrict__ dmask, int rows, int howo,
-                        int groups, int points, int h, int w) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;  // (n, o, g)
-  if (row >= rows) return;
-  const int g = row % groups;
-  const int n = row / (groups * howo);
+                        float* __restrict__ dmask, int howo, int groups,
+                        int points, int h, int w, int gb, int bands, int rows,
+                        int halo) {
+  constexpr int V = CG >= 4 ? 4 : CG;
+  constexpr int shared = kShared<CG>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Tile t = block_tile(howo, h, gb, bands, rows, halo);
+  if (t.o_lo >= t.o_hi) return;
+  const bool whole = bands == 1 && rows >= h;
   const int c_all = groups * CG;
-  const size_t base = static_cast<size_t>(n) * h * w * c_all + g * CG;
-  const float* __restrict__ feat = value + base;
-  float* __restrict__ dfeat = dvalue + base;
-  const size_t coord = static_cast<size_t>(row) * points;
+  const int pix_stride = gb * CG;
+  const int plane = rows * w;
+  const int per_pix = gb * CG / V;  // vectors of a pixel's staged groups
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  float* s_val = smem;                          // [pixel][pix_stride]
+  float* s_acc = smem + plane * pix_stride;     // [gl*shared + c][pixel]
+  float* buf = s_acc + gb * shared * plane + warp * 3 * 32 * points;
+  const size_t img = static_cast<size_t>(t.n) * h * w * c_all;
+  const size_t tile_off = img + static_cast<size_t>(t.y_lo) * w * c_all +
+                          t.g0 * CG;
+  const int staged = (t.y_hi - t.y_lo) * w * per_pix;  // vectors
+  const int items = (t.o_hi - t.o_lo) * gb;
 
-  float d[CG];
-  load_row<CG>(d, dout + static_cast<size_t>(row) * CG);
+  // stage the value rows (cp.async, pixel-major as in device memory) and
+  // the warp's first 32 items' coordinates in one wait; zero the
+  // accumulator; a block that owns the whole map also zeroes the channels
+  // it adds in device memory (no other block touches them)
+  for (int i = threadIdx.x; i < staged; i += kThreads<CG>) {
+    const int pix = i / per_pix;
+    const int c0 = i % per_pix * V;  // gl*CG + channel
+    __pipeline_memcpy_async(s_val + pix * pix_stride + c0,
+                            value + tile_off +
+                                static_cast<size_t>(pix) * c_all + c0,
+                            V * sizeof(float));
+    const int gl = c0 / CG, c = c0 % CG;
+    if (c < shared) {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        s_acc[(gl * shared + c + k) * plane + pix] = 0.f;
+    } else if (whole) {
+      const float zero[V] = {};
+      store_vec<V>(dvalue + tile_off + static_cast<size_t>(pix) * c_all + c0,
+                   zero);
+    }
+  }
+  if (warp * 32 < items)
+    fetch_coords(buf, py, px, mask, t, warp * 32,
+                 min(32, items - warp * 32), gb, groups, points, howo, lane);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
 
-  for (int p = 0; p < points; ++p) {
-    const float y = py[coord + p];
-    const float x = px[coord + p];
-    const float m = mask[coord + p];
-    float gy = 0.f, gx = 0.f, gm = 0.f;
-    const float y0f = floorf(y);
-    const float x0f = floorf(x);
-    // some tap inside the map (this also drops NaN coordinates)
-    if (y0f >= -1.f && y0f <= h - 1.f && x0f >= -1.f && x0f <= w - 1.f) {
-      const int y0 = static_cast<int>(y0f);
-      const int x0 = static_cast<int>(x0f);
-      const float fy = y - y0f;
-      const float fx = x - x0f;
-      const float wy0 = 1.f - fy, wx0 = 1.f - fx;
-      const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < h;
-      const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < w;
-      const long long r0 = static_cast<long long>(y0) * w;  // pixel index
-      const long long r1 = r0 + w;
-      if (in_y0 && in_x0) {
-        const float s = tap<CG>(feat, dfeat, d, (r0 + x0) * c_all,
-                                m * wy0 * wx0);
-        gm += wy0 * wx0 * s;
-        gy -= wx0 * s;
-        gx -= wy0 * s;
+  // each warp takes 32 items at a time: (o, gl), gl fastest
+  for (int j0 = warp * 32; j0 < items; j0 += kThreads<CG>) {
+    const int count = min(32, items - j0);
+    if (j0 != warp * 32) {
+      __syncwarp();
+      fetch_coords(buf, py, px, mask, t, j0, count, gb, groups, points,
+                   howo, lane);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncwarp();
+    }
+    if (lane < count) {
+      const int j = j0 + lane;
+      const int gl = j % gb;
+      const int g = t.g0 + gl;
+      const size_t row =
+          (static_cast<size_t>(t.n) * howo + t.o_lo + j / gb) * groups + g;
+      const float* s = s_val + gl * CG;
+      float* acc = s_acc + gl * shared * plane;
+      const float* __restrict__ feat = value + img + g * CG;
+      float* __restrict__ dfeat = dvalue + img + g * CG;
+      float* mine = buf + lane * points;
+
+      float d[CG];
+#pragma unroll
+      for (int c = 0; c < CG; c += V) {
+        float v[V];
+        load_vec<V>(v, dout + row * CG + c);
+#pragma unroll
+        for (int k = 0; k < V; ++k) d[c + k] = v[k];
       }
-      if (in_y0 && in_x1) {
-        const float s = tap<CG>(feat, dfeat, d, (r0 + x0 + 1) * c_all,
-                                m * wy0 * fx);
-        gm += wy0 * fx * s;
-        gy -= fx * s;
-        gx += wy0 * s;
-      }
-      if (in_y1 && in_x0) {
-        const float s = tap<CG>(feat, dfeat, d, (r1 + x0) * c_all,
-                                m * fy * wx0);
-        gm += fy * wx0 * s;
-        gy += wx0 * s;
-        gx -= fy * s;
-      }
-      if (in_y1 && in_x1) {
-        const float s = tap<CG>(feat, dfeat, d, (r1 + x0 + 1) * c_all,
-                                m * fy * fx);
-        gm += fy * fx * s;
-        gy += fx * s;
-        gx += fy * s;
+
+      for (int p = 0; p < points; ++p) {
+        const float y = mine[p];
+        const float x = mine[32 * points + p];
+        const float m = mine[64 * points + p];
+        float gy = 0.f, gx = 0.f, gm = 0.f;
+        const float y0f = floorf(y);
+        const float x0f = floorf(x);
+        // some tap inside the map (this also drops NaN coordinates)
+        if (y0f >= -1.f && y0f <= h - 1.f && x0f >= -1.f && x0f <= w - 1.f) {
+          const int y0 = static_cast<int>(y0f);
+          const int x0 = static_cast<int>(x0f);
+          const float fy = y - y0f;
+          const float fx = x - x0f;
+          const float wy0 = 1.f - fy, wx0 = 1.f - fx;
+          const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < w;
+          // tap (dy, dx): <F, d> and the shared tile's pixel, or -1; a tap
+          // off the map reads its clamped neighbour and counts 0
+          const int ya = max(y0, 0), yb = min(y0 + 1, h - 1);
+          const int xa = max(x0, 0), xb = min(x0 + 1, w - 1);
+          float sv[2][2];
+          int ti[2][2];
+          if (ya >= t.y_lo && yb < t.y_hi) {
+            // both rows staged: the four dot products from shared memory,
+            // loads issued together
+            ti[0][0] = (ya - t.y_lo) * w + xa;
+            ti[0][1] = (ya - t.y_lo) * w + xb;
+            ti[1][0] = (yb - t.y_lo) * w + xa;
+            ti[1][1] = (yb - t.y_lo) * w + xb;
+            float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
+#pragma unroll
+            for (int c = 0; c < CG; c += V) {  // a quad of each tap at once
+              float v00[V], v01[V], v10[V], v11[V];
+              load_vec<V>(v00, s + ti[0][0] * pix_stride + c);
+              load_vec<V>(v01, s + ti[0][1] * pix_stride + c);
+              load_vec<V>(v10, s + ti[1][0] * pix_stride + c);
+              load_vec<V>(v11, s + ti[1][1] * pix_stride + c);
+#pragma unroll
+              for (int k = 0; k < V; ++k) {
+                s00 += v00[k] * d[c + k];
+                s01 += v01[k] * d[c + k];
+                s10 += v10[k] * d[c + k];
+                s11 += v11[k] * d[c + k];
+              }
+            }
+            sv[0][0] = s00;
+            sv[0][1] = s01;
+            sv[1][0] = s10;
+            sv[1][1] = s11;
+          } else {
+#pragma unroll
+            for (int dy = 0; dy < 2; ++dy) {
+              const int yy = dy ? yb : ya;
+              const bool in_tile = yy >= t.y_lo && yy < t.y_hi;
+#pragma unroll
+              for (int dx = 0; dx < 2; ++dx) {
+                const int xx = dx ? xb : xa;
+                ti[dy][dx] = in_tile ? (yy - t.y_lo) * w + xx : -1;
+                sv[dy][dx] =
+                    in_tile ? dot<CG>(s + ti[dy][dx] * pix_stride, d)
+                            : dot<CG>(feat + (static_cast<size_t>(yy) * w +
+                                              xx) * c_all, d);
+              }
+            }
+          }
+          const bool in_y[2] = {y0 >= 0, y0 + 1 < h};
+          const bool in_x[2] = {in_x0, in_x1};
+          const float wy[2] = {wy0, fy}, wx[2] = {wx0, fx};
+          const float sy[2] = {-1.f, 1.f};
+#pragma unroll
+          for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 2; ++dx) {
+              if (!(in_y[dy] && in_x[dx])) continue;
+              const float v = sv[dy][dx];
+              gm += wy[dy] * wx[dx] * v;
+              gy += sy[dy] * wx[dx] * v;
+              gx += sy[dx] * wy[dy] * v;
+              const float wt = m * wy[dy] * wx[dx];
+              if (wt != 0.f)
+                scatter<CG>(acc, ti[dy][dx], plane, ti[dy][dx] >= 0,
+                            dfeat + (static_cast<size_t>(y0 + dy) * w + x0 +
+                                     dx) * c_all, d, wt);
+            }
+        }
+        // the gradients take the slots of the coordinates just read
+        mine[p] = m * gy;
+        mine[32 * points + p] = m * gx;
+        mine[64 * points + p] = gm;
       }
     }
-    dpy[coord + p] = m * gy;
-    dpx[coord + p] = m * gx;
-    dmask[coord + p] = gm;
+    // the gradients go back by the walk that fetched the coordinates
+    __syncwarp();
+    const int stride = 32 * points;
+    for_each_coord(t, j0, count, gb, groups, points, howo, lane,
+                   [&](int e, size_t idx) {
+                     dpy[idx] = buf[e];
+                     dpx[idx] = buf[stride + e];
+                     dmask[idx] = buf[2 * stride + e];
+                   });
   }
+  __syncthreads();
+
+  // flush the accumulator's channels: a plain store when the block owns
+  // the whole map, else vector atomics into the zeroed dvalue (all-zero
+  // vectors, halo pixels no tap reached, are skipped)
+  const int acc_vecs = (t.y_hi - t.y_lo) * w * gb * shared / V;
+  for (int i = threadIdx.x; i < acc_vecs; i += kThreads<CG>) {
+    const int per = gb * shared / V;
+    const int pix = i / per;
+    const int gl = i % per * V / shared;
+    const int c = i % per * V % shared;
+    float v[V];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      v[k] = s_acc[(gl * shared + c + k) * plane + pix];
+      any |= v[k] != 0.f;
+    }
+    float* dst = dvalue + tile_off + static_cast<size_t>(pix) * c_all +
+                 gl * CG + c;
+    if (whole)
+      store_vec<V>(dst, v);
+    else if (any)
+      add_vec<V>(dst, v);
+  }
+}
+
+// The kernels.  Under the compiler's default register budget for 256
+// threads Cg 2-16 build without spills (80 registers at Cg = 8, which
+// leaves room for three blocks an SM at the train shape); Cg = 1 spills
+// there and not when asked for two blocks an SM, and Cg = 32 keeps d, a
+// tap and its adds (about 130 floats) live and may use 255 registers a
+// thread (one block an SM).
+template <int CG>
+__global__ void __launch_bounds__(kThreads<CG>)
+dcnv3_sample_bwd_kernel(const float* __restrict__ value,
+                        const float* __restrict__ py,
+                        const float* __restrict__ px,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ dout,
+                        float* __restrict__ dvalue, float* __restrict__ dpy,
+                        float* __restrict__ dpx, float* __restrict__ dmask,
+                        int howo, int groups, int points, int h, int w,
+                        int gb, int bands, int rows, int halo) {
+  sample_bwd<CG>(value, py, px, mask, dout, dvalue, dpy, dpx, dmask, howo,
+                 groups, points, h, w, gb, bands, rows, halo);
+}
+
+template <int CG, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads<CG>, MIN_BLOCKS)
+dcnv3_sample_bwd_kernel_bounded(const float* __restrict__ value,
+                                const float* __restrict__ py,
+                                const float* __restrict__ px,
+                                const float* __restrict__ mask,
+                                const float* __restrict__ dout,
+                                float* __restrict__ dvalue,
+                                float* __restrict__ dpy,
+                                float* __restrict__ dpx,
+                                float* __restrict__ dmask, int howo,
+                                int groups, int points, int h, int w, int gb,
+                                int bands, int rows, int halo) {
+  sample_bwd<CG>(value, py, px, mask, dout, dvalue, dpy, dpx, dmask, howo,
+                 groups, points, h, w, gb, bands, rows, halo);
 }
 
 template <int CG>
 cudaError_t launch(const float* value, const float* py, const float* px,
                    const float* mask, const float* dout, float* dvalue,
                    float* dpy, float* dpx, float* dmask, int n, int howo,
-                   int groups, int points, int h, int w,
-                   cudaStream_t stream) {
-  const int rows = n * howo * groups;
-  const int blocks = (rows + kThreads - 1) / kThreads;
-  dcnv3_sample_bwd_kernel<CG><<<blocks, kThreads, 0, stream>>>(
-      value, py, px, mask, dout, dvalue, dpy, dpx, dmask, rows, howo,
-      groups, points, h, w);
+                   int groups, int points, int h, int w, int gb, int bands,
+                   int rows, int halo, int device, cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(gb) * (CG + kShared<CG>) * rows * w +
+       kThreads<CG> / 32 * 3 * 32 * points) * sizeof(float);
+  constexpr auto* kernel = [] {
+    if constexpr (CG >= 32)
+      return &dcnv3_sample_bwd_kernel_bounded<CG, 1>;
+    else if constexpr (CG == 1)
+      return &dcnv3_sample_bwd_kernel_bounded<CG, 2>;
+    else
+      return &dcnv3_sample_bwd_kernel<CG>;
+  }();
+  int sms = 0;
+  const cudaError_t err = device_facts<kernel>(device, &sms);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bands, groups / gb, n);
+  kernel<<<grid, kThreads<CG>, smem, stream>>>(
+      value, py, px, mask, dout, dvalue, dpy, dpx, dmask, howo, groups,
+      points, h, w, gb, bands, rows, halo);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Launches on `stream` and does
-// not synchronise; returns the cudaError_t of the launch.  `dvalue` must
-// hold zeros.
+// Plain C entry point, loaded with ctypes.  Launches on `stream` of CUDA
+// device `device`, the current one, and does not synchronise; returns the
+// cudaError_t of the launch.  (gb, bands, rows, halo) is the tile plan of
+// ops/dcnv3.py:tile_plan.  `dvalue` must hold zeros unless the plan is one
+// band of every row (the whole map).
 extern "C" int dcnv3_sample_bwd_f32(const void* value, const void* py,
                                     const void* px, const void* mask,
                                     const void* dout, void* dvalue,
                                     void* dpy, void* dpx, void* dmask, int n,
                                     int howo, int groups, int points, int h,
-                                    int w, int cg, void* stream) {
+                                    int w, int cg, int gb, int bands,
+                                    int rows, int halo, int device,
+                                    void* stream) {
   const auto* v = static_cast<const float*>(value);
   const auto* y = static_cast<const float*>(py);
   const auto* x = static_cast<const float*>(px);
@@ -189,11 +463,13 @@ extern "C" int dcnv3_sample_bwd_f32(const void* value, const void* py,
   auto* dm = static_cast<float*>(dmask);
   auto s = static_cast<cudaStream_t>(stream);
   if (n * howo * groups == 0) return cudaSuccess;
+  if (gb < 1 || groups % gb || bands < 1 || rows < 0 || halo < 0)
+    return cudaErrorInvalidValue;
   switch (cg) {
 #define DCNV3_BWD_CASE(CG)                                                  \
   case CG:                                                                  \
     return launch<CG>(v, y, x, m, d, dv, dy, dx, dm, n, howo, groups,       \
-                      points, h, w, s);
+                      points, h, w, gb, bands, rows, halo, device, s);
     DCNV3_BWD_CASE(1)
     DCNV3_BWD_CASE(2)
     DCNV3_BWD_CASE(4)

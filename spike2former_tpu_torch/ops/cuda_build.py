@@ -33,9 +33,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` builds to, keyed on its content and flags."""
+    """Where ``csrc/<source>`` builds to, keyed on its content, the
+    headers of ``csrc/`` (which a source may include) and the flags."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return (BUILD_ROOT / f"{src.stem}-{key.hexdigest()[:16]}"
             / f"lib{src.stem}.so")
 

@@ -14,11 +14,17 @@ backward launches ``csrc/dcnv3_sample_bwd.cu`` (which replaces
 tensor on the CPU it is the plain version ``dcnv3_sample_reference``, with
 PyTorch's autograd of it.  Launches are counted in
 ``dcnv3_sample.launches`` (forward) and ``dcnv3_sample_backward.launches``.
+
+Both kernels stage a tile of the value map in shared memory: a block owns
+one image, a few groups and a band of output pixels.  ``tile_plan`` chooses
+the tile from the shapes (a plain function, so the CPU tests reach it).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -121,6 +127,122 @@ def dcnv3_sample_backward_reference(value: torch.Tensor, py: torch.Tensor,
     return dvalue.reshape(n, h, w, c), dpy, dpx, dmask
 
 
+# Shared-memory tiles of the two kernels (see the notes in their sources).
+SMEM_BYTES = 227 * 1024     # the most dynamic shared memory an H100 block
+                            # may use
+FWD_SMEM_BYTES = SMEM_BYTES        # K1: one block an SM
+BWD_SMEM_BYTES = SMEM_BYTES // 2   # K2: two blocks an SM
+HALO_ROWS = 3               # rows staged above a band (one more below)
+FWD_WARPS, BWD_WARPS = 16, 8   # warps a block, half at Cg = 32 (kThreads)
+NUM_SMS = 132               # an H100's SMs
+SHARED_CHANNELS = 4         # K2: channels of a staged tap added in shared
+                            # memory (kShared in its source)
+
+
+class TilePlan(NamedTuple):
+    """What one block of K1 or K2 owns and stages.  ``rows`` 0 stages
+    nothing (every tap reads device memory and K2 adds straight into
+    dvalue); ``rows`` = H stages the whole map; ``bands`` 0 (K1 only, with
+    ``rows`` = H) runs resident blocks that walk the items."""
+    groups: int    # adjacent groups per block
+    bands: int     # bands of output pixels per (image, group chunk)
+    rows: int      # map rows staged per block
+    halo: int      # rows staged above a band's rows (halo + 1 below)
+
+    def smem_bytes(self, w: int, cg: int, p: int, backward: bool) -> int:
+        """The staged value rows (and K2's accumulator of its shared
+        channels) plus each warp's buffer of 32 items' coordinates and
+        mask."""
+        return (_pixel_floats(self.groups, cg, backward) * self.rows * w
+                + _coord_floats(cg, p, backward)) * 4
+
+    def whole(self, h: int) -> bool:
+        """One block owns each group's whole map: K2 then writes dvalue
+        with plain stores and needs no zero-filled dvalue."""
+        return self.bands == 1 and self.rows >= h
+
+
+def _pixel_floats(groups: int, cg: int, backward: bool) -> int:
+    """Shared floats a staged pixel takes: K1's value tile pads the pixel
+    stride to an odd number of 16-byte quads (tile_stride in its source);
+    K2's keeps the groups' channels and an accumulator of the first
+    ``SHARED_CHANNELS`` of each."""
+    if backward:
+        return groups * (cg + min(cg, SHARED_CHANNELS))
+    return groups * cg + (0 if groups * cg % 8 else 4)
+
+
+def _warps(cg: int, backward: bool) -> int:
+    """Warps a block of K1 or K2 (kThreads / 32 in the sources)."""
+    warps = BWD_WARPS if backward else FWD_WARPS
+    return warps // 2 if cg >= 32 else warps
+
+
+def _coord_floats(cg: int, p: int, backward: bool) -> int:
+    """The warps' buffers of 32 items' coordinates and mask."""
+    return _warps(cg, backward) * 3 * 32 * p
+
+
+def _band_rows(h: int, howo: int, bands: int, halo: int) -> int:
+    """Map rows a band's taps are expected to hit: the rows of its output
+    pixels (output pixel o sits on row o*H // HoWo), ``halo`` above and
+    ``halo + 1`` below (the floor tap's next row)."""
+    ob = -(-howo // bands)
+    return min(h, (ob - 1) * h // howo + 3 + 2 * halo)
+
+
+@functools.cache
+def tile_plan(n: int, h: int, w: int, howo: int, g: int, cg: int, p: int,
+              *, backward: bool) -> TilePlan:
+    """Choose the tile of K1 (``backward`` False) or K2 for value
+    [N, H, W, G*Cg] and HoWo output pixels.
+
+    Each block stages the whole map of its groups when it fits the
+    kernel's budget (``FWD_SMEM_BYTES``, ``BWD_SMEM_BYTES``) beside the
+    warps' coordinate buffers (48 KB a group at the flagship's 32x32,
+    Cg=8, with K1's padded pixel stride; for K2 32 KB plus 16 KB of
+    accumulator).  K2 then takes one group and HoWo / 256 output pixels a
+    block (one item, an output pixel of a group, a thread).  K1, with as
+    many (image, group) pairs as SMs or more, takes two groups a block in
+    resident blocks (``bands`` 0, the kernel sizes the grid: the
+    flagship's train shape); with fewer, one group and one block an SM, in
+    bands of output pixels (the serve shape: 4 bands).
+
+    A map that does not fit is staged in bands of rows with halos, more
+    bands until the rows fit; bands too narrow for the budget first lose
+    halo rows, then stage nothing.  A single band that stages the whole
+    map owns it: K2 then stores dvalue without atomics or zero-fill.
+    Plans are kept per shape: the wrappers ask on every launch."""
+    budget = BWD_SMEM_BYTES if backward else FWD_SMEM_BYTES
+    groups = 2 if (not backward and n * g >= NUM_SMS and g % 2 == 0
+                   and TilePlan(2, 0, h, 0).smem_bytes(w, cg, p, False)
+                   <= budget) else 1
+    fit = min(h, max(0, budget - _coord_floats(cg, p, backward) * 4)
+              // (_pixel_floats(groups, cg, backward) * w * 4))
+    if fit >= h:
+        if backward:
+            bands = math.ceil(howo * groups / (_warps(cg, True) * 32))
+        elif n * g >= NUM_SMS:
+            return TilePlan(groups, 0, h, 0)
+        else:
+            bands = NUM_SMS * groups // (n * g)
+        return TilePlan(groups, max(1, min(h, howo, bands)), h, 0)
+    # one item a thread, at least two bands
+    bands = max(1, min(2, howo), min(h, howo, math.ceil(
+        howo * groups / (_warps(cg, backward) * 32))))
+    halo = HALO_ROWS
+    while True:
+        rows = _band_rows(h, howo, bands, halo)
+        if rows <= fit:
+            return TilePlan(groups, bands, rows, halo)
+        if bands < min(h, howo):
+            bands = min(h, howo, 2 * bands)
+        elif halo:
+            halo -= 1
+        else:
+            return TilePlan(groups, bands, 0, 0)
+
+
 SOURCE = "dcnv3_sample.cu"
 BWD_SOURCE = "dcnv3_sample_bwd.cu"
 # the grouped-layout sampler and its backward (ops/dcnv3_grouped.py)
@@ -128,10 +250,10 @@ GROUPED_SOURCE = "dcnv3_sample_grouped.cu"
 GROUPED_BWD_SOURCE = "dcnv3_sample_grouped_bwd.cu"
 CHANNELS_PER_GROUP = (1, 2, 4, 8, 16, 32)
 # each library's entry point: (name, tensor pointers, ints); the ints are
-# (n, howo, groups, points, h, w, cg), then the grouped forward's layout
-# flag; the stream comes last
-_ENTRY = {SOURCE: ("dcnv3_sample_f32", 5, 7),
-          BWD_SOURCE: ("dcnv3_sample_bwd_f32", 9, 7),
+# (n, howo, groups, points, h, w, cg), then K1's and K2's tile plan and
+# device index, or the grouped forward's layout flag; the stream comes last
+_ENTRY = {SOURCE: ("dcnv3_sample_f32", 5, 12),
+          BWD_SOURCE: ("dcnv3_sample_bwd_f32", 9, 12),
           GROUPED_SOURCE: ("dcnv3_sample_grouped_f32", 5, 8),
           GROUPED_BWD_SOURCE: ("dcnv3_sample_grouped_bwd_f32", 9, 7)}
 
@@ -237,13 +359,15 @@ class _DCNv3Sample:
 
     def launch(self, value: torch.Tensor, py: torch.Tensor,
                px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Launch the forward kernel (no autograd)."""
+        """Launch the forward kernel (no autograd) with ``tile_plan``'s
+        tile."""
         n, h, w, c, howo, g, p = _check_kernel_args(
             value, py, ("px", px), ("mask", mask))
+        plan = tile_plan(n, h, w, howo, g, c // g, p, backward=False)
         out = torch.empty((n, howo, c), dtype=value.dtype,
                           device=value.device)
         _launch(SOURCE, (value, py, px, mask, out),
-                (n, howo, g, p, h, w, c // g))
+                (n, howo, g, p, h, w, c // g, *plan, value.device.index))
         self.launches += 1
         return out
 
@@ -266,11 +390,15 @@ class _DCNv3SampleBackward:
         if dout.shape != (n, howo, c):
             raise ValueError(f"dout {tuple(dout.shape)} != "
                              f"{(n, howo, c)}")
-        # the kernel scatters into dvalue with atomics: zero it first
-        dvalue = torch.zeros_like(value)
+        plan = tile_plan(n, h, w, howo, g, c // g, p, backward=True)
+        # a block that owns a group's whole map stores its dvalue; with
+        # bands the halos overlap and the kernel adds with atomics
+        dvalue = (torch.empty_like(value) if plan.whole(h)
+                  else torch.zeros_like(value))
         dpy, dpx, dmask = (torch.empty_like(py) for _ in range(3))
         _launch(BWD_SOURCE, (value, py, px, mask, dout, dvalue, dpy, dpx,
-                             dmask), (n, howo, g, p, h, w, c // g))
+                             dmask),
+                (n, howo, g, p, h, w, c // g, *plan, value.device.index))
         self.launches += 1
         return dvalue, dpy, dpx, dmask
 

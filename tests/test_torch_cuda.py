@@ -137,6 +137,91 @@ def test_dcnv3_core_autograd_card_matches_cpu(cuda):
         torch.testing.assert_close(gg, gc_, atol=3e-4, rtol=1e-3)
 
 
+# --- slice four: K1 and K2 with shared-memory tiles --------------------------
+
+KINDS = ["random", "far", "offmap", "integer"]
+
+
+def _check_tiled_kernels(cuda, n, h, w, g, cg, kind, seed):
+    """K1 and K2 under ``tile_plan``'s plan against their plain versions
+    on coordinates from ``chip_smoke.sampler_inputs``: taps about 3 px off
+    the grid ('random'), up to 10 px off so most leave a band's halo
+    ('far'), spread over and off the map ('offmap'), and at exact integer
+    coordinates ('integer')."""
+    from chip_smoke import sampler_inputs
+
+    gen = torch.Generator().manual_seed(seed)
+    value, py, px, mask = sampler_inputs(
+        n, h, w, g, cg, 9, "far" if kind == "offmap" else kind, gen,
+        device=cuda)
+    if kind == "offmap":
+        py = (torch.rand(py.shape, generator=gen) * (h + 8) - 4).to(cuda)
+        px = (torch.rand(px.shape, generator=gen) * (w + 8) - 4).to(cuda)
+    dout = torch.randn((n, h * w, g * cg), generator=gen).to(cuda)
+    want = dcnv3.dcnv3_sample_reference(value, py, px, mask)
+    want_b = dcnv3.dcnv3_sample_backward_reference(value, py, px, mask,
+                                                   dout)
+    before = dcnv3.dcnv3_sample.launches
+    got = dcnv3.dcnv3_sample(value, py, px, mask)
+    torch.cuda.synchronize()
+    assert dcnv3.dcnv3_sample.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    before = dcnv3.dcnv3_sample_backward.launches
+    got = dcnv3.dcnv3_sample_backward(value, py, px, mask, dout)
+    torch.cuda.synchronize()
+    assert dcnv3.dcnv3_sample_backward.launches == before + 1
+    for name, gv, wv in zip(("dvalue", "dpy", "dpx", "dmask"), got, want_b):
+        torch.testing.assert_close(gv, wv, atol=3e-4, rtol=1e-3,
+                                   msg=lambda m: f"K2 {name}: {m}")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("shape", [(1, 64, 128), (1, 8, 2048)],
+                         ids=["64x128", "8x2048"])
+def test_kernels_on_a_map_larger_than_a_tile(cuda, shape, cg, kind):
+    """G=4 on a 64x128 map, where both kernels stage bands of rows with
+    halos from Cg=8 on (K2's adds outside them go to device memory), and
+    on an 8x2048 map, where not three rows fit from Cg=8 (K1) or Cg=2 (K2)
+    on and nothing is staged (``test_torch_dcnv3_tiles.py`` holds the
+    plans)."""
+    _check_tiled_kernels(cuda, *shape, 4, cg, kind, 100 + cg)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
+def test_kernels_in_resident_blocks(cuda, cg, kind):
+    """N=5, 16x16, G=32: 160 (image, group) pairs, more than an H100's
+    SMs, so K1 runs resident blocks over two groups each, as at the
+    flagship's train shape."""
+    plan = dcnv3.tile_plan(5, 16, 16, 256, 32, cg, 9, backward=False)
+    assert plan.bands == 0 and plan.groups == 2
+    _check_tiled_kernels(cuda, 5, 16, 16, 32, cg, kind, 200 + cg)
+
+
+def test_dcnv3_core_autograd_card_matches_cpu_on_a_large_map(cuda):
+    """Gradients through ``dcnv3_core`` on a 64x128 map with offsets up
+    to 10 px (K1 and K2 under their own plans, bands at Cg=8) equal those
+    of the plain path on the CPU."""
+    gen = torch.Generator().manual_seed(5)
+    n, h, w, g, gc = 1, 64, 128, 4, 8
+    x = torch.randn((n, h, w, g * gc), generator=gen)
+    off = (torch.rand((n, h, w, g * 18), generator=gen) * 20 - 10)
+    mask = torch.rand((n, h, w, g * 9), generator=gen)
+    cot = torch.randn((n, h, w, g * gc), generator=gen)
+    assert not dcnv3.tile_plan(n, h, w, h * w, g, gc, 9,
+                               backward=True).whole(h)
+    grads = []
+    for dev in ("cpu", cuda):
+        ts = [t.clone().to(dev).requires_grad_() for t in (x, off, mask)]
+        (dcnv3.dcnv3_core(*ts, group=g, group_channels=gc)
+         * cot.to(dev)).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for gc_, gg in zip(*grads):
+        assert gg.abs().max() > 0
+        torch.testing.assert_close(gg, gc_, atol=3e-4, rtol=1e-3)
+
+
 def test_tiny_train_step_card_matches_cpu(cuda):
     """One tiny train step on the card (through K1 and K2) against the
     same step on the CPU: every loss at 1e-4 relative, grad_norm at 1e-3
