@@ -48,13 +48,35 @@ Phases, each printing one flushed line with the seconds elapsed:
       cuDNN and matmuls: the share of pixels whose class agrees with f32
       and the largest logit difference; the tiny model's card logits in
       each mode against the CPU's;
-  (train) the flagship at full width takes 2 warm-up and 5 timed train
-      steps through ``api.init_trainer`` / ``api.train_steps`` at batch 6
-      and 512x512 crops of seeded synthetic images and piecewise-constant
-      semantic maps (K1 and K2 launches 6 each per step); losses finite,
-      the DCN offset and mask projections get non-zero gradients, and a
-      tiny model's ``total`` loss over 3 steps on the card agrees with the
-      CPU's.
+  (eval) the eval CLI's ``evaluate`` at full width on a seeded
+      ADE20K-layout tree of three images (512x683, 683x512, 512x512) in
+      whole mode bucketed to 128 with ``valid_hw``, whole mode exact (pad
+      to 32) and slide mode (crop 512, stride 341): each mode's mIoU, ms
+      per image and K1 launches per image and window, and the share of
+      pixels on which bucketed and exact agree;
+  (train) the flagship at full width, at the preset's defaults (the
+      on-device auction matcher, ``compact_gt=32``), takes 2 warm-up and 5
+      timed train steps through ``api.init_trainer`` / ``api.train_steps``
+      at batch 6 and 512x512 crops of seeded synthetic images and
+      piecewise-constant semantic maps (K1 and K2 launches 6 each per
+      step), each step's ``repaired_gt`` printed; losses finite, the DCN
+      offset and mask projections get non-zero gradients; then the same
+      step with ``matcher='host'``, 1 warm-up and 3 timed;
+  (auction) the cost batch of one flagship step ([42, 100, 32]): the
+      card's assignment and ``repaired_gt`` equal the CPU's, each
+      problem's total cost within G_valid * eps of scipy's optimum, a run
+      capped at one iteration completed by the repair; iterations, host
+      reads and ms per call;
+  (overflow) one full-width step on a batch with a 36-class crop, which
+      takes the full-width branch of ``compact_gt`` on the card; the
+      losses at ``compact_gt=32`` against full width (rel 1e-6) on a
+      normal batch and on that one;
+  (small train) a tiny model's ``total`` loss over 3 steps on the card
+      against the CPU's, with the auction and with the host matcher;
+  (reference) a tiny reference-format state dict
+      (``tests/torch_golden.py``'s ``GoldenSpike2Former``) through
+      ``load_reference_model`` onto the card, logits against the CPU's,
+      and through the eval CLI's ``--torch-checkpoint`` on the card.
 
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -65,24 +87,38 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from spike2former_tpu_torch import api
-from spike2former_tpu_torch.data.synthetic import synthetic_batch
+from spike2former_tpu_torch.data.dataset import make_dataset
+from spike2former_tpu_torch.data.synthetic import (synthetic_batch,
+                                                    write_ade_tree)
 from spike2former_tpu_torch.device import f32_precision
+from spike2former_tpu_torch.engine.checkpoint import load_reference_model
+from spike2former_tpu_torch.engine.config import TestConfig
 from spike2former_tpu_torch.engine.inference import (postprocess_pred,
+                                                      slide_origins,
                                                       whole_logits)
 from spike2former_tpu_torch.engine.weights import randomize_
-from spike2former_tpu_torch.models.segmentor import Spike2Former
+from spike2former_tpu_torch.losses import criterion
+from spike2former_tpu_torch.losses import matcher
+from spike2former_tpu_torch.losses.matcher import BIG_COST, auction_match
+from spike2former_tpu_torch.models.segmentor import Spike2Former, preprocess
 from spike2former_tpu_torch.ops import cuda_build, dcnv3, dcnv3_grouped
+from spike2former_tpu_torch.profile_train import sync_sites
+from spike2former_tpu_torch.tools import test as eval_cli
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
 KERNEL_TOL = 2e-5     # f32 sampler against its plain version
@@ -94,6 +130,13 @@ MODEL_TOL = 1e-3      # tiny-model logits, card against CPU
 # end-to-end tolerance of the inference check
 TRAIN_RTOL = 1e-3
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+HOST_WARMUP_STEPS, HOST_TIMED_STEPS = 1, 3
+EVAL_PASSES = 3               # timed passes over the eval tree per mode
+AUCTION_EPS = 0.02            # auction_match's eps: the optimality bound
+# the auction's chunk schedules timed against each other: (first, most)
+# iterations between reads of the loop condition
+AUCTION_CHUNKS = ((4, 512), (8, 8), (16, 16), (4, 16))
+COMPACT_RTOL = 1e-6           # compact_gt losses against full width
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32, outside the tensor cores
 REQUEST_SHAPES = ((512, 683), (683, 512), (512, 512))
@@ -315,8 +358,7 @@ def phase_serve(im) -> dict:
     imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
             for hw in REQUEST_SHAPES]
 
-    dcnv3.dcnv3_sample.launches = 0
-    zero_grouped_launches()
+    zero_launches()
     preds = [api.inference_model(im, img) for img in imgs]
     torch.cuda.synchronize()
     launches = dcnv3.dcnv3_sample.launches
@@ -577,9 +619,18 @@ def grouped_launches() -> tuple[int, int]:
             dcnv3_grouped.dcnv3_sample_grouped_backward.launches)
 
 
-def zero_grouped_launches() -> None:
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    dcnv3.dcnv3_sample.launches = 0
+    dcnv3.dcnv3_sample_backward.launches = 0
     dcnv3_grouped.dcnv3_sample_grouped.launches = 0
     dcnv3_grouped.dcnv3_sample_grouped_backward.launches = 0
+
+
+def read_launches() -> dict:
+    return dict(k1=dcnv3.dcnv3_sample.launches,
+                k2=dcnv3.dcnv3_sample_backward.launches,
+                grouped=grouped_launches())
 
 
 def phase_grouped(gen) -> dict:
@@ -783,24 +834,97 @@ def phase_tf32(im) -> dict:
     return res
 
 
-def phase_train() -> dict:
-    """(train): full-width flagship train steps through the entry
-    points."""
-    t = time.perf_counter()
-    tr = api.init_trainer(PRESET, seed=0)
-    log("train", f"flagship trainer built at full width in "
-        f"{time.perf_counter() - t:.1f}s")
-    b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
-    rng = np.random.default_rng(0)
-    batches = [synthetic_batch(rng, b, hw)
-               for _ in range(WARMUP_STEPS + TIMED_STEPS)]
-    n_cls = [len(np.unique(s[s != 255])) for s in batches[0][1]]
-    log("train", f"batch {b} at {hw}: classes per crop {n_cls}")
+# the eval modes of ``cfg.test``: whole bucketed with ``valid_hw`` (the
+# preset's default), whole exact (pad to 32), slide
+EVAL_MODES = {"whole_bucketed": TestConfig(mode="whole", bucket=128),
+              "whole_exact": TestConfig(mode="whole", bucket=0),
+              "slide": TestConfig(mode="slide", crop_size=(512, 512),
+                                  stride=(341, 341))}
 
+
+def phase_eval(im) -> dict:
+    """(eval): the eval CLI's ``evaluate`` at full width on a seeded
+    ADE20K-layout tree of the three request shapes, in each mode of
+    ``EVAL_MODES``: a warm-up pass, then ``EVAL_PASSES`` timed passes with
+    the launch counts set to 0 just before them."""
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_ade_tree(root, REQUEST_SHAPES, seed=0)
+        ds = make_dataset("ade20k", root, "val")
+        for mode, test_cfg in EVAL_MODES.items():
+            cfg = copy.deepcopy(im.cfg)
+            cfg.test = test_cfg
+            m = api.InferenceModel(cfg, im.model, im.device)
+            eval_cli.evaluate(m, ds)
+            torch.cuda.synchronize()
+            zero_launches()
+            passes = []
+            for _ in range(EVAL_PASSES):
+                t = time.perf_counter()
+                res = eval_cli.evaluate(m, ds)
+                torch.cuda.synchronize()
+                passes.append((time.perf_counter() - t) * 1e3
+                              / res["images"])
+            launches = read_launches()
+            ms = statistics.median(passes)
+            # one forward an image in whole mode; in slide mode one a
+            # chunk of windows (all of an image's fit one chunk here)
+            windows = [len(slide_origins(-(-h // 32) * 32, -(-w // 32) * 32,
+                                         (512, 512), (341, 341)))
+                       for h, w in REQUEST_SHAPES]
+            forwards = res["images"] * EVAL_PASSES
+            check(res["images"] == len(REQUEST_SHAPES), f"{mode}: images")
+            check(launches["k1"] == 6 * forwards,
+                  f"{mode}: expected {6 * forwards} K1 launches, got "
+                  f"{launches['k1']}")
+            for pred, hw in zip(res["preds"], REQUEST_SHAPES):
+                check(pred.shape == hw and pred.min() >= 0
+                      and pred.max() < im.num_classes,
+                      f"{mode}: pred {pred.shape} for {hw}")
+            check(np.isfinite(res["mIoU"]), f"{mode}: mIoU {res['mIoU']}")
+            per_window = (f", {launches['k1'] / EVAL_PASSES / sum(windows):g}"
+                          f" per window "
+                          f"({sum(windows)} windows)" if mode == "slide"
+                          else "")
+            log("eval", f"{mode}: images {res['images']} mIoU "
+                f"{res['mIoU']:.4f} mAcc {res['mAcc']:.4f} aAcc "
+                f"{res['aAcc']:.4f}; {ms:.3f} ms per image (median of "
+                f"{EVAL_PASSES} passes: {[round(x, 3) for x in passes]}); "
+                f"K1 launches {launches['k1']} over {EVAL_PASSES} passes "
+                f"({launches['k1'] / forwards:g} per image{per_window}), "
+                f"grouped {launches['grouped']}")
+            out[mode] = dict(res, ms=ms, launches=launches)
+    agree = (sum(int((a == b).sum()) for a, b in zip(
+        out["whole_bucketed"]["preds"], out["whole_exact"]["preds"]))
+        / sum(h * w for h, w in REQUEST_SHAPES))
+    log("eval", f"share of pixels on which bucketed and exact agree: "
+        f"{agree:.6f}")
+    out["agree"] = agree
+    return out
+
+
+@contextlib.contextmanager
+def capture_auction(store: list):
+    """Record the cost batch of each ``auction_match`` call the criterion
+    makes."""
+    real = criterion.auction_match
+
+    def spy(costs, **kw):
+        store.append(costs.detach().clone())
+        return real(costs, **kw)
+
+    criterion.auction_match = spy
+    try:
+        yield store
+    finally:
+        criterion.auction_match = real
+
+
+def timed_steps(tr, batches, warmup: int, tag: str) -> dict:
+    """Take one step per batch through ``api.train_steps``; the launch
+    counts are set to 0 just before and read just after."""
     torch.cuda.reset_peak_memory_stats()
-    dcnv3.dcnv3_sample.launches = 0
-    dcnv3.dcnv3_sample_backward.launches = 0
-    zero_grouped_launches()
+    zero_launches()
     times, metrics = [], []
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
@@ -809,52 +933,300 @@ def phase_train() -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         metrics.append(m)
-        log("train", f"step {i}{' (warm-up)' if i < WARMUP_STEPS else ''}: "
+        log("train", f"{tag} step {i}{' (warm-up)' if i < warmup else ''}: "
             f"{times[-1]:.1f} ms total={m['total']:.6g} "
-            f"grad_norm={m['grad_norm']:.6g} dropped_gt={m['dropped_gt']:g}")
-    fwd = dcnv3.dcnv3_sample.launches
-    bwd = dcnv3.dcnv3_sample_backward.launches
-    grouped = grouped_launches()
+            f"grad_norm={m['grad_norm']:.6g} dropped_gt={m['dropped_gt']:g} "
+            f"repaired_gt={m['repaired_gt']:g}")
+    launches = read_launches()
     steps = len(batches)
-    log("train", f"{steps} steps: dcnv3_sample launches={fwd} "
-        f"({fwd / steps:g} per step), dcnv3_sample_bwd launches={bwd} "
-        f"({bwd / steps:g} per step), grouped forward/backward launches="
-        f"{grouped}")
-    check(fwd == 6 * steps and bwd == 6 * steps,
-          f"expected 6 K1 and 6 K2 launches per step, got {fwd}, {bwd} "
-          f"over {steps} steps")
+    log("train", f"{tag}: {steps} steps, dcnv3_sample launches="
+        f"{launches['k1']} ({launches['k1'] / steps:g} per step), "
+        f"dcnv3_sample_bwd launches={launches['k2']} "
+        f"({launches['k2'] / steps:g} per step), grouped forward/backward "
+        f"launches={launches['grouped']}")
+    check(launches["k1"] == 6 * steps and launches["k2"] == 6 * steps,
+          f"{tag}: expected 6 K1 and 6 K2 launches per step, got "
+          f"{launches['k1']}, {launches['k2']} over {steps} steps")
     for m in metrics:
         bad = [k for k, v in m.items() if not np.isfinite(v)]
-        check(not bad, f"non-finite train metrics {bad}")
+        check(not bad, f"{tag}: non-finite train metrics {bad}")
     for name, p in tr.state.model.named_parameters():
         if ".dcn.offset_conv." in name or ".dcn.mask_conv." in name:
             check(p.grad is not None and p.grad.abs().max().item() > 0,
-                  f"no gradient reaches {name}")
-    log("train", "DCN offset and mask projections of all 6 encoder layers "
-        "have non-zero gradients")
-    timed = times[WARMUP_STEPS:]
-    return dict(launches=fwd, bwd_launches=bwd, grouped=grouped,
-                step_ms=statistics.median(timed), max_ms=max(timed),
-                n=len(timed),
+                  f"{tag}: no gradient reaches {name}")
+    timed = times[warmup:]
+    return dict(launches=launches, step_ms=statistics.median(timed),
+                max_ms=max(timed), n=len(timed),
+                repaired=[m["repaired_gt"] for m in metrics],
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def phase_small_train() -> float:
-    """A tiny model's 3 train steps on the card against the CPU: the
-    relative difference of each step's ``total`` loss."""
-    opts = [f"model.{k}={v!r}".replace(" ", "") for k, v in TINY.items()]
-    opts.append("train.warmup_iters=1")
-    rng = np.random.default_rng(1)
-    batches = [synthetic_batch(rng, 2, (64, 64), num_classes=5)
-               for _ in range(3)]
-    totals = []
-    for dev in ("cpu", "cuda"):
-        tr = api.init_trainer(PRESET, opts, device=dev, seed=1)
-        totals.append([m["total"] for m in api.train_steps(tr, batches)])
-    rel = max(abs(a - b) / abs(b) for a, b in zip(totals[1], totals[0]))
-    log("train", f"tiny totals CPU {totals[0]} card {totals[1]}")
-    check(rel <= TRAIN_RTOL, f"tiny train card vs CPU rel diff {rel:.3g}")
-    return rel
+def phase_train() -> dict:
+    """(train): full-width flagship train steps through the entry points
+    at the preset's defaults (auction, ``compact_gt=32``).  Returns the
+    trainer too, and the cost batch of its first step."""
+    t = time.perf_counter()
+    tr = api.init_trainer(PRESET, seed=0)
+    check((tr.cfg.train.matcher, tr.cfg.train.compact_gt) == ("auction", 32),
+          f"preset trains with {tr.cfg.train.matcher}, "
+          f"compact_gt={tr.cfg.train.compact_gt}")
+    log("train", f"flagship trainer built at full width in "
+        f"{time.perf_counter() - t:.1f}s (matcher "
+        f"{tr.cfg.train.matcher}, compact_gt {tr.cfg.train.compact_gt})")
+    b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
+    rng = np.random.default_rng(0)
+    batches = [synthetic_batch(rng, b, hw)
+               for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    n_cls = [len(np.unique(s[s != 255])) for s in batches[0][1]]
+    log("train", f"batch {b} at {hw}: classes per crop {n_cls}")
+    costs = []
+    with capture_auction(costs):
+        api.train_steps(tr, batches[:1])
+    check(len(costs) == 1 and tuple(costs[0].shape) == (42, 100, 32),
+          f"auction cost batches {[tuple(c.shape) for c in costs]}")
+    res = timed_steps(tr, batches, WARMUP_STEPS, "auction")
+    return dict(res, trainer=tr, costs=costs[0], batches=batches)
+
+
+def phase_host_train() -> dict:
+    """(train): the same step with ``matcher='host'``, fewer steps."""
+    tr = api.init_trainer(PRESET, ["train.matcher='host'"], seed=0)
+    rng = np.random.default_rng(0)
+    b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
+    batches = [synthetic_batch(rng, b, hw)
+               for _ in range(HOST_WARMUP_STEPS + HOST_TIMED_STEPS)]
+    return timed_steps(tr, batches, HOST_WARMUP_STEPS, "host")
+
+
+def phase_auction(costs: torch.Tensor) -> dict:
+    """(auction): the cost batch of one flagship train step on the card
+    against the CPU, against scipy's optimum, and capped."""
+    from scipy.optimize import linear_sum_assignment
+
+    got, stats = auction_match(costs, with_stats=True)
+    want, want_stats = auction_match(costs.cpu(), with_stats=True)
+    check(torch.equal(got.cpu(), want), "auction card vs CPU assignment")
+    check(int(stats.repaired) == int(want_stats.repaired) == 0,
+          f"repaired_gt card {int(stats.repaired)} CPU "
+          f"{int(want_stats.repaired)}")
+    c = costs.double().cpu().numpy()
+    m = got.cpu().numpy()
+    worst = 0.0
+    for i in range(len(c)):
+        valid = ~(c[i] >= BIG_COST * 0.5).all(0)
+        cols = np.flatnonzero(valid)
+        r, k = linear_sum_assignment(c[i][:, cols].T)
+        opt = c[i][:, cols].T[r, k].sum()
+        total = c[i][m[i, cols], cols].sum()
+        check(len(set(m[i, cols])) == len(cols) and (m[i, cols] >= 0).all(),
+              f"problem {i}: incomplete assignment")
+        excess = total - opt
+        check(excess <= len(cols) * AUCTION_EPS + 1e-4,
+              f"problem {i}: {excess:.4g} over the optimum")
+        worst = max(worst, excess / (len(cols) * AUCTION_EPS))
+    capped, capped_stats = auction_match(costs, num_iters=1,
+                                         with_stats=True)
+    check(int(capped_stats.repaired) > 0, "a run capped at 1 iteration "
+          "needed no repair")
+    cm = capped.cpu().numpy()
+    for i in range(len(c)):
+        cols = np.flatnonzero(~(c[i] >= BIG_COST * 0.5).all(0))
+        check((cm[i, cols] >= 0).all() and len(set(cm[i, cols])) == len(cols),
+              f"capped problem {i}: the repair left it incomplete")
+    check(torch.equal(capped.cpu(), auction_match(costs.cpu(), num_iters=1)),
+          "capped auction card vs CPU")
+    sites = sync_sites(lambda: auction_match(costs))
+    ms = host_ms(lambda: auction_match(costs), iters=20)
+    schedules = {}
+    saved = matcher.CHUNKS
+    try:
+        # four rounds, every other one in reverse order, so drift shows
+        for chunks in 2 * (AUCTION_CHUNKS + AUCTION_CHUNKS[::-1]):
+            matcher.CHUNKS = chunks
+            m_s, st = auction_match(costs, with_stats=True)
+            check(torch.equal(m_s, got), f"chunks {chunks}: assignment")
+            row = schedules.setdefault(f"{chunks[0]}-{chunks[1]}",
+                                       dict(syncs=st.syncs, ms=[]))
+            row["ms"].append(host_ms(lambda: auction_match(costs), iters=20))
+    finally:
+        matcher.CHUNKS = saved
+    res = dict(iterations=int(stats.iterations), syncs=stats.syncs,
+               sites=dict(sites), ms=ms, worst=worst,
+               capped_repaired=int(capped_stats.repaired),
+               chunks=matcher.CHUNKS, schedules=schedules)
+    log("auction", f"[{', '.join(map(str, costs.shape))}] card == CPU; "
+        f"{res['iterations']} iterations, {res['syncs']} host reads of the "
+        f"loop condition (synchronizations seen by "
+        f"torch.cuda.set_sync_debug_mode: {dict(sites)}); {ms:.3f} ms per "
+        f"call; worst "
+        f"excess over scipy {worst:.4f} of G_valid*eps; capped at 1 "
+        f"iteration: repaired_gt={res['capped_repaired']}, complete")
+    log("auction", "chunk schedules (first-most: host reads, median ms "
+        "per call of four rounds [each round]; the default is "
+        f"{matcher.CHUNKS}): " + "; ".join(
+            f"{k}: {v['syncs']} reads, {statistics.median(v['ms']):.3f} ms ["
+            + ", ".join(f"{t:.3f}" for t in v["ms"]) + "]"
+            for k, v in schedules.items()))
+    return res
+
+
+def phase_overflow(tr, batch) -> dict:
+    """(overflow): one step on a batch with a crop of 33-36 classes, which
+    takes ``compact_gt``'s full-width branch, and the losses at
+    ``compact_gt=32`` against full width on a normal batch and on it."""
+    rng = np.random.default_rng(7)
+    images, sem = batch
+    images, sem = images.copy(), sem.copy()
+    im1, sem1 = synthetic_batch(rng, 1, sem.shape[1:], classes=(36, 36))
+    images[0], sem[0] = im1[0], sem1[0]
+    n_cls = len(np.unique(sem[0][sem[0] != 255]))
+    check(n_cls > 32, f"the overflow crop holds {n_cls} classes")
+    widths = []
+    with capture_auction(widths):
+        zero_launches()
+        m = api.train_steps(tr, [(images, sem)])[0]
+        torch.cuda.synchronize()
+        launches = read_launches()
+    check([tuple(c.shape) for c in widths] == [(42, 100, 64)],
+          f"overflow step matched {[tuple(c.shape) for c in widths]}")
+    check(launches["k1"] == 6 and launches["k2"] == 6,
+          f"overflow step launches {launches}")
+    check(np.isfinite(m["total"]), "overflow step loss")
+    log("overflow", f"step on a batch with a {n_cls}-class crop: cost batch "
+        f"[42, 100, 64] (full width), total={m['total']:.6g} repaired_gt="
+        f"{m['repaired_gt']:g}, K1 {launches['k1']} K2 {launches['k2']}")
+    model = tr.state.model.train()
+    ncls, max_gt = tr.cfg.model.num_classes, tr.cfg.train.max_gt
+    worst = 0.0
+    for name, (ims, sems) in (("normal", batch), ("overflow", (images, sem))):
+        with torch.no_grad(), f32_precision():
+            cls, masks = model(preprocess(torch.as_tensor(ims,
+                                                          device=tr.device)))
+            gt = criterion.semantic_to_instances(
+                torch.as_tensor(sems, device=tr.device), ncls, max_gt)
+            kw = dict(num_classes=ncls, matcher="auction", loss_at="gt")
+            small = criterion.maskformer_loss(cls, masks, gt, compact_gt=32,
+                                              **kw)
+            full = criterion.maskformer_loss(cls, masks, gt, **kw)
+        rel = max(abs(float(small[k]) - float(full[k]))
+                  / max(abs(float(full[k])), 1e-30) for k in full
+                  if k != "repaired_gt")
+        check(rel <= COMPACT_RTOL, f"{name} batch: compact_gt=32 vs full "
+              f"width rel {rel:.3g} > {COMPACT_RTOL}")
+        worst = max(worst, rel)
+        log("overflow", f"{name} batch: losses at compact_gt=32 vs full "
+            f"width max rel diff {rel:.3g} (total {float(full['total']):.6g}"
+            f", valid slots past 32: {bool(gt.valid[:, 32:].any())})")
+    return dict(launches=launches, rel=worst)
+
+
+def phase_small_train() -> dict:
+    """A tiny model's 3 train steps on the card against the CPU, with the
+    preset's auction matcher and with the host matcher: the relative
+    difference of each step's ``total`` loss.  The maps hold 4 classes
+    for the 4 queries: the auction assumes no more valid slots than
+    queries."""
+    out = {}
+    for matcher in ("auction", "host"):
+        opts = [f"model.{k}={v!r}".replace(" ", "") for k, v in TINY.items()]
+        opts += ["train.warmup_iters=1", f"train.matcher='{matcher}'"]
+        rng = np.random.default_rng(1)
+        batches = [synthetic_batch(rng, 2, (64, 64), num_classes=4)
+                   for _ in range(3)]
+        totals = []
+        for dev in ("cpu", "cuda"):
+            tr = api.init_trainer(PRESET, opts, device=dev, seed=1)
+            totals.append([m["total"] for m in api.train_steps(tr, batches)])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(totals[1], totals[0]))
+        log("train", f"tiny {matcher} totals CPU {totals[0]} card "
+            f"{totals[1]}")
+        check(rel <= TRAIN_RTOL, f"tiny {matcher} train card vs CPU rel diff "
+              f"{rel:.3g}")
+        out[matcher] = rel
+    return out
+
+
+# tests/torch_golden.py's dims for a tiny reference-format checkpoint
+GOLDEN = dict(num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
+              feat_channels=16, num_queries=4, num_decoder_layers=2,
+              num_encoder_layers=2, depths_stage3=1, depths_stage4=1,
+              dcn_group=4)
+
+
+def golden_state_dict(seed: int = 3) -> dict:
+    """The reference-format state dict of ``tests/torch_golden.py``'s
+    ``GoldenSpike2Former`` at ``GOLDEN``'s dims, drawn by its
+    ``randomize_torch``.  Its forward needs ``tests/test_dcnv3.py``,
+    which imports JAX; only the state dict is taken here, so that import
+    is answered by an empty module."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    saved = {k: sys.modules.get(k) for k in ("test_dcnv3", "torch_golden")}
+    sys.modules["test_dcnv3"] = types.ModuleType("test_dcnv3")
+    sys.modules["test_dcnv3"].torch_dcnv3_golden = None
+    sys.path.insert(0, tests)
+    try:
+        import torch_golden
+    finally:
+        sys.path.remove(tests)
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    g = GOLDEN
+    golden = torch_golden.GoldenSpike2Former(
+        num_classes=g["num_classes"], embed_dim=g["embed_dim"],
+        heads=g["backbone_heads"], T=1, feat=g["feat_channels"],
+        num_queries=g["num_queries"], dec_layers=g["num_decoder_layers"],
+        enc_layers=g["num_encoder_layers"], group=g["dcn_group"],
+        depths_stage3=g["depths_stage3"], depths_stage4=g["depths_stage4"])
+    torch_golden.randomize_torch(golden, seed=seed)
+    return golden.state_dict()
+
+
+def phase_reference() -> dict:
+    """(reference): a reference-format checkpoint through
+    ``load_reference_model`` onto the card, its logits against the
+    CPU's, and through the eval CLI's ``--torch-checkpoint`` on the
+    card."""
+    depths = {k: GOLDEN[k] for k in ("depths_stage3", "depths_stage4",
+                                      "num_encoder_layers",
+                                      "num_decoder_layers")}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "golden.pth")
+        torch.save({"state_dict": golden_state_dict()}, path)
+        sd = load_reference_model(path, **depths)
+        cpu = Spike2Former(T=1, compat=True, **GOLDEN)
+        cpu.load_state_dict(sd, strict=True)
+        gpu = copy.deepcopy(cpu).cuda()
+        x = torch.from_numpy(np.random.default_rng(2).normal(
+            0, 1, (1, 64, 64, 3)).astype(np.float32))
+        with torch.inference_mode(), f32_precision():
+            want = cpu.eval().predict_logits(x)
+            got = gpu.eval().predict_logits(x.cuda()).cpu()
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, atol=MODEL_TOL, rtol=MODEL_TOL),
+              f"reference checkpoint card vs CPU: max|diff|={err:.3g}")
+        root = write_ade_tree(os.path.join(d, "ade"), ((96, 128), (128, 96)),
+                              seed=1)
+        opts = [f"model.{k}={v!r}".replace(" ", "") for k, v in GOLDEN.items()]
+        opts.append("data.test_scale=(128,96)")
+        buf = io.StringIO()
+        before = dcnv3.dcnv3_sample.launches
+        with contextlib.redirect_stdout(buf):
+            rc = eval_cli.main([PRESET, "--data-root", root,
+                                "--torch-checkpoint", path,
+                                "--cfg-options", *opts])
+        lines = buf.getvalue().splitlines()
+        check(rc == 0 and lines[-2] == "images: 2"
+              and lines[-1].startswith("mIoU "),
+              f"eval CLI with a reference checkpoint printed {lines}")
+        check(dcnv3.dcnv3_sample.launches > before,
+              "the eval CLI did not run K1")
+    log("reference", f"reference-format checkpoint: logits card vs CPU "
+        f"max|diff|={err:.3g} (tol {MODEL_TOL}); eval CLI on the card: "
+        f"{' | '.join(lines[-2:])}")
+    return dict(err=err, cli=lines[-2:])
 
 
 def main() -> int:
@@ -905,15 +1277,39 @@ def main() -> int:
     err = phase_small_reference()
     log("reference", f"tiny model 64x64 card vs CPU max|diff|={err:.3g} "
         f"(tol {MODEL_TOL})")
+    ev = phase_eval(im)
     del im
     torch.cuda.empty_cache()
+
     tr = phase_train()
-    log("train", f"median step_ms={tr['step_ms']:.3f} (max "
-        f"{tr['max_ms']:.3f}, n={tr['n']}) peak_mem_gib={tr['peak_gib']:.3f}"
-        f" on {smi}")
+    log("train", f"auction (preset default): median step_ms="
+        f"{tr['step_ms']:.3f} (max {tr['max_ms']:.3f}, n={tr['n']}) "
+        f"peak_mem_gib={tr['peak_gib']:.3f} repaired_gt per step "
+        f"{tr['repaired']} on {smi}")
+    auc = phase_auction(tr["costs"])
+    ov = phase_overflow(tr["trainer"], tr["batches"][0])
+    del tr["trainer"], tr["costs"], tr["batches"]
+    torch.cuda.empty_cache()
+    host = phase_host_train()
+    log("train", f"host matcher: median step_ms={host['step_ms']:.3f} (max "
+        f"{host['max_ms']:.3f}, n={host['n']}) peak_mem_gib="
+        f"{host['peak_gib']:.3f} on {smi}; auction/host step ms "
+        f"{tr['step_ms'] / host['step_ms']:.3f}")
     t_err = phase_small_train()
-    log("train", f"tiny model 3 steps card vs CPU max rel|diff| of total="
-        f"{t_err:.3g} (tol {TRAIN_RTOL})")
+    log("train", f"tiny model 3 steps card vs CPU max rel|diff| of total: "
+        f"auction {t_err['auction']:.3g}, host {t_err['host']:.3g} "
+        f"(tol {TRAIN_RTOL})")
+    ref = phase_reference()
+
+    # the main path's launches: serve, the three eval modes, the train
+    # steps at the defaults, the overflow step and the host-matcher steps,
+    # each counted from 0 just before it
+    paths = [ev[mode]["launches"] for mode in EVAL_MODES] + [
+        tr["launches"], ov["launches"], host["launches"]]
+    k1_launches = s["launches"] + sum(p["k1"] for p in paths)
+    k2_launches = sum(p["k2"] for p in paths)
+    grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
+               for i in (0, 1)]
 
     def row(name, source, tpu_name, launches, max_abs_err, t):
         return dict(
@@ -930,21 +1326,26 @@ def main() -> int:
     # K1 and K3-K6 at the serve shape, K2 and K7 at the train shape
     kernels = [
         row("dcnv3_sample", dcnv3.SOURCE, "dcnv3_sample_pallas_t5",
-            s["launches"] + tr["launches"],
-            max(k["max_abs_err"], s["max_abs_err"]), k[1]),
+            k1_launches, max(k["max_abs_err"], s["max_abs_err"]), k[1]),
         row("dcnv3_sample_bwd", dcnv3.BWD_SOURCE,
-            "dcnv3_sample_pallas_t5_bwd", tr["bwd_launches"],
+            "dcnv3_sample_pallas_t5_bwd", k2_launches,
             max(k2["max_abs_err"], grad_err), k2)]
     for name, (_, layout) in GROUPED_FORWARD.items():
         kernels.append(row(
             f"dcnv3_sample_grouped[{layout}] ({name})", dcnv3.GROUPED_SOURCE,
-            name, s["grouped"][0] + tr["grouped"][0], gk["errs"][name],
-            gk["times"][name, "serve"]))
+            name, grouped[0], gk["errs"][name], gk["times"][name, "serve"]))
     kernels.append(row(
         f"dcnv3_sample_grouped_bwd ({GROUPED_BACKWARD})",
-        dcnv3.GROUPED_BWD_SOURCE, GROUPED_BACKWARD,
-        s["grouped"][1] + tr["grouped"][1], gk["errs"][GROUPED_BACKWARD],
+        dcnv3.GROUPED_BWD_SOURCE, GROUPED_BACKWARD, grouped[1],
+        gk["errs"][GROUPED_BACKWARD],
         gk["times"][GROUPED_BACKWARD, "train"]))
+    log("summary", f"K1 launches: serve {s['launches']}, eval "
+        f"{[ev[m]['launches']['k1'] for m in EVAL_MODES]}, train "
+        f"{tr['launches']['k1']}, overflow {ov['launches']['k1']}, host "
+        f"{host['launches']['k1']}; K2: train {tr['launches']['k2']}, "
+        f"overflow {ov['launches']['k2']}, host {host['launches']['k2']}; "
+        f"reference CLI max|diff| {ref['err']:.3g}; auction "
+        f"{auc['ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .data.metainfo import DATASETS
-from .data.transforms import load_image, pad_to, resize_keep_ratio
+from .data.transforms import load_image, test_pipeline
 from .device import f32_precision, resolve_device
 from .engine.config import Config, build_model, get_config
 from .engine.inference import postprocess_pred, whole_logits
@@ -64,12 +64,10 @@ def resize_and_pad(cfg: Config, img: np.ndarray
     ``cfg.data.test_scale``, then pad to a multiple of
     ``cfg.data.size_divisor``.  Returns the padded [H, W, 3] image and the
     resized (h, w) inside it."""
-    sample = resize_keep_ratio({"image": img, "sem_seg": None, "meta": {}},
-                               *cfg.data.test_scale)
-    h, w = sample["image"].shape[:2]
-    div = cfg.data.size_divisor or 1
-    sample = pad_to(sample, (-(-h // div) * div, -(-w // div) * div))
-    return sample["image"], (h, w)
+    sample = test_pipeline({"image": img, "sem_seg": None, "meta": {}},
+                           cfg.data.test_scale,
+                           size_divisor=cfg.data.size_divisor)
+    return sample["image"], sample["meta"]["img_shape"]
 
 
 def inference_model(im: InferenceModel, image: str | np.ndarray

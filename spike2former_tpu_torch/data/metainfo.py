@@ -1,8 +1,9 @@
 """Dataset metainfo (port of the ADE20K entry of
-``spike2former_tpu/data/metainfo.py``)."""
+``spike2former_tpu/data/metainfo.py``): class names, label conventions and
+the directory layout."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -10,7 +11,11 @@ class DatasetMeta:
     name: str
     classes: tuple
     reduce_zero_label: bool
+    img_suffix: str = ".jpg"
+    seg_suffix: str = ".png"
     ignore_index: int = 255
+    # relative dirs (mmseg layout): (img_dir, ann_dir) per split
+    splits: dict = field(default_factory=dict)
 
     @property
     def num_classes(self) -> int:
@@ -43,7 +48,9 @@ ADE20K_CLASSES = (
     "radiator", "glass", "clock", "flag",
 )
 
-ADE20K = DatasetMeta(name="ade20k", classes=ADE20K_CLASSES,
-                     reduce_zero_label=True)
+ADE20K = DatasetMeta(
+    name="ade20k", classes=ADE20K_CLASSES, reduce_zero_label=True,
+    splits={"train": ("images/training", "annotations/training"),
+            "val": ("images/validation", "annotations/validation")})
 
 DATASETS = {d.name: d for d in (ADE20K,)}

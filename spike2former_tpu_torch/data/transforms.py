@@ -1,5 +1,6 @@
-"""Host-side eval transforms (port of ``load_image``, ``resize_keep_ratio``
-and ``pad_to`` of ``spike2former_tpu/data/transforms.py``).
+"""Host-side eval transforms (port of ``load_image``, ``load_annotation``,
+``resize_keep_ratio``, ``pad_to`` and ``test_pipeline`` of
+``spike2former_tpu/data/transforms.py``).
 
 Pure numpy/PIL functions over a ``sample`` dict:
 {image: uint8 [H,W,3] RGB, sem_seg: int [H,W] or None, meta: {...}}.
@@ -15,6 +16,20 @@ Sample = dict
 def load_image(path: str) -> np.ndarray:
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def load_annotation(path: str, reduce_zero_label: bool) -> np.ndarray:
+    """A label map [H, W] int32; ``reduce_zero_label`` maps 0 (unlabeled)
+    to 255 and k to k - 1 (mmseg LoadAnnotations)."""
+    with Image.open(path) as im:
+        seg = np.asarray(im)
+    if seg.ndim == 3:
+        seg = seg[..., 0]
+    seg = seg.astype(np.int32)
+    if reduce_zero_label:
+        seg = np.where(seg == 0, 255, seg - 1)
+        seg = np.where(seg == 254, 255, seg)
+    return seg
 
 
 def _pil_resize(arr: np.ndarray, size_wh: tuple[int, int],
@@ -58,3 +73,18 @@ def pad_to(sample: Sample, size: tuple[int, int], pad_val: int = 0,
                                 constant_values=seg_pad_val)
     out["meta"] = dict(out.get("meta", {}), pad_shape=(h, w))
     return out
+
+
+def test_pipeline(sample: Sample, scale=(2048, 512),
+                  size_divisor: int | None = 32,
+                  bucket: int = 0) -> Sample:
+    """The eval pipeline: keep-ratio resize to ``scale``, then bottom-right
+    padding to a multiple of ``bucket`` when set, else to a multiple of
+    ``size_divisor``."""
+    sample = resize_keep_ratio(sample, *scale)
+    h, w = sample["image"].shape[:2]
+    multiple = bucket or size_divisor
+    if multiple:
+        sample = pad_to(sample, (-(-h // multiple) * multiple,
+                                 -(-w // multiple) * multiple))
+    return sample

@@ -1,9 +1,9 @@
 """Config dataclasses, the flagship preset and dot-key overrides (port of
 ``spike2former_tpu/engine/config.py``, without JAX).
 
-Only the fields that whole-image inference and the semantic train step
-of the f32 SDTv2 MaskFormer read are kept, so an override of anything else
-(``model.variant``, ``train.compact_gt``, ...) is rejected as an unknown
+Only the fields that inference, evaluation and the semantic train step of
+the f32 SDTv2 MaskFormer read are kept, so an override of anything else
+(``model.variant``, ``train.loss_points``, ...) is rejected as an unknown
 key; the other presets wait for later slices of the port.
 """
 from __future__ import annotations
@@ -37,6 +37,7 @@ class ModelConfig:
 @dataclass
 class DataConfig:
     dataset: str = "ade20k"
+    data_root: str = "data/ade/ADEChallengeData2016"
     crop_size: tuple = (512, 512)     # train batches (synthetic until
     batch_size: int = 6               # the data layer is ported)
     test_scale: tuple = (2048, 512)
@@ -52,12 +53,21 @@ class TrainConfig:
     warmup_iters: int = 1500
     total_iters: int = 160_000
     max_gt: int = 64
-    # the JAX package defaults to its on-device auction matcher, which is
-    # not ported yet: only the exact host matcher is accepted
-    matcher: str = "host"
+    # the exact fast path of the GT axis under the auction matcher
+    # (losses.criterion.maskformer_loss); 0 disables
+    compact_gt: int = 32
+    matcher: str = "auction"          # 'auction' (on-device) | 'host' (scipy)
     loss_at: str = "gt"               # 'gt' (the reference) | 'pred'
     accum_steps: int = 1
     seed: int = 0
+
+
+@dataclass
+class TestConfig:
+    mode: str = "whole"               # 'whole' | 'slide'
+    crop_size: tuple = (512, 512)
+    stride: tuple = (341, 341)
+    bucket: int = 128                 # eval shape bucketing (0 = exact+pad32)
 
 
 @dataclass
@@ -66,6 +76,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    test: TestConfig = field(default_factory=TestConfig)
 
 
 def build_model(cfg: ModelConfig) -> Spike2Former:
@@ -106,7 +117,8 @@ def _ade_spike2former_sdtv2() -> Config:
     """SDTv2_maskformer_DCNpixelDecoder_ade20k.py, the flagship."""
     return Config(name="SDTv2_maskformer_DCNpixelDecoder_ade20k",
                   model=ModelConfig(T=1, num_classes=150),
-                  data=DataConfig(dataset="ade20k"))
+                  data=DataConfig(dataset="ade20k"),
+                  test=TestConfig(mode="whole"))
 
 
 PRESETS = {"SDTv2_maskformer_DCNpixelDecoder_ade20k": _ade_spike2former_sdtv2}

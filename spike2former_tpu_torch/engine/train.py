@@ -5,10 +5,12 @@ the data layer.
 
 One step: forward in training mode (decoder-layer BNs on batch statistics,
 backbone BNs frozen under ``norm_eval``), GT slots from the semantic map,
-Hungarian matching of all supervised layers in one host call, CE + focal +
-dice, backward (through the DCNv3 backward kernel on the card), global-norm
-clipping and the grouped AdamW update.  Unlike the JAX step, which returns
-a new state, the step updates the model and optimizer in place.
+matching of all supervised layers in one call (the on-device auction with
+the ``compact_gt`` fast path, the preset's default, or the exact host
+matcher), CE + focal + dice, backward (through the DCNv3 backward kernel
+on the card), global-norm clipping and the grouped AdamW update.  Unlike
+the JAX step, which returns a new state, the step updates the model and
+optimizer in place.
 """
 from __future__ import annotations
 
@@ -48,8 +50,8 @@ def init_state(model: Spike2Former, train_cfg: TrainConfig) -> TrainState:
 
 
 def make_train_step(num_classes: int, max_gt: int = 64,
-                    matcher: str = "host", loss_at: str = "gt",
-                    accum_steps: int = 1) -> Callable:
+                    matcher: str = "auction", loss_at: str = "gt",
+                    accum_steps: int = 1, compact_gt: int = 32) -> Callable:
     """Returns ``train_step(state, images_u8, sem_seg) -> (state,
     metrics)``.
 
@@ -63,11 +65,15 @@ def make_train_step(num_classes: int, max_gt: int = 64,
     microbatches, each updating the BN statistics, and averages their
     gradients (and metrics) before one optimizer update.
 
+    ``compact_gt`` (0 disables) cuts the GT axis for the auction matcher
+    where no slot past it is valid (``losses.criterion.maskformer_loss``).
+
     The stages run inside ``torch.profiler.record_function`` ranges
     (``forward``, ``match_and_loss``, ``backward``, ``optimizer``), which
     ``profile_train.py`` reads."""
-    if matcher != "host":
-        raise ValueError(f"matcher {matcher!r} is not ported; use 'host'")
+    if matcher not in ("auction", "host"):
+        raise ValueError(
+            f"matcher must be 'auction' or 'host', got {matcher!r}")
     if loss_at not in ("gt", "pred"):
         raise ValueError(f"loss_at must be 'gt' or 'pred', got {loss_at!r}")
 
@@ -78,7 +84,8 @@ def make_train_step(num_classes: int, max_gt: int = 64,
             gt = semantic_to_instances(sem_seg, num_classes, max_gt)
             losses = maskformer_loss(cls_scores, mask_preds, gt,
                                      num_classes=num_classes,
-                                     matcher=matcher, loss_at=loss_at)
+                                     matcher=matcher, loss_at=loss_at,
+                                     compact_gt=compact_gt or None)
         with record_function("backward"):
             (losses["total"] / accum_steps).backward()
         losses = {k: v.detach() for k, v in losses.items()}
@@ -128,7 +135,8 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
     t = cfg.train
     step_fn = make_train_step(cfg.model.num_classes, max_gt=t.max_gt,
                               matcher=t.matcher, loss_at=t.loss_at,
-                              accum_steps=t.accum_steps)
+                              accum_steps=t.accum_steps,
+                              compact_gt=t.compact_gt)
     model = build_model(cfg.model)
     if state_dict is None:
         randomize_(model, t.seed if seed is None else seed)

@@ -11,9 +11,9 @@ stack out of TPU memory.  Each layer's loss is recomputed in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint(layer_fn)`` does), so one
 layer's ``[B, G, H, W]`` buffers are alive at a time.
 
-Under the host matcher the GT axis stays at the full ``max_gt`` width, as
-in the JAX package, which applies ``compact_gt`` only to the auction
-matcher.
+``compact_gt`` truncates the GT axis for the auction matcher only, as in
+the JAX package; under the host matcher the GT axis stays at the full
+``max_gt`` width.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import resize_bilinear_hw, resize_nearest_torch
 from .losses import dice_loss, sigmoid_focal_loss, weighted_cross_entropy
-from .matcher import hungarian_host, match_costs
+from .matcher import auction_match, hungarian_host, match_costs
 
 
 class LazyMasks(NamedTuple):
@@ -189,11 +189,16 @@ def _dense_layer_loss(cls_scores, masks_l, matched_q, gt, slot_ds, **kw):
 @torch.no_grad()
 def match_all_layers(all_cls_scores: torch.Tensor, all_mask_preds,
                      gt: GroundTruth, slot_ds: torch.Tensor, *,
-                     focal_weight: float = 20.0, dice_weight: float = 1.0
-                     ) -> torch.Tensor:
-    """The assignment of every layer, in ONE host call: [L, B, G] query
-    per GT slot, -1 where the slot is invalid or unmatched.  Costs are
-    taken at mask resolution against the nearest-downsampled GT."""
+                     matcher: str = "host", focal_weight: float = 20.0,
+                     dice_weight: float = 1.0
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The assignment of every layer in ONE matcher call over the L*B cost
+    matrices (one host round trip for ``'host'``, one auction for
+    ``'auction'``): [L, B, G] query per GT slot, -1 where the slot is
+    invalid or unmatched, and the number of columns the auction's greedy
+    repair filled (0 for the host matcher, which always completes).
+    Costs are taken at mask resolution against the nearest-downsampled
+    GT."""
     num_layers, b = all_cls_scores.shape[:2]
     g = gt.labels.shape[1]
     lazy = isinstance(all_mask_preds, LazyMasks)
@@ -208,28 +213,54 @@ def match_all_layers(all_cls_scores: torch.Tensor, all_mask_preds,
         costs.append(match_costs(
             all_cls_scores[li], mask_l, gt.labels, gt_cost, gt.valid,
             focal_weight=focal_weight, dice_weight=dice_weight))
-    costs = torch.stack(costs)                            # [L, B, nq, G]
-    matched = hungarian_host(costs.reshape(num_layers * b, -1, g))
+    costs = torch.stack(costs).reshape(num_layers * b, -1, g)
+    if matcher == "host":
+        matched = hungarian_host(costs)
+        repaired = torch.zeros((), dtype=torch.long, device=costs.device)
+    else:
+        matched, stats = auction_match(costs, with_stats=True)
+        repaired = stats.repaired
     matched = matched.reshape(num_layers, b, g)
-    return torch.where(gt.valid[None], matched, -1)
+    return torch.where(gt.valid[None], matched, -1), repaired
 
 
 def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
                     gt: GroundTruth, *, num_classes: int,
                     bg_class_weight: float = 0.1, focal_weight: float = 20.0,
                     dice_weight: float = 1.0, matcher: str = "host",
-                    loss_at: str = "pred") -> dict[str, torch.Tensor]:
+                    loss_at: str = "pred", compact_gt: int | None = None
+                    ) -> dict[str, torch.Tensor]:
     """Deep-supervised loss over all L layers (loss_by_feat :367-408).
 
     all_cls_scores [L, B, nq, K+1]; all_mask_preds dense [L, B, nq, h, w]
     or ``LazyMasks``.  Returns ``{loss_cls, loss_mask, loss_dice}`` of the
     last layer, ``d{i}.loss_*`` of the others (the reference's logger
-    keys), ``total`` (their sum) and ``repaired_gt`` (0: the host matcher
-    always completes)."""
+    keys), ``total`` (their sum) and ``repaired_gt`` (the columns the
+    auction's greedy repair filled; 0 for the host matcher).
+
+    ``compact_gt``: the exact fast path of the padded GT axis, for the
+    auction matcher only.  ``semantic_to_instances`` packs the valid slots
+    into a prefix, so where no slot past ``compact_gt`` is valid the GT
+    axis is cut to ``compact_gt`` slots (the slot map through
+    ``minimum(slot_map, compact_gt)``) with no change to any number:
+    invalid columns carry ``BIG_COST`` and zero pair weight.  Otherwise
+    the loss runs at full width.  JAX picks the branch on the device with
+    ``lax.cond``; here the overflow test is one host read per call."""
     if loss_at not in ("pred", "gt"):
         raise ValueError(f"loss_at must be 'pred' or 'gt', got {loss_at!r}")
-    if matcher != "host":
-        raise ValueError(f"matcher {matcher!r} is not ported; use 'host'")
+    if matcher not in ("host", "auction"):
+        raise ValueError(
+            f"matcher must be 'host' or 'auction', got {matcher!r}")
+    gc = compact_gt
+    if (gc and gc < gt.labels.shape[1] and matcher != "host"
+            and not bool(gt.valid[:, gc:].any())):
+        small = GroundTruth(labels=gt.labels[:, :gc], valid=gt.valid[:, :gc],
+                            dropped=gt.dropped,
+                            slot_map=torch.clamp(gt.slot_map, max=gc))
+        return maskformer_loss(
+            all_cls_scores, all_mask_preds, small, num_classes=num_classes,
+            bg_class_weight=bg_class_weight, focal_weight=focal_weight,
+            dice_weight=dice_weight, matcher=matcher, loss_at=loss_at)
     dev = all_cls_scores.device
     class_weight = torch.tensor([1.0] * num_classes + [bg_class_weight],
                                 device=dev)
@@ -238,9 +269,9 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
     lazy = isinstance(all_mask_preds, LazyMasks)
     h, w = (all_mask_preds.mask_hw if lazy else all_mask_preds.shape[-2:])
     slot_ds = resize_nearest_torch(gt.slot_map[..., None], (h, w))[..., 0]
-    matched = match_all_layers(all_cls_scores, all_mask_preds, gt, slot_ds,
-                               focal_weight=focal_weight,
-                               dice_weight=dice_weight)
+    matched, repaired = match_all_layers(
+        all_cls_scores, all_mask_preds, gt, slot_ds, matcher=matcher,
+        focal_weight=focal_weight, dice_weight=dice_weight)
     kw = dict(num_classes=num_classes, class_weight=class_weight,
               focal_weight=focal_weight, dice_weight=dice_weight,
               num_total_masks=num_total, loss_at=loss_at)
@@ -262,5 +293,5 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
             losses[f"d{i}.{name}"] = per_layer[i][k]
     losses["total"] = sum(torch.stack([layer[k] for layer in per_layer]).sum()
                           for k in range(3))
-    losses["repaired_gt"] = torch.zeros((), device=dev)
+    losses["repaired_gt"] = repaired.float()
     return losses

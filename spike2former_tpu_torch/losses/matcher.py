@@ -1,14 +1,18 @@
 """Hungarian matching with mask-classification costs (port of
-``match_costs`` and ``hungarian_host`` of
 ``spike2former_tpu/losses/matcher.py``).
 
 The costs are computed on the device, batched over a leading axis, over a
 padded GT axis: invalid GT columns get ``BIG_COST``, which cannot change
-the optimum restricted to the valid columns.  The assignment is the exact
-``scipy.optimize.linear_sum_assignment`` on the host, one round trip for
-the whole batch.  The on-device auction matcher is not ported yet.
+the optimum restricted to the valid columns.  Two assignment backends:
+
+* ``hungarian_host``: the exact ``scipy.optimize.linear_sum_assignment``
+  on the host, one round trip for the whole batch;
+* ``auction_match``: the on-device forward auction, in plain torch ops on
+  the costs' device; the costs never leave it.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -79,3 +83,120 @@ def hungarian_host(costs: torch.Tensor) -> torch.Tensor:
         rows, cols = linear_sum_assignment(c[i])
         out[i, cols] = rows
     return torch.from_numpy(out).to(costs.device)
+
+
+class AuctionStats(NamedTuple):
+    """What one ``auction_match`` call did."""
+
+    repaired: torch.Tensor    # valid columns the capped auction left
+    #                           unmatched and the greedy repair filled
+    iterations: torch.Tensor  # auction iterations with a column unassigned
+    syncs: int                # host reads of the loop condition
+
+
+def _greedy_repair(benefit: torch.Tensor, matched: torch.Tensor,
+                   invalid_col: torch.Tensor) -> torch.Tensor:
+    """Complete a partial assignment: every valid but unmatched GT column
+    takes its best still-free query, sequentially over columns (first
+    column first, lowest query index on a tie).  Already-matched columns
+    are untouched, so where the cap did not bind this is the identity."""
+    b, nq, g = benefit.shape
+    rows = torch.arange(b, device=benefit.device)
+    owned = torch.zeros((b, nq + 1), dtype=torch.bool, device=benefit.device)
+    owned = owned.scatter_(1, torch.where(matched >= 0, matched, nq),
+                           True)[:, :nq].clone()
+    matched = matched.clone()
+    for j in range(g):
+        need = (matched[:, j] < 0) & ~invalid_col[:, j]
+        val = benefit[:, :, j].masked_fill(owned, float("-inf"))
+        q = val.argmax(1)
+        matched[:, j] = torch.where(need, q, matched[:, j])
+        owned[rows, q] |= need
+    return matched
+
+
+# the auction's iterations between host reads of its loop condition: the
+# first chunk, doubled after each read up to the second
+CHUNKS = (4, 16)
+
+
+def auction_match(costs: torch.Tensor, num_iters: int = 600,
+                  eps: float = 0.02, repair: bool = True,
+                  with_stats: bool = False):
+    """On-device auction assignment: costs [B, nq, G] -> the query matched
+    to each GT column [B, G] (int64, -1 for invalid columns), computed on
+    the costs' device.
+
+    The same synchronous-Jacobi forward auction as the JAX package's, step
+    for step: GT columns bid for query rows with benefit ``-cost`` from
+    zero prices; each unassigned column bids ``top - second + eps`` on its
+    best query (``second = top`` where no second exists); each query takes
+    its highest bid (first column on a tie), raises its price by it and
+    changes owner; invalid (``BIG_COST``) columns are parked as assigned
+    and come back -1.  Every step is a max, an argmax (the first maximal
+    index, as ``jnp.argmax``), an add or a compare in f32, so on the same
+    costs the assignment is identical to JAX's.  The result is within
+    ``G_valid * eps`` of the optimum.
+
+    JAX runs the loop as a ``lax.while_loop`` that tests ``~all(assigned)``
+    on the device.  Here the host reads that condition only between chunks
+    of iterations, ``CHUNKS[0]`` first and doubled after each read up to
+    ``CHUNKS[1]`` (``stats.syncs`` reads in all): an
+    iteration taken after every column is assigned is a no-op (every bid
+    is ``-inf``, so no price or owner changes), so the chunks change no
+    number.  The cap still stops the loop after exactly ``num_iters``
+    iterations.  A run the cap stopped with valid columns unassigned is
+    completed by ``_greedy_repair`` (``repair=True``), and
+    ``stats.repaired`` counts those columns.
+
+    ``with_stats`` returns ``(matched, AuctionStats)``."""
+    b, nq, g = costs.shape
+    dev = costs.device
+    neg_inf = float("-inf")
+    benefit = -costs.float()
+    invalid_col = (costs >= BIG_COST * 0.5).all(1)             # [B, G]
+    price = torch.zeros((b, nq), device=dev)
+    owner = torch.full((b, nq), -1, dtype=torch.long, device=dev)
+    assigned = invalid_col.clone()
+    live = torch.zeros((), dtype=torch.long, device=dev)
+    first, most = CHUNKS
+    syncs, done, it, chunk = 0, False, 0, first
+    while it < num_iters:
+        for _ in range(min(chunk, num_iters - it)):
+            live += ~assigned.all()
+            value = benefit - price[:, :, None]                # [B, nq, G]
+            top, best_q = value.max(1)                         # [B, G]
+            second = value.scatter(1, best_q[:, None], neg_inf).amax(1)
+            second = torch.where(second.isfinite(), second, top)
+            bid = (top - second + eps).masked_fill(assigned, neg_inf)
+            # the highest bid for each query wins (a scatter-max)
+            bid_mat = torch.full((b, nq, g), neg_inf, device=dev).scatter_(
+                1, best_q[:, None], bid[:, None])
+            win_bid, win_gt = bid_mat.max(2)                   # [B, nq]
+            got = win_bid > neg_inf
+            price = torch.where(got, price + win_bid, price)
+            owner = torch.where(got, win_gt, owner)
+            # a re-won query's previous owner becomes unassigned
+            owns = torch.zeros((b, g + 1), dtype=torch.bool, device=dev)
+            owns.scatter_(1, torch.where(owner >= 0, owner, g), True)
+            assigned = owns[:, :g] | invalid_col
+        it += min(chunk, num_iters - it)
+        chunk = min(2 * chunk, most)
+        syncs += 1
+        if bool(assigned.all()):
+            done = True
+            break
+    # owner [B, nq] -> the matched query of each column [B, G]; a column
+    # owns at most one query (it bids only while it owns none), and the
+    # unowned queries write to a dropped column
+    q_idx = torch.arange(nq, device=dev).expand(b, nq)
+    matched = torch.full((b, g + 1), -1, dtype=torch.long, device=dev)
+    matched.scatter_(1, torch.where(owner >= 0, owner, g), q_idx)
+    raw = matched[:, :g].masked_fill(invalid_col, -1)
+    # a run that ended with every column assigned needs no repair
+    out = raw if done or not repair else _greedy_repair(benefit, raw,
+                                                        invalid_col)
+    if with_stats:
+        return out, AuctionStats(((raw < 0) & ~invalid_col).sum(), live,
+                                 syncs)
+    return out

@@ -8,8 +8,8 @@ MLP plus a query-mixing shortcut, a final spike, and an einsum with the mask
 features averaged over T).  In training mode (``model.train()``) every
 decoder layer's output is returned, the initial queries' too, and the
 query-axis BN uses batch statistics; with ``lazy_masks`` the mask logits
-come in the factored ``LazyMasks`` form.  The ``valid_hw`` bucketing path
-and masked attention are not ported yet.
+come in the factored ``LazyMasks`` form.  ``valid_hw`` masks the padding
+of bucket-padded eval inputs.  Masked attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from ..losses.criterion import LazyMasks
 from .attention import SpikeMLP3
 from .layers import BatchNorm, Spike
 from .pixel_decoder import DCNPixelDecoder
-from .positional import sine_pe_for_shape
+from .positional import sine_pe_for_shape, sine_positional_encoding
 from .transformer_decoder import DetrDecoderLayer
 
 
@@ -85,23 +85,45 @@ class MaskFormerHead(nn.Module):
                                   mask_features) / t
         return cls_scores, mask_preds
 
-    def forward(self, feats: Sequence[torch.Tensor]):
+    def forward(self, feats: Sequence[torch.Tensor],
+                valid_hw: torch.Tensor | None = None):
         """feats: 4-level pyramid [T,B,h,w,c] -> (cls [L, B, nq, ncls+1],
         masks [L, B, nq, H/2, W/2]): L = 1 in eval mode with
         ``eval_last_only``, else L = num_decoder_layers + 1; in training
-        mode with ``lazy_masks`` the masks are ``LazyMasks``."""
+        mode with ``lazy_masks`` the masks are ``LazyMasks``.
+
+        ``valid_hw`` ([B, 2] int, the valid extents at input resolution of
+        bottom-right padded inputs): at each level the padded tokens
+        (the extents ceil-divided by the level's stride) are left out of
+        the sine PE's normalisation and masked out of the cross-attention
+        keys (their scores zeroed), so the valid region matches an
+        exact-shape forward up to the convolutions' halo across the
+        padding edge."""
         c = self.c
         mask_features, memory, multi_scale = self.pixel_decoder(feats)
         t, b = memory.shape[:2]
         nq = self.query_feat.shape[0]
+        input_h = feats[0].shape[2] * 2   # feats[0] is the /2 level
 
-        inputs, pes = [], []
+        inputs, pes, key_masks = [], [], []
         for i in range(self.num_feat_levels):
             lvl = multi_scale[i]
             h, w = lvl.shape[2:4]
             inputs.append(lvl.reshape(t, b, h * w, c) + self.level_embed[i])
-            pe = sine_pe_for_shape(h, w, c // 2, device=lvl.device)
-            pes.append(pe.reshape(h * w, c).expand(b, h * w, c))
+            if valid_hw is None:
+                pe = sine_pe_for_shape(h, w, c // 2, device=lvl.device)
+                pes.append(pe.reshape(h * w, c).expand(b, h * w, c))
+                key_masks.append(None)
+                continue
+            stride = input_h // h
+            vh, vw = (-(-valid_hw.to(lvl.device).long() // stride)).unbind(1)
+            pad = ((torch.arange(h, device=lvl.device)[None, :, None]
+                    >= vh[:, None, None])
+                   | (torch.arange(w, device=lvl.device)[None, None, :]
+                      >= vw[:, None, None]))                 # [B, h, w]
+            pes.append(sine_positional_encoding(pad, c // 2).reshape(
+                b, h * w, c))
+            key_masks.append(pad.reshape(b, 1, 1, h * w))
 
         query = self.query_feat.expand(t, b, nq, c)
         qpos = self.query_embed.expand(b, nq, c)
@@ -109,7 +131,8 @@ class MaskFormerHead(nn.Module):
         for i in range(self.num_decoder_layers):
             lvl = i % self.num_feat_levels
             query = getattr(self, f"decoder_{i}")(
-                query, inputs[lvl], inputs[lvl], qpos, pes[lvl])
+                query, inputs[lvl], inputs[lvl], qpos, pes[lvl],
+                cross_attn_mask=key_masks[lvl])
             out_dec.append(query)
         if self.training or not self.eval_last_only:
             out = torch.stack(out_dec)

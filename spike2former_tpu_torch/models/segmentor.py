@@ -52,16 +52,20 @@ class Spike2Former(nn.Module):
             eval_last_only=eval_last_only, lazy_masks=lazy_masks,
             compat=compat)
 
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor,
+                valid_hw: torch.Tensor | None = None):
         """images [B, H, W, 3] normalized -> (cls [L, B, nq, ncls+1],
         masks [L, B, nq, H/2, W/2]): L = 1 in eval mode, every decoder
         layer plus the initial queries in training mode (``model.train()``,
         with the backbone's BNs frozen under ``norm_eval``), where
-        ``lazy_masks`` returns the masks as ``LazyMasks``."""
-        return self.head(self.backbone(images))
+        ``lazy_masks`` returns the masks as ``LazyMasks``.  ``valid_hw``
+        [B, 2]: the valid extents of bucket-padded inputs (see
+        ``MaskFormerHead``)."""
+        return self.head(self.backbone(images), valid_hw=valid_hw)
 
-    def predict_logits(self, images: torch.Tensor) -> torch.Tensor:
+    def predict_logits(self, images: torch.Tensor,
+                       valid_hw: torch.Tensor | None = None) -> torch.Tensor:
         """Whole-image semantic logits at input resolution [B, H, W, ncls]."""
-        cls_scores, mask_preds = self(images)
+        cls_scores, mask_preds = self(images, valid_hw)
         mask = resize_bilinear_hw(mask_preds[-1], tuple(images.shape[1:3]))
         return semantic_inference(cls_scores[-1], mask)

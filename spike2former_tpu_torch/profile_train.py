@@ -1,17 +1,22 @@
 """Where a flagship train step's time goes, on one NVIDIA GPU.
 
-    python -m spike2former_tpu_torch.profile_train
+    python -m spike2former_tpu_torch.profile_train [KEY=VALUE ...]
 
-Builds the flagship preset at full width with seeded random weights and
-takes train steps on seeded synthetic batches (``data/synthetic.py``) of
-the preset's batch size and crop (6 at 512x512), f32 with TF32 off, as
-``chip_smoke.py`` does.
+Builds the flagship preset at full width with seeded random weights, with
+the config overrides given (e.g. ``train.matcher='host'``; by default the
+preset's auction matcher with ``compact_gt=32``), and takes train steps on
+seeded synthetic batches (``data/synthetic.py``) of the preset's batch
+size and crop (6 at 512x512), f32 with TF32 off, as ``chip_smoke.py``
+does.
 Prints:
 
 * the step's wall ms (median of the timed steps) and peak memory;
+* the host synchronizations of one step, as
+  ``torch.cuda.set_sync_debug_mode`` reports them, by the line of the
+  port that issued them;
 * from ``torch.profiler`` over one step: for each stage of the step
   (the ``record_function`` ranges of ``engine/train.py``: forward, GT
-  slots and host matching with the loss forward, backward, optimizer) the
+  slots, matching and the loss forward, backward, optimizer) the
   host ms inside the range (waits for the device included) and the device
   ms of the kernels launched from it; device launches, device busy time
   against the unprofiled step time, the kernels with the most device
@@ -21,10 +26,14 @@ It exits non-zero without a card, or if the profiler sees no device time.
 """
 from __future__ import annotations
 
+import collections
 import json
+import os
 import statistics
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -68,7 +77,34 @@ def _stage_ms(prof) -> dict:
     return out
 
 
-def main() -> int:
+def sync_sites(fn) -> collections.Counter:
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode('warn')``; count
+    the synchronizing operations by the innermost line of this package
+    that issued them."""
+    sites = collections.Counter()
+    here = os.path.abspath(__file__)
+    pkg = os.path.dirname(here)
+
+    def record(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        own = [f for f in traceback.extract_stack()
+               if f.filename.startswith(pkg) and f.filename != here]
+        sites[f"{os.path.relpath(own[-1].filename, pkg)}:{own[-1].lineno}"
+              if own else "elsewhere"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites
+
+
+def main(overrides: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device available", file=sys.stderr)
         return 1
@@ -76,7 +112,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__}",
           flush=True)
-    tr = api.init_trainer(PRESET, seed=0)
+    tr = api.init_trainer(PRESET, overrides, seed=0)
+    print(f"matcher={tr.cfg.train.matcher} compact_gt="
+          f"{tr.cfg.train.compact_gt}", flush=True)
     rng = np.random.default_rng(0)
     b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
     batches = [tuple(torch.as_tensor(a, device=tr.device)
@@ -94,6 +132,10 @@ def main() -> int:
     print(f"step_ms={step_ms:.3f} (steps {[round(x, 1) for x in times]}) "
           f"peak_gib={torch.cuda.max_memory_allocated() / 2 ** 30:.3f}",
           flush=True)
+
+    sites = sync_sites(lambda: tr.step_fn(tr.state, *batches[-1]))
+    print(f"host synchronizations in one step: {sum(sites.values())} "
+          f"{json.dumps(dict(sites.most_common()))}", flush=True)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -127,4 +169,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,112 @@
+"""The eval CLI (the port's counterpart of the JAX package's
+``tools/test.py``): whole-image or sliding-window inference over the val
+split of a dataset in the mmseg layout, scored by mIoU, mAcc and aAcc.
+
+    python -m spike2former_tpu_torch.tools.test CONFIG --data-root DIR \\
+        [--torch-checkpoint REF.pth | --state-dict PORT.pt] \\
+        [--max-images N] [--cfg-options KEY=VALUE ...] [--device cpu]
+
+``cfg.test`` picks the mode: ``whole`` pads each resized image to a
+multiple of ``test.bucket`` and masks the padding (``valid_hw``), or with
+``test.bucket=0`` pads it to ``data.size_divisor`` unmasked; ``slide``
+runs ``test.crop_size`` windows at ``test.stride``.  Each prediction is
+cut to the image, resized to the original shape and scored against the
+annotation at that shape.  ``--torch-checkpoint`` loads a reference
+``EncoderDecoder`` checkpoint and implies ``model.compat=True``;
+``--state-dict`` loads a state dict of the port saved by ``torch.save``;
+with neither, the weights are drawn from seed 0.  Runs on the card unless
+``--device cpu``.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from ..api import InferenceModel, init_model
+from ..data.dataset import SegDataset, make_dataset
+from ..data.loader import eval_batches
+from ..device import f32_precision
+from ..engine.checkpoint import load_reference_model
+from ..engine.config import get_config
+from ..engine.inference import postprocess_pred, slide_logits, whole_logits
+from ..evaluation.iou_metric import compute_iou, init_iou, update_iou_np
+
+
+def evaluate(im: InferenceModel, dataset: SegDataset,
+             max_images: int | None = None) -> dict:
+    """Score ``im`` on ``dataset`` by ``im.cfg.test``'s mode.  Returns
+    ``compute_iou``'s result with ``images`` (the count) and ``preds``
+    (each image's class map at its original shape, int32)."""
+    cfg, k = im.cfg, im.num_classes
+    if cfg.test.mode not in ("whole", "slide"):
+        raise ValueError(f"test.mode must be 'whole' or 'slide', got "
+                         f"{cfg.test.mode!r}")
+    slide = cfg.test.mode == "slide"
+    iou, preds = init_iou(k), []
+    with f32_precision():
+        for images, sem, metas in eval_batches(
+                dataset, scale=cfg.data.test_scale,
+                size_divisor=cfg.data.size_divisor,
+                bucket=0 if slide else cfg.test.bucket):
+            x = torch.from_numpy(images).to(im.device)
+            meta = metas[0]
+            if slide:
+                logits = slide_logits(im.model, x, cfg.test.crop_size,
+                                      cfg.test.stride, k)
+            else:
+                logits = whole_logits(
+                    im.model, x,
+                    valid_hw=[meta["img_shape"]] if cfg.test.bucket else None)
+            pred = postprocess_pred(logits, meta["pad_shape"],
+                                    meta["ori_shape"]).cpu().numpy()
+            iou = update_iou_np(iou, pred, sem, k)
+            preds.append(pred[0])
+            if max_images and len(preds) >= max_images:
+                break
+    return dict(compute_iou(iou), images=len(preds), preds=preds)
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("config")
+    ap.add_argument("--data-root", default=None)
+    ckpt = ap.add_mutually_exclusive_group()
+    ckpt.add_argument("--torch-checkpoint", default=None,
+                      help="reference .pth EncoderDecoder checkpoint; "
+                           "implies model.compat=True")
+    ckpt.add_argument("--state-dict", default=None,
+                      help="a state dict of the port saved by torch.save")
+    ap.add_argument("--max-images", type=int, default=None)
+    ap.add_argument("--cfg-options", nargs="*", default=[])
+    ap.add_argument("--device", default=None,
+                    help="torch device; the card when left out")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.config, args.cfg_options)
+    if args.data_root:
+        cfg.data.data_root = args.data_root
+    state_dict = None
+    if args.torch_checkpoint:
+        cfg.model.compat = True
+        m = cfg.model
+        state_dict = load_reference_model(
+            args.torch_checkpoint, depths_stage3=m.depths_stage3,
+            depths_stage4=m.depths_stage4,
+            num_encoder_layers=m.num_encoder_layers,
+            num_decoder_layers=m.num_decoder_layers)
+    elif args.state_dict:
+        state_dict = torch.load(args.state_dict, map_location="cpu",
+                                weights_only=True)
+    im = init_model(cfg, state_dict, device=args.device)
+    res = evaluate(im, make_dataset(cfg.data.dataset, cfg.data.data_root,
+                                    "val"), args.max_images)
+    print(f"images: {res['images']}")
+    print(f"mIoU {res['mIoU']:.2f}  mAcc {res['mAcc']:.2f}  "
+          f"aAcc {res['aAcc']:.2f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,9 +12,12 @@ import torch
 
 from spike2former_tpu_torch import api
 from spike2former_tpu_torch.device import f32_precision
+from spike2former_tpu_torch.engine import inference
 from spike2former_tpu_torch.engine.weights import randomize_
+from spike2former_tpu_torch.losses.matcher import BIG_COST, auction_match
 from spike2former_tpu_torch.models.segmentor import Spike2Former
 from spike2former_tpu_torch.ops import dcnv3, dcnv3_grouped
+from spike2former_tpu_torch.profile_train import sync_sites
 
 pytestmark = pytest.mark.cuda
 
@@ -222,14 +225,17 @@ def test_dcnv3_core_autograd_card_matches_cpu_on_a_large_map(cuda):
         torch.testing.assert_close(gg, gc_, atol=3e-4, rtol=1e-3)
 
 
-def test_tiny_train_step_card_matches_cpu(cuda):
+@pytest.mark.parametrize("matcher", ["host", "auction"])
+def test_tiny_train_step_card_matches_cpu(cuda, matcher):
     """One tiny train step on the card (through K1 and K2) against the
     same step on the CPU: every loss at 1e-4 relative, grad_norm at 1e-3
-    relative (the atomics and cuDNN sum in other orders)."""
-    opts = TINY_OPTS + ["train.warmup_iters=1"]
+    relative (the atomics and cuDNN sum in other orders).  With the
+    preset's auction matcher the maps hold 4 classes for the 4 queries:
+    the auction assumes no more valid slots than queries."""
+    opts = TINY_OPTS + ["train.warmup_iters=1", f"train.matcher='{matcher}'"]
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
-    blocks = rng.integers(0, 5, (2, 4, 4))
+    blocks = rng.integers(0, 5 if matcher == "host" else 4, (2, 4, 4))
     sem = np.kron(blocks, np.ones((16, 16), np.int64))
     sem[:, :4] = 255
     out = []
@@ -287,7 +293,9 @@ def test_entry_points_compute_in_f32_whatever_the_tf32_flags(
 
         rng = np.random.default_rng(1)
         images = rng.integers(0, 256, (3, 2, 64, 64, 3), dtype=np.uint8)
-        sem = np.kron(rng.integers(0, 5, (3, 2, 4, 4)),
+        # 4 classes for the 4 queries: the preset's auction assumes no
+        # more valid GT slots than queries
+        sem = np.kron(rng.integers(0, 4, (3, 2, 4, 4)),
                       np.ones((16, 16), np.int64))
         totals = []
         for dev in ("cpu", None):
@@ -395,3 +403,63 @@ def test_grouped_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fwd(feat, py, py, odd, **static, out_layout="ghwc")
     with pytest.raises(ValueError, match="cpu"):
         fwd(feat, py, py.cpu(), py, **static, out_layout="gchw")
+
+
+# --- slice five: the auction matcher and the eval path -----------------------
+
+def _step_costs(seed=0):
+    """A flagship step's cost batch shape: 42 problems of 100 queries by
+    32 slots, 10-30 of them valid."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 4, (42, 100, 32)).astype(np.float32)
+    for i, n in enumerate(rng.integers(10, 31, 42)):
+        c[i, :, n:] = BIG_COST
+    return torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("num_iters", [600, 3, 1])
+def test_auction_card_matches_cpu(card, num_iters):
+    """The same assignment and repaired count on the card as on the CPU,
+    uncapped and capped, and the card's only synchronizations are the
+    loop condition's reads that ``stats.syncs`` counts: the costs never
+    go to the host."""
+    costs = _step_costs()
+    want, want_stats = auction_match(costs, num_iters=num_iters,
+                                     with_stats=True)
+    gpu_costs = costs.to(card)
+    out = []
+    sites = sync_sites(lambda: out.extend(auction_match(
+        gpu_costs, num_iters=num_iters, with_stats=True)))
+    got, stats = out
+    assert sum(sites.values()) == stats.syncs == want_stats.syncs, sites
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+    assert int(stats.repaired) == int(want_stats.repaired)
+    assert int(stats.iterations) == int(want_stats.iterations)
+    if num_iters == 1:
+        assert int(stats.repaired) > 0
+
+
+@pytest.mark.parametrize("mode", ["bucketed", "slide"])
+def test_eval_card_matches_cpu(cuda, mode):
+    """Bucketed whole inference with ``valid_hw`` and slide inference of a
+    tiny model on the card against the CPU at 1e-3."""
+    cpu = randomize_(Spike2Former(
+        T=1, num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
+        feat_channels=16, num_queries=4, num_decoder_layers=1,
+        num_encoder_layers=1, depths_stage3=1, depths_stage4=1,
+        dcn_group=4), seed=2).eval()
+    gpu = copy.deepcopy(cpu).to(cuda)
+    imgs = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 128, 96, 3), dtype=np.uint8))
+    before = dcnv3.dcnv3_sample.launches
+    if mode == "bucketed":
+        valid = [(90, 60), (128, 50)]
+        want = inference.whole_logits(cpu, imgs, valid_hw=valid)
+        got = inference.whole_logits(gpu, imgs.to(cuda), valid_hw=valid)
+    else:
+        args = ((64, 64), (48, 48), 5)
+        want = inference.slide_logits(cpu, imgs, *args)
+        got = inference.slide_logits(gpu, imgs.to(cuda), *args)
+    assert dcnv3.dcnv3_sample.launches > before
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)

@@ -27,7 +27,9 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_without_jax():
     """A subprocess whose import system refuses jax, flax, optax and
-    spike2former_tpu still imports every port module and chip_smoke."""
+    spike2former_tpu still imports every port module and chip_smoke, and
+    runs chip_smoke's reference-format state dict (which reads
+    ``tests/torch_golden.py``)."""
     modules = _port_modules() + ["chip_smoke"]
     for name in ("ops.dcnv3", "losses.losses", "losses.matcher",
                  "losses.criterion", "engine.train", "engine.optim"):
@@ -46,6 +48,8 @@ def test_port_and_chip_smoke_import_without_jax():
         sys.meta_path.insert(0, Refuse())
         for name in {modules!r}:
             importlib.import_module(name)
+        sd = importlib.import_module("chip_smoke").golden_state_dict()
+        assert sd and all(hasattr(v, "shape") for v in sd.values())
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in BLOCKED)
         assert not leaked, leaked
@@ -81,11 +85,14 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
 
 
 def test_trainer_rejects_unported_matcher():
-    with pytest.raises(ValueError, match="not ported"):
-        api.init_trainer(PRESET, overrides=["train.matcher='auction'"],
-                         device="cpu")
-    with pytest.raises(AttributeError, match="unknown config key"):
-        api.init_trainer(PRESET, overrides=["train.compact_gt=32"],
+    """The preset trains as the JAX preset does (the on-device auction
+    matcher with ``compact_gt=32``); a matcher name that neither package
+    has is still rejected."""
+    tr = api.init_trainer(PRESET, overrides=["model.num_encoder_layers=1"],
+                          device="cpu")
+    assert (tr.cfg.train.matcher, tr.cfg.train.compact_gt) == ("auction", 32)
+    with pytest.raises(ValueError, match="matcher must be"):
+        api.init_trainer(PRESET, overrides=["train.matcher='sinkhorn'"],
                          device="cpu")
 
 

@@ -249,10 +249,10 @@ def test_match_all_layers_matches_jax_assignment():
 
     gt = criterion.semantic_to_instances(_t(sem).long(), num_classes, max_gt)
     slot_ds_t = resize_nearest_torch(gt.slot_map[..., None], (h, w))[..., 0]
-    got = criterion.match_all_layers(
+    got, repaired = criterion.match_all_layers(
         _t(cls), criterion.LazyMasks(_t(embeds), _t(feats)), gt, slot_ds_t)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (got >= 0).sum() > 0
+    assert (got >= 0).sum() > 0 and int(repaired) == 0
 
 
 def test_poly_warmup_schedule_matches_jax():

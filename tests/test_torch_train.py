@@ -1,6 +1,7 @@
 """The port's semantic train step against the JAX package's
-``make_train_step`` (``matcher='host'``, ``loss_at='gt'``, lazy masks,
-``norm_eval``), at tiny dims, 64x64 crops and batch 2, on the same seeded
+``make_train_step`` (``loss_at='gt'``, lazy masks, ``norm_eval``; the host
+matcher, and the preset's defaults: the auction matcher with
+``compact_gt``), at tiny dims, 64x64 crops and batch 2, on the same seeded
 weights, images and semantic maps.
 
 One JAX train step is compiled per module and run for two steps; a
@@ -55,12 +56,12 @@ STATS_TOL = dict(rtol=1e-5, atol=1e-6)
 PARAM_ATOL, PARAM_NOISE_ATOL, NOISE_FRAC = 1e-4, 2.2e-3, 1e-2
 
 
-def _batch(b=2, hw=(64, 64), seed=0):
-    """uint8 images and piecewise-constant semantic maps with ignore
-    pixels."""
+def _batch(b=2, hw=(64, 64), seed=0, num_classes=NUM_CLASSES):
+    """uint8 images and piecewise-constant semantic maps of classes
+    below ``num_classes``, with ignore pixels."""
     rng = np.random.default_rng(seed)
     images = rng.integers(0, 256, (b, *hw, 3), dtype=np.uint8)
-    blocks = rng.integers(0, NUM_CLASSES, (b, hw[0] // 16, hw[1] // 16))
+    blocks = rng.integers(0, num_classes, (b, hw[0] // 16, hw[1] // 16))
     sem = np.kron(blocks, np.ones((16, 16), np.int64)).astype(np.int32)
     sem[:, :4, :] = 255
     return images, sem
@@ -78,15 +79,15 @@ def _recording(tx):
     return optax.GradientTransformation(init, update)
 
 
-def _run_jax(jm, variables, batches, accum_steps):
+def _run_jax(jm, variables, batches, accum_steps, matcher, compact_gt):
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     stats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
     tx = _recording(make_optimizer(params, warmup_iters=1))
     state = jtrain.TrainState(jnp.zeros((), jnp.int32), params, stats,
                               tx.init(params))
     step = jax.jit(jtrain.make_train_step(
-        jm, tx, num_classes=NUM_CLASSES, matcher="host", loss_at="gt",
-        accum_steps=accum_steps))
+        jm, tx, num_classes=NUM_CLASSES, matcher=matcher, loss_at="gt",
+        accum_steps=accum_steps, compact_gt=compact_gt))
     metrics, grads = [], []
     for images, sem in batches:
         state, m = step(state, jnp.asarray(images), jnp.asarray(sem))
@@ -97,10 +98,11 @@ def _run_jax(jm, variables, batches, accum_steps):
     return metrics, grads, final
 
 
-def _run_port(pm, batches, accum_steps):
+def _run_port(pm, batches, accum_steps, matcher, compact_gt):
     state = ttrain.init_state(pm, TrainConfig(warmup_iters=1))
-    step = ttrain.make_train_step(NUM_CLASSES, matcher="host", loss_at="gt",
-                                  accum_steps=accum_steps)
+    step = ttrain.make_train_step(NUM_CLASSES, matcher=matcher, loss_at="gt",
+                                  accum_steps=accum_steps,
+                                  compact_gt=compact_gt)
     metrics, grads = [], []
     for images, sem in batches:
         state, m = step(state, torch.from_numpy(images),
@@ -110,12 +112,13 @@ def _run_port(pm, batches, accum_steps):
     return metrics, grads, {k: v.clone() for k, v in pm.state_dict().items()}
 
 
-def _run_both(accum_steps, compat=False):
+def _run_both(accum_steps, compat=False, matcher="host", compact_gt=32,
+              batches=None):
     cfg = dict(TINY, lazy_masks=True, norm_eval=True)
     jm, variables, pm = make_pair(cfg=cfg, compat=compat, seed=3)
-    batches = [_batch(seed=0), _batch(seed=1)]
-    return (_run_jax(jm, variables, batches, accum_steps),
-            _run_port(pm, batches, accum_steps))
+    batches = batches or [_batch(seed=0), _batch(seed=1)]
+    return (_run_jax(jm, variables, batches, accum_steps, matcher, compact_gt),
+            _run_port(pm, batches, accum_steps, matcher, compact_gt))
 
 
 @pytest.fixture(scope="module")
@@ -184,6 +187,46 @@ def test_accum_steps_2_matches_jax():
     _check_metrics(want, got)
     _check_grads(wgrads[-1], ggrads[-1])
     _check_state(wstate, gstate, wgrads[-1])
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_train_step_at_the_preset_defaults_matches_jax(compat):
+    """The preset's own step, ``matcher='auction'`` and ``compact_gt=32``
+    (at 5 classes the 5 GT slots are all inside the compact width), two
+    steps: losses, ``repaired_gt`` (0), gradients and state.  The auction
+    assumes no more valid GT slots than queries, as the flagship's 100
+    queries and 64 slots keep it, so the maps hold 4 classes for the 4
+    queries."""
+    t = TrainConfig()
+    assert (t.matcher, t.compact_gt) == ("auction", 32)
+    batches = [_batch(seed=0, num_classes=4), _batch(seed=1, num_classes=4)]
+    (want, wgrads, wstate), (got, ggrads, gstate) = _run_both(
+        accum_steps=1, compat=compat, matcher=t.matcher,
+        compact_gt=t.compact_gt, batches=batches)
+    _check_metrics(want, got)
+    assert all(m["repaired_gt"] == 0 for m in got)
+    for w, g in zip(wgrads, ggrads):
+        _check_grads(w, g)
+    _check_state(wstate, gstate, wgrads[-1])
+
+
+# compat=True (~25 s of JAX compiles) runs with --runslow: the branches are
+# the loss's, and the defaults test above holds the compat model's step
+@pytest.mark.parametrize("compat", [
+    False, pytest.param(True, marks=pytest.mark.slow)])
+def test_train_step_compact_gt_branches_match_jax(compat):
+    """``compact_gt=3`` of the 5 slots: the first batch holds 2 classes (the
+    GT axis is cut to 3 slots), the second 4 in one map (a valid slot past
+    the compact width: the full-width branch)."""
+    batches = [_batch(seed=0, num_classes=2), _batch(seed=1, num_classes=4)]
+    sem = batches[1][1]
+    assert max(len(np.unique(s[s != 255])) for s in sem) == 4
+    (want, wgrads, _), (got, ggrads, _) = _run_both(
+        accum_steps=1, compat=compat, matcher="auction", compact_gt=3,
+        batches=batches)
+    _check_metrics(want, got)
+    for w, g in zip(wgrads, ggrads):
+        _check_grads(w, g)
 
 
 # --- train-mode modules ------------------------------------------------------

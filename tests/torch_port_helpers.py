@@ -8,10 +8,13 @@ the 1e-6 gammas silence the DCN branch), then carried to the port by
 """
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from PIL import Image
 
 from spike2former_tpu.models import Spike2Former as JaxSpike2Former
 from spike2former_tpu_torch.engine.convert import from_jax_variables
@@ -131,3 +134,20 @@ def spikes(shape, seed=0):
     """Seeded activations in the q8 spike range (multiples of 1/8)."""
     rng = np.random.default_rng(seed)
     return (rng.integers(0, 9, shape) / 8.0).astype(np.float32)
+
+
+def write_ade_tree(root, n=4, seed=0, shapes=None, num_labels=6):
+    """Seeded ADE20K-layout tree: ``n`` images and label maps (values
+    0..num_labels-1, 0 = unlabeled) in each of training and validation."""
+    rng = np.random.default_rng(seed)
+    for split in ("training", "validation"):
+        os.makedirs(f"{root}/images/{split}", exist_ok=True)
+        os.makedirs(f"{root}/annotations/{split}", exist_ok=True)
+        for i in range(n):
+            h, w = (shapes[i] if shapes else
+                    (int(rng.integers(90, 150)), int(rng.integers(90, 150))))
+            Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8)).save(
+                f"{root}/images/{split}/img_{i}.jpg")
+            Image.fromarray(rng.integers(0, num_labels, (h, w), np.uint8)
+                            ).save(f"{root}/annotations/{split}/img_{i}.png")
+    return str(root)
