@@ -18,9 +18,8 @@ Phases, each printing one flushed line with the seconds elapsed:
       on a 64x128 map too large for one block's tile, for random
       (off-map), far (up to 10 px, out of the halo), zero-offset and
       integer-coordinate inputs; at the serve and train shapes its time
-      with a warm and a cold L2 beside the grouped forward's on the same
-      data, the plain time, an ``F.grid_sample`` yardstick and the byte
-      bound;
+      with a warm and a cold L2, the plain time, an ``F.grid_sample``
+      yardstick and the byte bound;
   (k2) K2 against its plain version at the flagship train shape (N=6,
       32x32) and on the 64x128 map, for the same four kinds of input;
       at the train shape its time with a warm and a cold L2, the plain
@@ -29,15 +28,20 @@ Phases, each printing one flushed line with the seconds elapsed:
       flagship train shape and on the 64x128 map with offsets up to
       10 px, K1 forward and K2 backward, against autograd of the plain
       sampler on the same card tensors;
-  (grouped) the grouped-layout kernels at the flagship's full-width
-      shapes (serve: N=1, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9):
-      the forward in both layouts (gchw for K3/K5/K6, ghwc for K4) and
-      the backward (K7) against their plain versions and against K1/K2 on
-      the same data, for random (off-map), zero-offset and integer inputs;
-      autograd of both layouts at the train shape; their times, the plain
-      times, the ``F.grid_sample`` yardsticks and the byte bounds.  No
-      model path calls them: their launch counts on the serve and train
-      paths are read and reported (0);
+  (grouped) the grouped-layout kernels under their tile plans
+      (``grouped_tile_plan``): the forward in both layouts (gchw for
+      K3/K5/K6, ghwc for K4) and the backward (K7) against their plain
+      versions and against K1/K2 on the same data, at the flagship's
+      full-width shapes (serve: N=1, 32x44; train: N=6, 32x32; G=32,
+      Cg=8, P=9) for random, far, off-map, zero-offset, integer and NaN
+      coordinates, and at Cg 1-32 with G=4 on a 64x128 map (bands of rows
+      with halos), an 8x2048 map (nothing staged from Cg=8 on) and a 9x13
+      map (one backward band owns it: no zero-fill); autograd of both
+      layouts at the train shape; at both flagship shapes their times
+      with a warm and a cold L2 beside K1's and K2's on the same data, the
+      plain times, the ``F.grid_sample`` yardsticks and the byte bounds.
+      No model path calls them: their launch counts on the serve and
+      train paths are read and reported (0);
   (d) the flagship SDTv2 MaskFormer at full width serves 3 requests through
       ``api.inference_model`` (K1 launch count 6 per request); K1 is held
       against the plain version at each of the 6 DCN calls of one request,
@@ -273,6 +277,7 @@ KERNEL_SHAPES = ((1, 32, 44), (2, 32, 44), (6, 32, 32), (1, 64, 128))
 # coordinates 3 px off their grid, up to 10 px off (most taps leave a
 # band's halo), zero offsets (exact integers, the identity), integer offsets
 KINDS = ("random", "far", "zero", "integer")
+CHANNELS = (1, 2, 4, 8, 16, 32)    # the kernels' channels a group
 
 
 def phase_kernel(gen) -> dict:
@@ -312,25 +317,13 @@ def phase_kernel(gen) -> dict:
         out_elems = n * h * w * g * cg
         bytes_ = sampler_bytes(value, py, out_elems)
         flops = n * h * w * g * p * (4 * cg * 2 + 16)
-        ins = to_grouped(value, py, px, mask)
-        static = dict(num_points=p, h_in=h, w_in=w, group=g,
-                      group_channels=cg)
 
         def k1():
             return dcnv3.dcnv3_sample(value, py, px, mask)
 
-        def grouped():
-            return dcnv3_grouped.dcnv3_sample_grouped(*ins, **static,
-                                                      out_layout="ghwc")
-
-        check((grouped().transpose(1, 2).reshape(out_elems)
-               - k1().reshape(out_elems)).abs().max().item() <= KERNEL_TOL,
-              "grouped forward vs K1")
         t = dict(
             ms=median_ms(k1),
             cold_ms=cuda_ms(k1, cold=True),
-            grouped_ms=median_ms(grouped),
-            grouped_cold_ms=cuda_ms(grouped, cold=True),
             plain_ms=cuda_ms(lambda: dcnv3.dcnv3_sample_reference(
                 value, py, px, mask), iters=20),
             library_ms=cuda_ms(lambda: grid_sample_yardstick(
@@ -339,10 +332,8 @@ def phase_kernel(gen) -> dict:
             ops_ms=flops / F32_FLOPS_PER_S * 1e3,
             wall_ms=host_ms(k1))
         log("kernel", f"N={n} {h}x{w} timing: kernel_ms={t['ms']:.5f} "
-            f"cold_l2_ms={t['cold_ms']:.5f} grouped_forward_ms="
-            f"{t['grouped_ms']:.5f} (cold {t['grouped_cold_ms']:.5f}, "
-            f"K1/grouped {t['ms'] / t['grouped_ms']:.3f}) "
-            f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
+            f"cold_l2_ms={t['cold_ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+            f"library_ms={t['library_ms']:.5f} "
             f"(grid_sample max|diff|={lib_err:.3g}) "
             f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
             f"op_bound_us={t['ops_ms'] * 1e3:.3f} "
@@ -633,68 +624,129 @@ def read_launches() -> dict:
                 grouped=grouped_launches())
 
 
+# the grouped kernels' checks: the flagship shapes at Cg=8 for every kind
+# of coordinates; G=4 at every Cg on a map staged in bands of rows with
+# halos (64x128), one too wide to stage at Cg >= 8 (8x2048) and one that a
+# single backward band owns whole (9x13)
+GROUPED_KINDS = ("random", "far", "offmap", "zero", "integer", "nan")
+GROUPED_MAPS = ((1, 64, 128), (1, 8, 2048), (2, 9, 13))
+GROUPED_MAP_KINDS = ("random", "offmap", "zero", "nan")
+
+
+def grouped_inputs(n, h, w, g, cg, kind, gen, device="cuda"):
+    """``sampler_inputs`` and a dout [N, HoWo, G*Cg] in K1's layout, and
+    the points that the kernels drop, for ``KINDS`` and 'offmap'
+    (coordinates spread over and 4 px off the map) and 'nan' ('random'
+    with every 7th py and every 11th px NaN)."""
+    base = {"offmap": "far", "nan": "random"}.get(kind, kind)
+    value, py, px, mask = sampler_inputs(n, h, w, g, cg, 9, base, gen,
+                                         device)
+    if kind == "offmap":
+        py = (torch.rand(py.shape, generator=gen) * (h + 8) - 4).to(device)
+        px = (torch.rand(px.shape, generator=gen) * (w + 8) - 4).to(device)
+    if kind == "nan":
+        py.view(-1)[::7] = float("nan")
+        px.view(-1)[::11] = float("nan")
+    dout = torch.randn((n, h * w, g * cg), generator=gen).to(device)
+    return (value, py, px, mask, dout), py.isnan() | px.isnan()
+
+
+def plain_dropping(value, py, px, mask, dout, dropped):
+    """The plain forward and backward (K1's layout) with the dropped
+    points taken out: mask 0 and coordinates 0 there, and zero coordinate
+    and mask gradients (the plain versions index with the coordinates, so
+    they take no NaN)."""
+    keep = ~dropped
+    py0, px0 = (torch.where(keep, t, 0.0) for t in (py, px))
+    m0 = mask * keep
+    out = dcnv3.dcnv3_sample_reference(value, py0, px0, m0)
+    dvalue, *dc = dcnv3.dcnv3_sample_backward_reference(value, py0, px0, m0,
+                                                        dout)
+    return out, (dvalue, *(t * keep for t in dc))
+
+
+def check_grouped(n, h, w, g, cg, kind, gen) -> dict:
+    """The grouped forward in both layouts and the grouped backward on
+    one case, each against the plain version and K1/K2 on the same data;
+    returns the largest differences by JAX name."""
+    flat, dropped = grouped_inputs(n, h, w, g, cg, kind, gen)
+    want, want_b = plain_dropping(*flat, dropped)
+    k1 = dcnv3.dcnv3_sample(*flat[:4]).view(n, h * w, g, cg)
+    k2 = to_grouped(*dcnv3.dcnv3_sample_backward(*flat))
+    feat, py, px, mask, dout = to_grouped(*flat)
+    static = dict(num_points=9, h_in=h, w_in=w, group=g, group_channels=cg)
+    case = f"N={n} {h}x{w} G={g} Cg={cg} {kind}"
+    errs = {}
+    for name, (k, layout) in GROUPED_FORWARD.items():
+        got = dcnv3_grouped.JAX_COUNTERPARTS[name](feat, py, px, mask,
+                                                   **static)
+        torch.cuda.synchronize()
+        order = (0, 2, 3, 1) if layout == "gchw" else (0, 2, 1, 3)
+        check(bool(torch.isfinite(got).all()), f"non-finite {k} ({case})")
+        e_plain = (got - want.view(n, h * w, g, cg).permute(order)
+                   ).abs().max().item()
+        e_k1 = (got - k1.permute(order)).abs().max().item()
+        check(e_plain <= KERNEL_TOL and e_k1 <= KERNEL_TOL,
+              f"{k} ({layout}) vs plain {e_plain:.3g}, vs K1 {e_k1:.3g} > "
+              f"{KERNEL_TOL} ({case})")
+        errs[name] = max(e_plain, e_k1)
+    got = dcnv3_grouped.dcnv3_sample_grouped_backward(feat, py, px, mask,
+                                                      dout, **static)
+    torch.cuda.synchronize()
+    errs[GROUPED_BACKWARD] = 0.0
+    for ref, other in ((to_grouped(*want_b), "plain"), (k2, "K2")):
+        for gname, gv, wv in zip(("dfeat", "dpy", "dpx", "dmask"), got, ref):
+            check(bool(torch.isfinite(gv).all()),
+                  f"non-finite K7 {gname} ({case})")
+            err = (gv - wv).abs().max().item()
+            check(torch.allclose(gv, wv, atol=BWD_ATOL, rtol=BWD_RTOL),
+                  f"K7 {gname} vs {other} beyond atol {BWD_ATOL} rtol "
+                  f"{BWD_RTOL} ({case}): {err:.3g}")
+            errs[GROUPED_BACKWARD] = max(errs[GROUPED_BACKWARD], err)
+    return errs
+
+
 def phase_grouped(gen) -> dict:
     """(grouped): the grouped-layout forward kernel in both layouts (the
-    counterparts of K3, K4, K5 and K6) and its backward kernel (K7) at the
-    flagship's full-width shapes, each against its plain version and
-    against K1/K2 on the same data; autograd of both layouts at the train
-    shape; the timings."""
+    counterparts of K3, K4, K5 and K6) and its backward kernel (K7) under
+    their plans, each against its plain version and against K1/K2 on the
+    same data; autograd of both layouts at the train shape; the timings
+    at both flagship shapes, warm and cold, beside K1's and K2's."""
     g, cg, p = 32, 8, 9
     fwd = dcnv3_grouped.JAX_COUNTERPARTS
     bwd = dcnv3_grouped.dcnv3_sample_grouped_backward
     errs = {name: 0.0 for name in (*GROUPED_FORWARD, GROUPED_BACKWARD)}
+
+    def record(e):
+        for name, err in e.items():
+            errs[name] = max(errs[name], err)
+
+    for shape, n, h, w in GROUPED_SHAPES:
+        for kind in GROUPED_KINDS:
+            record(check_grouped(n, h, w, g, cg, kind, gen))
+        plans = [dcnv3_grouped.grouped_tile_plan(n, h, w, h * w, g, cg,
+                                                 backward=b)
+                 for b in (False, True)]
+        log("grouped", f"{shape} N={n} {h}x{w} G={g} Cg={cg}, kinds "
+            f"{GROUPED_KINDS}: plans forward {plans[0]}, backward "
+            f"{plans[1]}; max|kernel-ref| so far {errs}")
+    for n, h, w in GROUPED_MAPS:
+        for c in CHANNELS:
+            for kind in GROUPED_MAP_KINDS:
+                record(check_grouped(n, h, w, 4, c, kind, gen))
+        log("grouped", f"N={n} {h}x{w} G=4 Cg {CHANNELS}, kinds "
+            f"{GROUPED_MAP_KINDS}: max|kernel-ref| so far {errs}")
+
     times = {}
     for shape, n, h, w in GROUPED_SHAPES:
+        howo = h * w
         static = dict(num_points=p, h_in=h, w_in=w, group=g,
                       group_channels=cg)
-        howo = h * w
-        for kind in ("random", "zero", "integer"):
-            flat = sampler_inputs(n, h, w, g, cg, p, kind, gen)
-            dout_flat = torch.randn((n, howo, g * cg), generator=gen).cuda()
-            feat, py, px, mask, dout = to_grouped(*flat, dout_flat)
-            k1 = dcnv3.dcnv3_sample(*flat).view(n, howo, g, cg)
-            for name, (k, layout) in GROUPED_FORWARD.items():
-                got = fwd[name](feat, py, px, mask, **static)
-                torch.cuda.synchronize()
-                want = dcnv3_grouped.dcnv3_sample_grouped_reference(
-                    feat, py, px, mask, **static, out_layout=layout)
-                k1_l = k1.permute((0, 2, 3, 1) if layout == "gchw"
-                                  else (0, 2, 1, 3))
-                check(bool(torch.isfinite(got).all()),
-                      f"non-finite {k} ({shape}, {kind})")
-                e_plain = (got - want).abs().max().item()
-                e_k1 = (got - k1_l).abs().max().item()
-                check(e_plain <= KERNEL_TOL and e_k1 <= KERNEL_TOL,
-                      f"{k} ({layout}) vs plain {e_plain:.3g}, vs K1 "
-                      f"{e_k1:.3g} > {KERNEL_TOL} ({shape}, {kind})")
-                errs[name] = max(errs[name], e_plain, e_k1)
-                log("grouped", f"{k} {name} {layout} {shape} N={n} {h}x{w} "
-                    f"{kind}: max|kernel-plain|={e_plain:.3g} "
-                    f"max|kernel-K1|={e_k1:.3g}")
-            got = bwd(feat, py, px, mask, dout, **static)
-            torch.cuda.synchronize()
-            want = dcnv3_grouped.dcnv3_sample_grouped_backward_reference(
-                feat, py, px, mask, dout, **static)
-            dvalue, *dcoords = dcnv3.dcnv3_sample_backward(*flat, dout_flat)
-            k2 = to_grouped(dvalue, *dcoords)
-            line = []
-            for gname, gv, wv, kv in zip(("dfeat", "dpy", "dpx", "dmask"),
-                                         got, want, k2):
-                check(bool(torch.isfinite(gv).all()),
-                      f"non-finite K7 {gname} ({shape}, {kind})")
-                for ref, other in ((wv, "plain"), (kv, "K2")):
-                    err = (gv - ref).abs().max().item()
-                    check(torch.allclose(gv, ref, atol=BWD_ATOL,
-                                         rtol=BWD_RTOL),
-                          f"K7 {gname} vs {other} beyond atol {BWD_ATOL} "
-                          f"rtol {BWD_RTOL} ({shape}, {kind}): {err:.3g}")
-                    errs[GROUPED_BACKWARD] = max(errs[GROUPED_BACKWARD], err)
-                    line.append(f"{gname} vs {other} {err:.3g}")
-            log("grouped", f"K7 {GROUPED_BACKWARD} {shape} N={n} {h}x{w} "
-                f"{kind}: max|kernel-ref| " + ", ".join(line))
-
-        ins = to_grouped(*sampler_inputs(n, h, w, g, cg, p, "random", gen))
+        flat = sampler_inputs(n, h, w, g, cg, p, "random", gen)
+        dout_flat = torch.randn((n, howo, g * cg), generator=gen).cuda()
+        ins = to_grouped(*flat)
         feat, py = ins[:2]
+        dout = to_grouped(*flat, dout_flat)[4]
         if shape == "train":
             # autograd of both layouts against the plain version's
             for name in ("dcnv3_sample_pallas_t", "dcnv3_sample_pallas"):
@@ -727,10 +779,25 @@ def phase_grouped(gen) -> dict:
                 log("grouped", f"autograd {k} {layout} {shape} N={n}: "
                     "max|kernel-plain| " + ", ".join(line))
 
+        # K1 and K2 on the same data, warm and cold
+        def k1():
+            return dcnv3.dcnv3_sample(*flat)
+
+        def k2():
+            return dcnv3.dcnv3_sample_backward(*flat, dout_flat)
+
+        times["K1", shape] = dict(ms=median_ms(k1),
+                                  cold_ms=cuda_ms(k1, cold=True))
+        times["K2", shape] = dict(ms=median_ms(k2),
+                                  cold_ms=cuda_ms(k2, cold=True))
         out_elems = n * g * cg * howo
         for name, (k, layout) in GROUPED_FORWARD.items():
+            def kernel():
+                return fwd[name](*ins, **static)
+
             t = dict(
-                ms=median_ms(lambda: fwd[name](*ins, **static)),
+                ms=median_ms(kernel),
+                cold_ms=cuda_ms(kernel, cold=True),
                 plain_ms=cuda_ms(lambda: dcnv3_grouped
                                  .dcnv3_sample_grouped_reference(
                                      *ins, **static, out_layout=layout),
@@ -746,17 +813,27 @@ def phase_grouped(gen) -> dict:
                        - dcnv3_grouped.dcnv3_sample_grouped_reference(
                            *ins, **static, out_layout=layout)
                        ).abs().max().item()
+            k1t = times["K1", shape]
             log("grouped", f"{k} {name} {layout} {shape} N={n} timing: "
-                f"kernel_ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+                f"kernel_ms={t['ms']:.5f} cold_l2_ms={t['cold_ms']:.5f} "
+                f"K1_ms={k1t['ms']:.5f} (cold {k1t['cold_ms']:.5f}) "
+                f"kernel/K1 {t['ms'] / k1t['ms']:.3f} (cold "
+                f"{t['cold_ms'] / k1t['cold_ms']:.3f}) "
+                f"plain_ms={t['plain_ms']:.5f} "
                 f"library_ms={t['library_ms']:.5f} "
                 f"(grid_sample max|diff|={lib_err:.3g}) "
                 f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
-                f"op_bound_us={t['ops_ms'] * 1e3:.3f}")
-        dout = torch.randn((n, g, cg, howo), generator=gen).cuda()
+                f"op_bound_us={t['ops_ms'] * 1e3:.3f} share of bound "
+                f"{t['bytes_ms'] / t['ms']:.3f}")
         lib_ins = [t.clone().requires_grad_() for t in ins]
         lib_out = grouped_yardstick(*lib_ins, **static, out_layout="gchw")
+
+        def kernel():
+            return bwd(*ins, dout, **static)
+
         t = dict(
-            ms=median_ms(lambda: bwd(*ins, dout, **static)),
+            ms=median_ms(kernel),
+            cold_ms=cuda_ms(kernel, cold=True),
             plain_ms=cuda_ms(lambda: dcnv3_grouped
                              .dcnv3_sample_grouped_backward_reference(
                                  *ins, dout, **static), iters=10),
@@ -766,11 +843,17 @@ def phase_grouped(gen) -> dict:
             / HBM_BYTES_PER_S * 1e3,
             ops_ms=py.numel() * (4 * 4 * cg + 40) / F32_FLOPS_PER_S * 1e3)
         times[GROUPED_BACKWARD, shape] = t
+        k2t = times["K2", shape]
         log("grouped", f"K7 {GROUPED_BACKWARD} {shape} N={n} timing: "
-            f"kernel_ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+            f"kernel_ms={t['ms']:.5f} cold_l2_ms={t['cold_ms']:.5f} "
+            f"K2_ms={k2t['ms']:.5f} (cold {k2t['cold_ms']:.5f}) "
+            f"kernel/K2 {t['ms'] / k2t['ms']:.3f} (cold "
+            f"{t['cold_ms'] / k2t['cold_ms']:.3f}) "
+            f"plain_ms={t['plain_ms']:.5f} "
             f"library_ms={t['library_ms']:.5f} "
             f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
-            f"op_bound_us={t['ops_ms'] * 1e3:.3f}")
+            f"op_bound_us={t['ops_ms'] * 1e3:.3f} share of bound "
+            f"{t['bytes_ms'] / t['ms']:.3f}")
     return dict(errs=errs, times=times)
 
 

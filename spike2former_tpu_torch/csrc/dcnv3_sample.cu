@@ -73,14 +73,6 @@ using namespace dcnv3;
 template <int CG>
 constexpr int kThreads = CG >= 32 ? 256 : 512;
 
-// Floats between neighbouring pixels of the shared tile: the staged
-// groups' gb*CG channels, padded to an odd number of 16-byte quads so that
-// 8 lanes reading 16 bytes of 8 neighbouring pixels hit 8 different bank
-// quads (at 32 bytes a pixel they would pair up on 4).
-__host__ __device__ __forceinline__ int tile_stride(int gb, int cg) {
-  return gb * cg % 8 ? gb * cg : gb * cg + 4;
-}
-
 // Copy value rows [y_lo, y_hi) of groups [g0, g0 + gb) of image n into
 // shared memory, pixel-major (s[pixel*pix_stride + gl*CG + c]), with
 // cp.async: the copies fly without registers; the caller commits and
@@ -99,25 +91,6 @@ __device__ __forceinline__ void stage(float* s, const float* __restrict__ value,
         s + i / per_pix * pix_stride + i % per_pix * V,
         src + static_cast<size_t>(i / per_pix) * c_all + i % per_pix * V,
         V * sizeof(float));
-}
-
-// acc += wt * value[tap (yy, xx)] from device memory, for a tap outside
-// the staged rows; `feat` points at the thread's group's channels of
-// image n.
-template <int CG>
-__device__ __forceinline__ void tap_global(float (&acc)[CG],
-                                           const float* __restrict__ feat,
-                                           int yy, int xx, int w, int c_all,
-                                           float wt) {
-  constexpr int V = CG >= 4 ? 4 : CG;
-  const float* src = feat + (static_cast<size_t>(yy) * w + xx) * c_all;
-#pragma unroll
-  for (int c = 0; c < CG; c += V) {
-    float v[V];
-    load_vec<V>(v, src + c);
-#pragma unroll
-    for (int k = 0; k < V; ++k) acc[c + k] += wt * v[k];
-  }
 }
 
 template <int CG>
@@ -209,76 +182,10 @@ dcnv3_sample_kernel(const float* __restrict__ value,
 #pragma unroll
       for (int c = 0; c < CG; ++c) acc[c] = 0.f;
 
-      for (int p = 0; p < points; ++p) {
-        const float y = mine[p];
-        const float x = mine[32 * points + p];
-        const float m = mine[64 * points + p];
-        const float y0f = floorf(y);
-        const float x0f = floorf(x);
-        // every tap off the map (this also drops NaN coordinates)
-        if (!(y0f >= -1.f && y0f <= h - 1.f && x0f >= -1.f && x0f <= w - 1.f))
-          continue;
-        const int y0 = static_cast<int>(y0f);
-        const int x0 = static_cast<int>(x0f);
-        const float fy = y - y0f;
-        const float fx = x - x0f;
-        const float wy0 = 1.f - fy, wx0 = 1.f - fx;
-        // a tap off the map reads its clamped neighbour with weight 0
-        const bool vx0 = x0 >= 0, vx1 = x0 + 1 < w;
-        const float w00 = y0 >= 0 && vx0 ? m * wy0 * wx0 : 0.f;
-        const float w01 = y0 >= 0 && vx1 ? m * wy0 * fx : 0.f;
-        const float w10 = y0 + 1 < h && vx0 ? m * fy * wx0 : 0.f;
-        const float w11 = y0 + 1 < h && vx1 ? m * fy * fx : 0.f;
-        const int ya = max(y0, 0), yb = min(y0 + 1, h - 1);
-        const int xa = max(x0, 0), xb = min(x0 + 1, w - 1);
-        if (ya >= t.y_lo && yb < t.y_hi) {
-          // both rows staged: four taps from shared memory, loads issued
-          // together
-          const float* r0 = s + (ya - t.y_lo) * w * pix_stride;
-          const float* r1 = s + (yb - t.y_lo) * w * pix_stride;
-#pragma unroll
-          for (int c = 0; c < CG; c += V) {
-            float v00[V], v01[V], v10[V], v11[V];
-            load_vec<V>(v00, r0 + xa * pix_stride + c);
-            load_vec<V>(v01, r0 + xb * pix_stride + c);
-            load_vec<V>(v10, r1 + xa * pix_stride + c);
-            load_vec<V>(v11, r1 + xb * pix_stride + c);
-#pragma unroll
-            for (int k = 0; k < V; ++k) {
-              acc[c + k] += w00 * v00[k];
-              acc[c + k] += w01 * v01[k];
-              acc[c + k] += w10 * v10[k];
-              acc[c + k] += w11 * v11[k];
-            }
-          }
-          continue;
-        }
-        // a row outside the staged band: tap by tap, from device memory
-        // where the row is not staged
-#pragma unroll
-        for (int dy = 0; dy < 2; ++dy) {
-          const int yy = dy ? yb : ya;
-          const bool in_tile = yy >= t.y_lo && yy < t.y_hi;
-#pragma unroll
-          for (int dx = 0; dx < 2; ++dx) {
-            const float wt = dy ? (dx ? w11 : w10) : (dx ? w01 : w00);
-            if (wt == 0.f) continue;
-            const int xx = dx ? xb : xa;
-            if (in_tile) {
-              const float* src = s + ((yy - t.y_lo) * w + xx) * pix_stride;
-#pragma unroll
-              for (int c = 0; c < CG; c += V) {
-                float v[V];
-                load_vec<V>(v, src + c);
-#pragma unroll
-                for (int k = 0; k < V; ++k) acc[c + k] += wt * v[k];
-              }
-            } else {
-              tap_global<CG>(acc, feat, yy, xx, w, c_all, wt);
-            }
-          }
-        }
-      }
+      for (int p = 0; p < points; ++p)
+        sample_point<CG>(acc, s, pix_stride, t.y_lo, t.y_hi, feat, c_all, h,
+                         w, mine[p], mine[32 * points + p],
+                         mine[64 * points + p]);
 
       float* __restrict__ dst = out + row * CG;
 #pragma unroll

@@ -81,75 +81,6 @@ using namespace dcnv3;
 template <int CG>
 constexpr int kThreads = CG >= 32 ? 128 : 256;
 
-// Channels of a staged tap added in the shared accumulator, the first
-// kShared of each group's Cg (the split in the note above; mirrored by
-// ops/dcnv3.py:SHARED_CHANNELS); the others go to dvalue as vector atomics.
-template <int CG>
-constexpr int kShared = CG < 4 ? CG : 4;
-
-// dst[0:V] += v, one vector atomic (sm_90: red.global.add.v4.f32 / .v2).
-template <int V>
-__device__ __forceinline__ void add_vec(float* dst, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    atomicAdd(reinterpret_cast<float4*>(dst),
-              make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (V == 2) {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
-  } else {
-    atomicAdd(dst, v[0]);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec(float* dst, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-  } else {
-    *dst = v[0];
-  }
-}
-
-// dvalue[tap] += wt * d: channels [0, kShared) into the shared
-// accumulator (pixel i of the tile; atomicAdd, a compare-and-swap loop on
-// sm_90), the others, or all when the tap is not staged (staged false),
-// straight into dvalue (`dst`, the tap's channels of the group) with
-// vector atomics.
-template <int CG>
-__device__ __forceinline__ void scatter(float* acc, int i, int plane,
-                                        bool staged, float* dst,
-                                        const float (&d)[CG], float wt) {
-  constexpr int V = CG >= 4 ? 4 : CG;
-#pragma unroll
-  for (int c = 0; c < CG; c += V) {
-    float add[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) add[k] = wt * d[c + k];
-    if (staged && c < kShared<CG>) {
-#pragma unroll
-      for (int k = 0; k < V; ++k) atomicAdd(acc + (c + k) * plane + i, add[k]);
-    } else {
-      add_vec<V>(dst + c, add);
-    }
-  }
-}
-
-// <F, d> for the CG channels at `src` (shared or device memory).
-template <int CG>
-__device__ __forceinline__ float dot(const float* src, const float (&d)[CG]) {
-  constexpr int V = CG >= 4 ? 4 : CG;
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < CG; c += V) {
-    float f[V];
-    load_vec<V>(f, src + c);
-#pragma unroll
-    for (int k = 0; k < V; ++k) sum += f[k] * d[c + k];
-  }
-  return sum;
-}
-
 template <int CG>
 __device__ __forceinline__ void sample_bwd(const float* __restrict__ value,
                         const float* __restrict__ py,
@@ -246,89 +177,11 @@ __device__ __forceinline__ void sample_bwd(const float* __restrict__ value,
       }
 
       for (int p = 0; p < points; ++p) {
-        const float y = mine[p];
-        const float x = mine[32 * points + p];
         const float m = mine[64 * points + p];
         float gy = 0.f, gx = 0.f, gm = 0.f;
-        const float y0f = floorf(y);
-        const float x0f = floorf(x);
-        // some tap inside the map (this also drops NaN coordinates)
-        if (y0f >= -1.f && y0f <= h - 1.f && x0f >= -1.f && x0f <= w - 1.f) {
-          const int y0 = static_cast<int>(y0f);
-          const int x0 = static_cast<int>(x0f);
-          const float fy = y - y0f;
-          const float fx = x - x0f;
-          const float wy0 = 1.f - fy, wx0 = 1.f - fx;
-          const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < w;
-          // tap (dy, dx): <F, d> and the shared tile's pixel, or -1; a tap
-          // off the map reads its clamped neighbour and counts 0
-          const int ya = max(y0, 0), yb = min(y0 + 1, h - 1);
-          const int xa = max(x0, 0), xb = min(x0 + 1, w - 1);
-          float sv[2][2];
-          int ti[2][2];
-          if (ya >= t.y_lo && yb < t.y_hi) {
-            // both rows staged: the four dot products from shared memory,
-            // loads issued together
-            ti[0][0] = (ya - t.y_lo) * w + xa;
-            ti[0][1] = (ya - t.y_lo) * w + xb;
-            ti[1][0] = (yb - t.y_lo) * w + xa;
-            ti[1][1] = (yb - t.y_lo) * w + xb;
-            float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
-#pragma unroll
-            for (int c = 0; c < CG; c += V) {  // a quad of each tap at once
-              float v00[V], v01[V], v10[V], v11[V];
-              load_vec<V>(v00, s + ti[0][0] * pix_stride + c);
-              load_vec<V>(v01, s + ti[0][1] * pix_stride + c);
-              load_vec<V>(v10, s + ti[1][0] * pix_stride + c);
-              load_vec<V>(v11, s + ti[1][1] * pix_stride + c);
-#pragma unroll
-              for (int k = 0; k < V; ++k) {
-                s00 += v00[k] * d[c + k];
-                s01 += v01[k] * d[c + k];
-                s10 += v10[k] * d[c + k];
-                s11 += v11[k] * d[c + k];
-              }
-            }
-            sv[0][0] = s00;
-            sv[0][1] = s01;
-            sv[1][0] = s10;
-            sv[1][1] = s11;
-          } else {
-#pragma unroll
-            for (int dy = 0; dy < 2; ++dy) {
-              const int yy = dy ? yb : ya;
-              const bool in_tile = yy >= t.y_lo && yy < t.y_hi;
-#pragma unroll
-              for (int dx = 0; dx < 2; ++dx) {
-                const int xx = dx ? xb : xa;
-                ti[dy][dx] = in_tile ? (yy - t.y_lo) * w + xx : -1;
-                sv[dy][dx] =
-                    in_tile ? dot<CG>(s + ti[dy][dx] * pix_stride, d)
-                            : dot<CG>(feat + (static_cast<size_t>(yy) * w +
-                                              xx) * c_all, d);
-              }
-            }
-          }
-          const bool in_y[2] = {y0 >= 0, y0 + 1 < h};
-          const bool in_x[2] = {in_x0, in_x1};
-          const float wy[2] = {wy0, fy}, wx[2] = {wx0, fx};
-          const float sy[2] = {-1.f, 1.f};
-#pragma unroll
-          for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-            for (int dx = 0; dx < 2; ++dx) {
-              if (!(in_y[dy] && in_x[dx])) continue;
-              const float v = sv[dy][dx];
-              gm += wy[dy] * wx[dx] * v;
-              gy += sy[dy] * wx[dx] * v;
-              gx += sy[dx] * wy[dy] * v;
-              const float wt = m * wy[dy] * wx[dx];
-              if (wt != 0.f)
-                scatter<CG>(acc, ti[dy][dx], plane, ti[dy][dx] >= 0,
-                            dfeat + (static_cast<size_t>(y0 + dy) * w + x0 +
-                                     dx) * c_all, d, wt);
-            }
-        }
+        sample_point_bwd<CG>(gy, gx, gm, s, pix_stride, acc, plane, t.y_lo,
+                             t.y_hi, feat, dfeat, c_all, h, w, d, mine[p],
+                             mine[32 * points + p], m);
         // the gradients take the slots of the coordinates just read
         mine[p] = m * gy;
         mine[32 * points + p] = m * gx;

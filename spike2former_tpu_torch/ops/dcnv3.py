@@ -230,17 +230,26 @@ def tile_plan(n: int, h: int, w: int, howo: int, g: int, cg: int, p: int,
     # one item a thread, at least two bands
     bands = max(1, min(2, howo), min(h, howo, math.ceil(
         howo * groups / (_warps(cg, backward) * 32))))
+    return TilePlan(groups, *_banded(h, howo, bands, fit))
+
+
+def _banded(h: int, howo: int, bands: int, fit: int) -> tuple[int, int,
+                                                               int]:
+    """``(bands, rows, halo)`` for a map of which at most ``fit`` rows fit
+    a block: from ``bands`` bands and ``HALO_ROWS`` of halo, more bands
+    (up to one a map row or output pixel) until a band's rows
+    (``_band_rows``) fit, then fewer halo rows, then nothing staged."""
     halo = HALO_ROWS
     while True:
         rows = _band_rows(h, howo, bands, halo)
         if rows <= fit:
-            return TilePlan(groups, bands, rows, halo)
+            return bands, rows, halo
         if bands < min(h, howo):
             bands = min(h, howo, 2 * bands)
         elif halo:
             halo -= 1
         else:
-            return TilePlan(groups, bands, 0, 0)
+            return bands, 0, 0
 
 
 SOURCE = "dcnv3_sample.cu"
@@ -250,12 +259,13 @@ GROUPED_SOURCE = "dcnv3_sample_grouped.cu"
 GROUPED_BWD_SOURCE = "dcnv3_sample_grouped_bwd.cu"
 CHANNELS_PER_GROUP = (1, 2, 4, 8, 16, 32)
 # each library's entry point: (name, tensor pointers, ints); the ints are
-# (n, howo, groups, points, h, w, cg), then K1's and K2's tile plan and
-# device index, or the grouped forward's layout flag; the stream comes last
+# (n, howo, groups, points, h, w, cg), then the tile plan (K1's and K2's
+# TilePlan; the grouped pair's GroupedPlan, and the grouped forward's
+# layout flag) and the device index; the stream comes last
 _ENTRY = {SOURCE: ("dcnv3_sample_f32", 5, 12),
           BWD_SOURCE: ("dcnv3_sample_bwd_f32", 9, 12),
-          GROUPED_SOURCE: ("dcnv3_sample_grouped_f32", 5, 8),
-          GROUPED_BWD_SOURCE: ("dcnv3_sample_grouped_bwd_f32", 9, 7)}
+          GROUPED_SOURCE: ("dcnv3_sample_grouped_f32", 5, 12),
+          GROUPED_BWD_SOURCE: ("dcnv3_sample_grouped_bwd_f32", 9, 11)}
 
 
 @functools.cache

@@ -25,19 +25,90 @@ of the forward.  Both paths check their arguments alike.  Launches are
 counted in ``dcnv3_sample_grouped.launches`` and
 ``dcnv3_sample_grouped_backward.launches``.  No model path calls this
 module; the JAX package's model path uses K1 and K2 only.
+
+Both kernels stage a group's map in shared memory: a block owns one
+(image, group) and a band of its output pixels.  ``grouped_tile_plan``
+chooses the tile from the shapes (a plain function, so the CPU tests reach
+it).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
 
 from .dcnv3 import (CHANNELS_PER_GROUP, GROUPED_BWD_SOURCE, GROUPED_SOURCE,
-                    _launch, dcnv3_sample_backward_reference,
+                    NUM_SMS, SHARED_CHANNELS, SMEM_BYTES, _banded, _launch,
+                    _pixel_floats, dcnv3_sample_backward_reference,
                     dcnv3_sample_reference)
 
 LAYOUTS = ("gchw", "ghwc")
+# shared memory a block of either kernel may stage: two blocks an SM
+GROUPED_SMEM_BYTES = SMEM_BYTES // 2
+
+
+class GroupedPlan(NamedTuple):
+    """What one block of the grouped kernels owns and stages: one (image,
+    group) and one of ``bands`` bands of its output pixels, with ``rows``
+    map rows staged, ``halo`` above the band's own rows and ``halo + 1``
+    below (``rows`` 0 stages nothing: every tap reads, and the backward
+    adds into, device memory; ``rows`` = H stages the whole map)."""
+    bands: int
+    rows: int
+    halo: int
+
+    def smem_bytes(self, w: int, cg: int, backward: bool) -> int:
+        """The staged rows: the forward's padded pixel stride, or the
+        backward's channels and the accumulator of its shared ones."""
+        return _grouped_pixel_floats(cg, backward) * self.rows * w * 4
+
+    def whole(self, h: int) -> bool:
+        """One block owns the group's whole map: the backward then stores
+        dfeat itself and needs no zero-filled dfeat."""
+        return self.bands == 1 and self.rows >= h
+
+
+def _grouped_pixel_floats(cg: int, backward: bool) -> int:
+    """Shared floats a staged pixel takes (the kernels' smem)."""
+    if backward:
+        return cg + min(cg, SHARED_CHANNELS)
+    return _pixel_floats(1, cg, False)
+
+
+def _grouped_threads(cg: int, backward: bool) -> int:
+    """Threads a block at most (kThreads in the sources)."""
+    threads = 256 if backward else 512
+    return threads // 2 if cg >= 32 else threads
+
+
+@functools.cache
+def grouped_tile_plan(n: int, h: int, w: int, howo: int, g: int, cg: int,
+                      *, backward: bool) -> GroupedPlan:
+    """Choose the tile of the grouped forward (``backward`` False) or
+    backward for feat [N, G, H, W*Cg] and HoWo output pixels.
+
+    A block takes one output column a thread, so a group's columns go in
+    bands of at most ``_grouped_threads``; the forward, with fewer
+    (image, group) pairs than SMs, takes more bands, so that every SM
+    works.  Each block stages its group's whole map when it fits
+    ``GROUPED_SMEM_BYTES`` (the flagship's 32x32 at Cg=8: 48 KB either
+    way); a map that does not is staged in bands of rows with halos, more
+    bands until the rows fit, then fewer halo rows, then nothing
+    (``_banded``, as K1's and K2's ``tile_plan``).  A single band that
+    stages the whole map owns it: the backward then stores dfeat without
+    atomics or zero-fill.  Plans are kept per shape: the wrappers ask on
+    every launch."""
+    bands = math.ceil(howo / _grouped_threads(cg, backward))
+    if not backward:
+        bands = max(bands, NUM_SMS // (n * g))
+    bands = max(1, min(h, howo, bands))
+    fit = min(h, GROUPED_SMEM_BYTES
+              // (_grouped_pixel_floats(cg, backward) * w * 4))
+    if fit >= h:
+        return GroupedPlan(bands, h, 0)
+    return GroupedPlan(*_banded(h, howo, max(bands, min(2, howo)), fit))
 
 
 class Static(NamedTuple):
@@ -179,10 +250,12 @@ class _GroupedSample:
         n, g, cg = feat.shape[0], s.group, s.group_channels
         howo = py.shape[3]
         shape = (n, g, cg, howo) if out_layout == "gchw" else (n, g, howo, cg)
+        plan = grouped_tile_plan(n, s.h_in, s.w_in, howo, g, cg,
+                                 backward=False)
         out = torch.empty(shape, dtype=feat.dtype, device=feat.device)
         _launch(GROUPED_SOURCE, (feat, py, px, mask, out),
-                (n, howo, g, s.num_points, s.h_in, s.w_in, cg,
-                 int(out_layout == "gchw")))
+                (n, howo, g, s.num_points, s.h_in, s.w_in, cg, *plan,
+                 int(out_layout == "gchw"), feat.device.index))
         self.launches += 1
         return out
 
@@ -207,13 +280,18 @@ class _GroupedSampleBackward:
         if not feat.is_cuda:
             return dcnv3_sample_grouped_backward_reference(
                 feat, py, px, mask, dout, **s._asdict())
-        # the kernel scatters into dfeat with atomics: zero it first
-        dfeat = torch.zeros_like(feat)
+        n = feat.shape[0]
+        plan = grouped_tile_plan(n, h_in, w_in, howo, group, group_channels,
+                                 backward=True)
+        # a block that owns a group's whole map stores its dfeat; with
+        # bands the halos overlap and the kernel adds with atomics
+        dfeat = (torch.empty_like(feat) if plan.whole(h_in)
+                 else torch.zeros_like(feat))
         dpy, dpx, dmask = (torch.empty_like(py) for _ in range(3))
         _launch(GROUPED_BWD_SOURCE,
                 (feat, py, px, mask, dout, dfeat, dpy, dpx, dmask),
-                (feat.shape[0], howo, group, num_points, h_in, w_in,
-                 group_channels))
+                (n, howo, group, num_points, h_in, w_in, group_channels,
+                 *plan, feat.device.index))
         self.launches += 1
         return dfeat, dpy, dpx, dmask
 

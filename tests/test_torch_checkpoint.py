@@ -20,6 +20,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -174,7 +175,8 @@ def test_reference_checkpoint_logits_match_jax_and_golden(golden_pth, hw):
     with torch.no_grad():
         cls_p, mask_p = pm(torch.from_numpy(x))
         cls_g, mask_g = golden(torch.from_numpy(x.transpose(0, 3, 1, 2)))
-    cls_j, mask_j = jm.apply(jvars, jnp.asarray(x), False)
+    cls_j, mask_j = jax.jit(lambda v, x: jm.apply(v, x, False))(
+        jvars, jnp.asarray(x))
     assert (np.abs(mask_g[-1].numpy()) > 1e-6).mean() > 0.2, "degenerate"
     for want_cls, want_mask in (
             (np.asarray(cls_j[-1]), np.asarray(mask_j[-1])),

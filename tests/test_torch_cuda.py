@@ -405,6 +405,39 @@ def test_grouped_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fwd(feat, py, py.cpu(), py, **static, out_layout="gchw")
 
 
+# --- slice six: the grouped kernels with shared-memory tiles ----------------
+
+@pytest.mark.parametrize("kind", ["random", "far", "offmap", "zero",
+                                  "integer", "nan"])
+@pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("shape", [(1, 64, 128), (1, 8, 2048), (2, 9, 13)],
+                         ids=["64x128", "8x2048", "9x13"])
+def test_grouped_kernels_under_their_plans(cuda, shape, cg, kind):
+    """``chip_smoke.check_grouped``: the grouped forward in both layouts
+    and the grouped backward against their plain versions (a point with a
+    NaN coordinate dropped) and against K1/K2 on the same data, with G=4
+    on a 64x128 map, staged in bands of rows with halos from Cg=8 on; on
+    an 8x2048 map, where nothing is staged from Cg=8 on; on a 9x13 map,
+    which one band of the backward owns whole (no zero-fill)
+    (``test_torch_dcnv3_grouped_tiles.py`` holds the plans)."""
+    from chip_smoke import check_grouped
+
+    check_grouped(*shape, 4, cg, kind,
+                  torch.Generator().manual_seed(300 + cg))
+
+
+@pytest.mark.parametrize("kind", ["random", "far", "offmap", "zero",
+                                  "integer", "nan"])
+@pytest.mark.parametrize("shape", [(1, 32, 44), (6, 32, 32)],
+                         ids=["serve", "train"])
+def test_grouped_kernels_at_the_flagship_shapes(cuda, shape, kind):
+    """G=32, Cg=8: a request's /16 map in 4 bands of whole maps, a train
+    step's in 2 (forward) and 4 (backward)."""
+    from chip_smoke import check_grouped
+
+    check_grouped(*shape, 32, 8, kind, torch.Generator().manual_seed(400))
+
+
 # --- slice five: the auction matcher and the eval path -----------------------
 
 def _step_costs(seed=0):

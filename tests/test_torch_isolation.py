@@ -57,7 +57,7 @@ def test_port_and_chip_smoke_import_without_jax():
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(modules)}" in proc.stdout
 

@@ -205,9 +205,13 @@ def test_maskformer_loss_matches_jax(loss_at, lazy):
                                     matcher="host", loss_at=loss_at)
         return out["total"], out
 
-    (_, want), (gc_want, ge_want) = jax.value_and_grad(
-        jax_fn, argnums=(0, 1), has_aux=True)(jnp.asarray(cls),
-                                              jnp.asarray(embeds))
+    # jitted, as the JAX package runs its host matcher: dispatched op by
+    # op, its scipy callback indexes a jax array from inside a running
+    # computation while the main thread dispatches the next op, and the
+    # two can deadlock
+    (_, want), (gc_want, ge_want) = jax.jit(jax.value_and_grad(
+        jax_fn, argnums=(0, 1), has_aux=True))(jnp.asarray(cls),
+                                               jnp.asarray(embeds))
 
     c_t = _t(cls).requires_grad_()
     e_t = _t(embeds).requires_grad_()

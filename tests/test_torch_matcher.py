@@ -5,6 +5,9 @@ argmax, an add or a compare in f32).  The batches are those of
 tests/test_losses.py's auction tests, plus the flagship step's shape, a
 single query, and bidding wars long enough that the cap binds at several
 points of a chunk."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,9 +18,17 @@ from spike2former_tpu.losses.matcher import auction_match as jax_auction
 from spike2former_tpu_torch.losses.matcher import BIG_COST, auction_match
 
 
+@functools.cache
+def _jax_auction(**kw):
+    """JAX's ``auction_match`` jitted once per option set: dispatched op by
+    op, each call compiles its while loop anew.  Its steps are maxes,
+    argmaxes, adds and compares in f32, which jit leaves exact."""
+    return jax.jit(functools.partial(jax_auction, with_stats=True, **kw))
+
+
 def _both(c, **kw):
     """(JAX's matched, repaired), (the port's matched, repaired, stats)."""
-    jm, jrep = jax_auction(jnp.asarray(c), with_stats=True, **kw)
+    jm, jrep = _jax_auction(**kw)(jnp.asarray(c))
     tm, stats = auction_match(torch.from_numpy(c), with_stats=True, **kw)
     return (np.asarray(jm), int(jrep)), (tm.numpy(), int(stats.repaired),
                                          stats)

@@ -37,9 +37,12 @@ TINY_OPTS = [f"model.{k}={v!r}" for k, v in TINY.items()] + [
 
 
 def _compare(jm, variables, pm, x, atol=1e-3):
-    cls_w, mask_w = jm.apply(variables, jnp.asarray(x))
-    want = np.asarray(jm.apply(variables, jnp.asarray(x),
-                               method=type(jm).predict_logits))
+    # one jitted JAX program for both outputs: op-by-op dispatch compiles
+    # every primitive apart, several times slower on the CPU
+    (cls_w, mask_w), want = jax.jit(lambda v, x: (
+        jm.apply(v, x), jm.apply(v, x, method=type(jm).predict_logits)))(
+        variables, jnp.asarray(x))
+    want = np.asarray(want)
     with torch.no_grad():
         cls_g, mask_g = pm(torch.from_numpy(x))
         got = pm.predict_logits(torch.from_numpy(x)).numpy()

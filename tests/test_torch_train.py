@@ -189,7 +189,11 @@ def test_accum_steps_2_matches_jax():
     _check_state(wstate, gstate, wgrads[-1])
 
 
-@pytest.mark.parametrize("compat", [False, True])
+# compat=True (~25 s alone: one more JAX compile of the step) runs with
+# --runslow: the compat=False case holds the auction step, and
+# test_train_forward_matches_jax[True] the compat model's train forward
+@pytest.mark.parametrize("compat", [
+    False, pytest.param(True, marks=pytest.mark.slow)])
 def test_train_step_at_the_preset_defaults_matches_jax(compat):
     """The preset's own step, ``matcher='auction'`` and ``compact_gt=32``
     (at 5 classes the 5 GT slots are all inside the compact width), two
@@ -210,10 +214,14 @@ def test_train_step_at_the_preset_defaults_matches_jax(compat):
     _check_state(wstate, gstate, wgrads[-1])
 
 
-# compat=True (~25 s of JAX compiles) runs with --runslow: the branches are
-# the loss's, and the defaults test above holds the compat model's step
+# Both cases (~25 s alone each: a JAX compile of the step) run with
+# --runslow: the branches are the loss's, which
+# tests/test_torch_criterion_compact.py holds against JAX in both
+# (test_auction_compact_loss_matches_jax), and the defaults test above
+# holds the auction step
 @pytest.mark.parametrize("compat", [
-    False, pytest.param(True, marks=pytest.mark.slow)])
+    pytest.param(False, marks=pytest.mark.slow),
+    pytest.param(True, marks=pytest.mark.slow)])
 def test_train_step_compact_gt_branches_match_jax(compat):
     """``compact_gt=3`` of the 5 slots: the first batch holds 2 classes (the
     GT axis is cut to 3 slots), the second 4 in one map (a valid slot past

@@ -20,6 +20,14 @@ from spike2former_tpu.models import Spike2Former as JaxSpike2Former
 from spike2former_tpu_torch.engine.convert import from_jax_variables
 from spike2former_tpu_torch.models.segmentor import Spike2Former
 
+# Under pytest-xdist every worker imports this module while it collects,
+# and each worker's torch would start a thread for every core: six workers
+# of eight threads each, beside XLA's own pools, spent much of the suite's
+# time waiting on each other.  Each worker keeps its share of the cores,
+# rounded up.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+torch.set_num_threads(-(-len(os.sched_getaffinity(0)) // _WORKERS))
+
 # tiny dims of .claude/skills/verify/SKILL.md
 TINY = dict(num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
             feat_channels=16, num_queries=4, num_decoder_layers=1,
@@ -113,8 +121,9 @@ def load_port(jax_module, port_module, *args, seed=0):
 def run_both(jax_module, port_module, *args, seed=0):
     """(jax output, port output) as numpy for the same weights and args."""
     variables = load_port(jax_module, port_module, *args, seed=seed)
+    # one jitted program: op-by-op dispatch compiles every primitive apart
     want = jax.tree_util.tree_map(
-        np.asarray, jax_module.apply(variables, *_jnp(args)))
+        np.asarray, jax.jit(jax_module.apply)(variables, *_jnp(args)))
     with torch.no_grad():
         got = port_module(*jax.tree_util.tree_map(to_torch, args))
     got = jax.tree_util.tree_map(lambda t: t.numpy(), got)
