@@ -77,6 +77,20 @@ Phases, each printing one flushed line with the seconds elapsed:
       normal batch and on that one;
   (small train) a tiny model's ``total`` loss over 3 steps on the card
       against the CPU's, with the auction and with the host matcher;
+  (train cli) the train CLI (``tools.train.main``) at full width on a
+      seeded ADE20K-layout tree (12 training images, the 3 val images of
+      (eval)) at the preset's defaults: 10 iterations with a checkpoint
+      and a val (3 images, an overlay each) every 5, keeping 1, then
+      ``--resume`` to 14.  Every logged loss finite; K1 and K2 6 launches
+      a train iteration, K1 6 a val image; exactly the files expected;
+      each checkpoint, written in the background while the next steps
+      update the state in place, equal to the state at its step, and the
+      resumed state equal to the file it read, bit for bit; the eval
+      CLI's ``--checkpoint best/ckpt_N`` prints the mIoU that the train
+      CLI printed at N.  Printed: each log record's s/iter, the steady
+      s/iter beside (train)'s step ms, the loader's batches/s alone, the
+      step on the loader's batches from memory and under a live loader,
+      a save's inline copy ms, write ms and MB;
   (reference) a tiny reference-format state dict
       (``tests/torch_golden.py``'s ``GoldenSpike2Former``) through
       ``load_reference_model`` onto the card, logits against the CPU's,
@@ -107,11 +121,15 @@ import torch.nn.functional as F
 
 from spike2former_tpu_torch import api
 from spike2former_tpu_torch.data.dataset import make_dataset
-from spike2former_tpu_torch.data.synthetic import (synthetic_batch,
+from spike2former_tpu_torch.data.loader import TrainLoader
+from spike2former_tpu_torch.data.synthetic import (ADE_LIKE_SHAPES,
+                                                    synthetic_batch,
                                                     write_ade_tree)
 from spike2former_tpu_torch.device import f32_precision
+from spike2former_tpu_torch.engine import checkpoint
 from spike2former_tpu_torch.engine.checkpoint import load_reference_model
 from spike2former_tpu_torch.engine.config import TestConfig
+from spike2former_tpu_torch.engine.logging import read_scalars
 from spike2former_tpu_torch.engine.inference import (postprocess_pred,
                                                       slide_origins,
                                                       whole_logits)
@@ -123,6 +141,7 @@ from spike2former_tpu_torch.models.segmentor import Spike2Former, preprocess
 from spike2former_tpu_torch.ops import cuda_build, dcnv3, dcnv3_grouped
 from spike2former_tpu_torch.profile_train import sync_sites
 from spike2former_tpu_torch.tools import test as eval_cli
+from spike2former_tpu_torch.tools import train as train_cli
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
 KERNEL_TOL = 2e-5     # f32 sampler against its plain version
@@ -1229,6 +1248,274 @@ def phase_small_train() -> dict:
     return out
 
 
+# the train CLI's seeded tree: the 12 training images of ADE_LIKE_SHAPES
+# (two batches of 6 an epoch) and the three val images of (eval)
+CLI_ITERS, CLI_RESUMED_ITERS, CLI_LOG = 10, 14, 2
+CLI_OPTS = ["train.checkpoint_interval=5", "train.val_interval=5",
+            "train.max_keep_ckpts=1"]
+# log records whose window holds neither a val nor a checkpoint nor the
+# resumed run's start
+CLI_STEADY_STEPS = (4, 8, 14)
+LOADER_BATCHES = 10
+
+
+def state_snapshot(state) -> dict:
+    """Host copies of what a train checkpoint holds."""
+    def copy(tensors):
+        return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+    opt = state.optimizer.state_dict()
+    return {"step": state.step, "count": opt["count"],
+            "model": copy(state.model.state_dict()), "mu": copy(opt["mu"]),
+            "nu": copy(opt["nu"])}
+
+
+def check_saved(raw: dict, want: dict, what: str) -> None:
+    """A loaded train checkpoint against a ``state_snapshot``, bit for
+    bit."""
+    check(raw["step"] == want["step"]
+          and raw["optimizer"]["count"] == want["count"],
+          f"{what}: step/count {raw['step']}/{raw['optimizer']['count']}, "
+          f"expected {want['step']}/{want['count']}")
+    for part, got in (("model", raw["model"]), ("mu", raw["optimizer"]["mu"]),
+                      ("nu", raw["optimizer"]["nu"])):
+        check(got.keys() == want[part].keys(), f"{what}: {part} keys")
+        bad = [k for k, v in want[part].items() if not torch.equal(got[k], v)]
+        check(not bad, f"{what}: {part} differs at {bad[:5]}")
+
+
+@contextlib.contextmanager
+def watch_checkpoints(store: dict):
+    """Spy on the train CLI's ``save_state`` and ``restore_state``.  Each
+    save's state is snapshot when the save returns (its file is still
+    being written while the next steps update the state in place); the
+    file is held to the snapshot once the next save has waited for it
+    (and before that save prunes it), or at the end.  Each restore is held
+    to the file it read."""
+    real_save, real_restore = train_cli.save_state, train_cli.restore_state
+    store.update(pending={}, checked=[], restored=[])
+
+    def settle():
+        checkpoint.wait_for_saves()
+        for path, snap in list(store["pending"].items()):
+            check_saved(torch.load(path, weights_only=True), snap, path)
+            store["checked"].append((os.path.relpath(path, store["root"]),
+                                     snap["step"]))
+            del store["pending"][path]
+
+    def save(work_dir, state, step, **kw):
+        settle()
+        path = real_save(work_dir, state, step, **kw)
+        store["pending"][path] = state_snapshot(state)
+        return path
+
+    def restore(path, state):
+        out = real_restore(path, state)
+        check_saved(torch.load(path, weights_only=True),
+                    state_snapshot(state), f"restored {path}")
+        store["restored"].append((os.path.basename(path), state.step))
+        store["state"] = state
+        return out
+
+    train_cli.save_state, train_cli.restore_state = save, restore
+    try:
+        yield settle
+    finally:
+        train_cli.save_state, train_cli.restore_state = real_save, real_restore
+
+
+def run_cli(main, args: list[str], tag: str) -> list[str]:
+    """``main(args)`` with its standard output captured and logged."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log("train cli", f"{tag}: {line}")
+    check(rc == 0, f"{tag}: exit code {rc}")
+    return lines
+
+
+def loader_rate(root: str, workers: int) -> float:
+    """Batches a second of the flagship's ``TrainLoader`` (batch 6,
+    512x512 crops) alone, over ``LOADER_BATCHES`` after the first."""
+    ds = make_dataset("ade20k", root, "train")
+    with TrainLoader(ds, 6, (512, 512), seed=0, num_workers=workers) as ld:
+        it = iter(ld)
+        next(it)
+        t = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(it)
+        return LOADER_BATCHES / (time.perf_counter() - t)
+
+
+def step_under_loader(root: str, steps: int = 4) -> dict:
+    """Median ms of a full-width ``api.train_steps`` step on the loader's
+    batches: taken from memory (the loader closed), and taken while a
+    live ``TrainLoader`` (``num_workers=8``) produces the next ones in its
+    threads, as in the train CLI."""
+    tr = api.init_trainer(PRESET, seed=0)
+    ds = make_dataset("ade20k", root, "train")
+    with TrainLoader(ds, 6, (512, 512), seed=1, num_workers=8) as ld:
+        it = iter(ld)
+        batches = [next(it) for _ in range(2 + steps)]
+
+    def timed(batch) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        api.train_steps(tr, [batch])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    for b in batches[:2]:
+        timed(b)
+    costs = []
+    with capture_auction(costs):
+        memory = [timed(b) for b in batches[2:]]
+    # the auction's iterations are data-dependent; on (train)'s synthetic
+    # batch (auction) reports them
+    iterations = [int(auction_match(c, with_stats=True)[1].iterations)
+                  for c in costs]
+    with TrainLoader(ds, 6, (512, 512), seed=2, num_workers=8) as ld:
+        it = iter(ld)
+        live = [timed(next(it)) for _ in range(steps)]
+    del tr
+    torch.cuda.empty_cache()
+    return dict(memory_ms=statistics.median(memory),
+                live_ms=statistics.median(live), memory=memory, live=live,
+                iterations=iterations,
+                classes=[len(np.unique(s[s != 255])) for _, sem in batches
+                         for s in sem])
+
+
+def phase_train_cli(step_ms: float, smi: str) -> dict:
+    """(train cli): the train CLI at full width on a seeded ADE20K-layout
+    tree at the preset's defaults (auction, ``compact_gt=32``, batch 6,
+    512x512 crops): 10 iterations with a checkpoint and a val every 5
+    (3 val images, an overlay each), then ``--resume`` to 14; the eval
+    CLI on the best checkpoint; the loader alone; one save timed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ade")
+        write_ade_tree(root, ADE_LIKE_SHAPES, seed=3, split="training")
+        write_ade_tree(root, REQUEST_SHAPES, seed=0)
+        wd = os.path.join(tmp, "wd")
+        base = [PRESET, "--data-root", root, "--work-dir", wd,
+                "--log-interval", str(CLI_LOG), "--eval-images", "3",
+                "--vis-interval", "1"]
+        store = {"root": wd}
+        runs = {}
+        with watch_checkpoints(store) as settle:
+            for tag, iters, extra in (("first", CLI_ITERS, []),
+                                      ("resumed", CLI_RESUMED_ITERS,
+                                       ["--resume"])):
+                torch.cuda.synchronize()
+                zero_launches()
+                t = time.perf_counter()
+                lines = run_cli(train_cli.main, base + extra + [
+                    "--cfg-options", *CLI_OPTS,
+                    f"train.total_iters={iters}"], tag)
+                torch.cuda.synchronize()
+                runs[tag] = dict(lines=lines, launches=read_launches(),
+                                 s=time.perf_counter() - t)
+                settle()
+                files = sorted(
+                    os.path.relpath(os.path.join(d, f), wd)
+                    for d, _, fs in os.walk(wd) for f in fs)
+                runs[tag]["files"] = files
+                log("train cli", f"{tag}: {runs[tag]['s']:.1f}s, files "
+                    f"{files}")
+        first, resumed = runs["first"], runs["resumed"]
+        vals = {int(line.split()[1]): line.split()[4]
+                for line in first["lines"] if " val mIoU " in line}
+        check(sorted(vals) == [5, 10], f"val lines at {sorted(vals)}")
+        # launches: 6 K1 and 6 K2 a train iteration, 6 K1 a val image
+        for tag, steps, val_images in (("first", CLI_ITERS, 6),
+                                       ("resumed",
+                                        CLI_RESUMED_ITERS - CLI_ITERS, 0)):
+            n = runs[tag]["launches"]
+            check(n["k1"] == 6 * (steps + val_images)
+                  and n["k2"] == 6 * steps,
+                  f"{tag}: K1/K2 launches {n['k1']}/{n['k2']} for {steps} "
+                  f"iterations and {val_images} val images")
+        best = [f for f in first["files"] if f.startswith("best/")]
+        check(len(best) == 1, f"best checkpoints {best}")
+        want_first = sorted(
+            ["ckpt_10", "scalars.jsonl", *best]
+            + [f"vis/iter_{i}/val_{j:05d}.png" for i in (5, 10)
+               for j in range(3)])
+        check(first["files"] == want_first,
+              f"first run's files {first['files']}")
+        check(resumed["files"] == sorted(
+            ["ckpt_14"] + [f for f in want_first if f != "ckpt_10"]),
+              f"resumed run's files {resumed['files']}")
+        check(resumed["lines"][0] == f"resumed from {wd}/ckpt_10 at step 10"
+              and store["restored"] == [("ckpt_10", 10)],
+              f"resume: {resumed['lines'][:1]} {store['restored']}")
+        # each save, held to the state at its step once written: the
+        # periodic and best saves at 5 and 10, the final saves at 10 and 14
+        best_step = int(best[0].split("_")[1])
+        want = ([("ckpt_5", 5), ("best/ckpt_5", 5), ("ckpt_10", 10)]
+                + ([("best/ckpt_10", 10)] if best_step == 10 else [])
+                + [("ckpt_10", 10), ("ckpt_14", 14)])
+        check(store["checked"] == want,
+              f"checkpoints held to the state: {store['checked']}")
+        recs = read_scalars(os.path.join(wd, "scalars.jsonl"))
+        losses = [r for r in recs if "total" in r]
+        check([r["step"] for r in losses] == [2, 4, 6, 8, 10, 12, 14],
+              f"logged steps {[r['step'] for r in losses]}")
+        for r in losses:
+            bad = [k for k, v in r.items() if not np.isfinite(v)]
+            check(not bad, f"step {r['step']}: non-finite {bad}")
+        sec = {r["step"]: r["sec_per_iter"] for r in losses}
+        steady = statistics.median(sec[s] * 1e3 for s in CLI_STEADY_STEPS)
+
+        # the eval CLI on the best checkpoint gives the printed mIoU
+        zero_launches()
+        lines = run_cli(eval_cli.main,
+                        [PRESET, "--data-root", root, "--checkpoint",
+                         os.path.join(wd, best[0]), "--max-images", "3"],
+                        "eval --checkpoint")
+        eval_launches = read_launches()
+        check(lines[-1].split()[1] == vals[best_step],
+              f"eval CLI on {best[0]}: {lines[-1]}, the train CLI printed "
+              f"{vals[best_step]}")
+
+        rates = {w: loader_rate(root, w)
+                 for w in sorted({8, os.cpu_count() or 8})}
+        under = step_under_loader(root)
+        state = store["state"]
+        t = time.perf_counter()
+        path = checkpoint.save_state(os.path.join(tmp, "timed"), state,
+                                     state.step)
+        inline_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        checkpoint.wait_for_saves()
+        write_ms = (time.perf_counter() - t) * 1e3
+        mb = os.path.getsize(path) / 1e6
+    log("train cli", f"s/iter by log record (ms): "
+        f"{ {k: round(v * 1e3, 1) for k, v in sec.items()} }; steady (steps "
+        f"{CLI_STEADY_STEPS}) {steady:.1f} ms against (train)'s step "
+        f"{step_ms:.1f} ms ({steady / step_ms:.3f}x) on {smi}")
+    log("train cli", "loader alone, batches/s by num_workers: "
+        + ", ".join(f"{w}: {r:.3f}" for w, r in rates.items())
+        + f" (os.cpu_count() {os.cpu_count()}) on {smi}")
+    log("train cli", f"api.train_steps on the loader's batches: "
+        f"{under['memory_ms']:.1f} ms a step from memory "
+        f"{[round(x, 1) for x in under['memory']]}, {under['live_ms']:.1f} "
+        f"ms under a live loader {[round(x, 1) for x in under['live']]} "
+        f"on {smi}; auction iterations on the memory steps "
+        f"{under['iterations']}, classes per crop {under['classes']}")
+    log("train cli", f"checkpoint {mb:.1f} MB: inline copy {inline_ms:.1f} "
+        f"ms, background write {write_ms:.1f} ms on {smi}")
+    log("train cli", f"K1/K2 launches: first run {first['launches']['k1']}/"
+        f"{first['launches']['k2']}, resumed {resumed['launches']['k1']}/"
+        f"{resumed['launches']['k2']}, eval CLI K1 {eval_launches['k1']}")
+    return dict(launches=[first["launches"], resumed["launches"],
+                          eval_launches],
+                steady_ms=steady, sec=sec, rates=rates, under=under,
+                inline_ms=inline_ms, write_ms=write_ms, mb=mb)
+
+
 # tests/torch_golden.py's dims for a tiny reference-format checkpoint
 GOLDEN = dict(num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
               feat_channels=16, num_queries=4, num_decoder_layers=2,
@@ -1382,13 +1669,16 @@ def main() -> int:
     log("train", f"tiny model 3 steps card vs CPU max rel|diff| of total: "
         f"auction {t_err['auction']:.3g}, host {t_err['host']:.3g} "
         f"(tol {TRAIN_RTOL})")
+    torch.cuda.empty_cache()
+    cli = phase_train_cli(tr["step_ms"], smi)
     ref = phase_reference()
 
     # the main path's launches: serve, the three eval modes, the train
-    # steps at the defaults, the overflow step and the host-matcher steps,
+    # steps at the defaults, the overflow step, the host-matcher steps,
+    # the train CLI's two runs and the eval CLI on its best checkpoint,
     # each counted from 0 just before it
     paths = [ev[mode]["launches"] for mode in EVAL_MODES] + [
-        tr["launches"], ov["launches"], host["launches"]]
+        tr["launches"], ov["launches"], host["launches"], *cli["launches"]]
     k1_launches = s["launches"] + sum(p["k1"] for p in paths)
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
@@ -1427,6 +1717,7 @@ def main() -> int:
         f"{tr['launches']['k1']}, overflow {ov['launches']['k1']}, host "
         f"{host['launches']['k1']}; K2: train {tr['launches']['k2']}, "
         f"overflow {ov['launches']['k2']}, host {host['launches']['k2']}; "
+        f"train CLI K1/K2 {[(n['k1'], n['k2']) for n in cli['launches']]}; "
         f"reference CLI max|diff| {ref['err']:.3g}; auction "
         f"{auc['ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,7 @@ import torch
 from .data.metainfo import DATASETS
 from .data.transforms import load_image, test_pipeline
 from .device import f32_precision, resolve_device
+from .engine.checkpoint import restore_variables
 from .engine.config import Config, build_model, get_config
 from .engine.inference import postprocess_pred, whole_logits
 from .engine.train import init_trainer, train_steps  # noqa: F401
@@ -40,17 +41,24 @@ class InferenceModel:
         return DATASETS[self.cfg.data.dataset].classes
 
 
-def init_model(config: str | Config,
-               state_dict: dict[str, torch.Tensor] | None = None,
+def init_model(config: str | Config, checkpoint: str | None = None,
                overrides: list[str] | None = None,
                device: str | torch.device | None = None,
-               seed: int = 0) -> InferenceModel:
+               seed: int = 0,
+               state_dict: dict[str, torch.Tensor] | None = None
+               ) -> InferenceModel:
     """Build a model from a preset (or Config) on ``device``.  Weights come
-    from ``state_dict`` (e.g. ``engine.convert.from_jax_variables``), loaded
-    strictly, or else are drawn from ``seed``."""
+    from ``checkpoint`` (a train checkpoint of the train CLI or a state
+    dict saved by ``torch.save``, ``engine.checkpoint.restore_variables``)
+    or from ``state_dict`` (e.g. ``engine.convert.from_jax_variables``),
+    loaded strictly, or else are drawn from ``seed``."""
+    if checkpoint is not None and state_dict is not None:
+        raise ValueError("pass checkpoint or state_dict, not both")
     dev = resolve_device(device)
     cfg = get_config(config, overrides) if isinstance(config, str) else config
     model = build_model(cfg.model)
+    if checkpoint is not None:
+        state_dict = restore_variables(checkpoint)
     if state_dict is None:
         randomize_(model, seed)
     else:

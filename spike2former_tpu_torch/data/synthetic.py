@@ -9,6 +9,11 @@ import os
 import numpy as np
 
 
+# ADE20K-like image shapes (H, W), three of each: a tree of them gives
+# the preset's batch of 6 two batches an epoch
+ADE_LIKE_SHAPES = ((512, 683), (683, 512), (512, 512), (384, 512)) * 3
+
+
 def synthetic_batch(rng: np.random.Generator, b: int = 6,
                     hw: tuple[int, int] = (512, 512), num_classes: int = 150,
                     classes: tuple[int, int] = (10, 30)):
@@ -37,11 +42,13 @@ def synthetic_batch(rng: np.random.Generator, b: int = 6,
 
 
 def write_ade_tree(root: str, shapes, seed: int = 0,
-                   split: str = "validation") -> str:
+                   split: str = "validation", num_classes: int = 150,
+                   classes: tuple[int, int] = (10, 30)) -> str:
     """A seeded ADE20K-layout tree under ``root`` for runs without the
     dataset: one ``.jpg`` image and ``.png`` annotation of each (H, W) of
-    ``shapes`` in ``split``, the maps of ``synthetic_batch`` in the
-    ADE20K encoding (class k stored as k + 1, 0 unlabeled)."""
+    ``shapes`` in ``split`` (``validation`` or ``training``), the maps of
+    ``synthetic_batch`` (``num_classes``, ``classes``) in the ADE20K
+    encoding (class k stored as k + 1, 0 unlabeled)."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -50,7 +57,8 @@ def write_ade_tree(root: str, shapes, seed: int = 0,
     os.makedirs(img_dir, exist_ok=True)
     os.makedirs(ann_dir, exist_ok=True)
     for i, hw in enumerate(shapes):
-        images, sem = synthetic_batch(rng, 1, tuple(hw))
+        images, sem = synthetic_batch(rng, 1, tuple(hw), num_classes,
+                                      classes)
         ann = np.where(sem[0] == 255, 0, sem[0] + 1).astype(np.uint8)
         Image.fromarray(images[0]).save(os.path.join(img_dir, f"{i:04d}.jpg"))
         Image.fromarray(ann).save(os.path.join(ann_dir, f"{i:04d}.png"))

@@ -1,17 +1,159 @@
-"""Loading reference checkpoints (port of ``load_torch_state_dict_raw`` and
-``load_reference_model`` of ``spike2former_tpu/engine/checkpoint.py``): a
-published mmseg ``EncoderDecoder`` ``.pth`` becomes a state dict of the
-port's ``compat=True`` model."""
+"""Train checkpoints and reference checkpoints (port of
+``spike2former_tpu/engine/checkpoint.py``).
+
+Train checkpoints (``save_state``, ``prune_checkpoints``,
+``latest_checkpoint``, ``restore_state``, ``restore_variables``) follow the
+JAX package's orbax ones in the port's own format: ``work_dir/ckpt_{step}``
+is one ``torch.save`` file of plain tensors, ints and dicts, loadable with
+``weights_only=True``: ``{"step", "model": the model's state dict
+(parameters and BN buffers), "optimizer": AdamW.state_dict()}``.  A save
+copies the state to the host inline and writes the file in a background
+thread, under a temporary name that becomes ``ckpt_{step}`` only when the
+file is whole.
+
+Reference checkpoints (``load_torch_state_dict_raw``,
+``load_reference_model``): a published mmseg ``EncoderDecoder`` ``.pth``
+becomes a state dict of the port's ``compat=True`` model.
+"""
 from __future__ import annotations
 
+import os
 import pickle
+import re
 import types
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from .convert import from_jax_variables
 from .convert_reference import convert_spike2former
+
+if TYPE_CHECKING:
+    from .train import TrainState
+
+# One writer thread for the process, so that saves reach the disk in the
+# order they were made, and the saves not yet known to be written.
+_WRITER: ThreadPoolExecutor | None = None
+_PENDING: list[Future] = []
+
+
+def wait_for_saves() -> None:
+    """Block until every save made so far is on disk; raise a failed
+    save's error."""
+    while _PENDING:
+        _PENDING.pop(0).result()
+
+
+def _host_copy(tensors: dict) -> dict:
+    """Host copies of a (nested) dict of tensors, complete on return: the
+    device's are copied into pinned memory behind the work already queued
+    on the stream, then the stream is synchronized, so a step that later
+    updates a tensor in place cannot reach the copy."""
+    def copy(t):
+        if isinstance(t, dict):
+            return {k: copy(v) for k, v in t.items()}
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.detach()
+        return (t.to("cpu", non_blocking=True) if t.is_cuda
+                else t.clone())
+
+    out = copy(tensors)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return out
+
+
+def _write(obj: dict, path: str) -> None:
+    tmp = f"{path}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_state(work_dir: str, state: TrainState, step: int, *,
+               wait: bool = False, keep: int | None = None) -> str:
+    """Checkpoint ``state`` as ``work_dir/ckpt_{step}``; returns its path.
+
+    The host copy is made before this returns; the file is written in the
+    background unless ``wait``.  ``keep``: retain only the newest ``keep``
+    checkpoints (mmengine's ``max_keep_ckpts``), this one counted."""
+    global _WRITER
+    wait_for_saves()
+    os.makedirs(work_dir, exist_ok=True)
+    path = os.path.abspath(os.path.join(work_dir, f"ckpt_{step}"))
+    obj = _host_copy({"step": int(step),
+                      "model": state.model.state_dict(),
+                      "optimizer": state.optimizer.state_dict()})
+    if _WRITER is None:
+        _WRITER = ThreadPoolExecutor(1, thread_name_prefix="ckpt-writer")
+    _PENDING.append(_WRITER.submit(_write, obj, path))
+    if wait:
+        wait_for_saves()
+    if keep is not None:
+        # this save counts toward ``keep`` whether or not it is written:
+        # keep - 1 of the others
+        prune_checkpoints(work_dir, keep - 1, protect={path})
+    return path
+
+
+def prune_checkpoints(work_dir: str, keep: int,
+                      protect=frozenset()) -> list[str]:
+    """Delete all but the newest ``keep`` ``ckpt_*`` (by step).  Paths in
+    ``protect`` (absolute) are left out before counting and never
+    removed; ``keep=0`` removes every other one.  Returns the removed
+    paths."""
+    if keep < 0:
+        return []
+    ckpts = sorted(_list_ckpts(work_dir), key=lambda d: int(d.split("_")[1]))
+    cand = [os.path.abspath(os.path.join(work_dir, d)) for d in ckpts]
+    cand = [p for p in cand if p not in protect]
+    remove = cand[:-keep] if keep > 0 else cand
+    for path in remove:
+        os.remove(path)
+    return remove
+
+
+def _list_ckpts(work_dir: str) -> list[str]:
+    """The written ``ckpt_<step>`` files (a save in flight still has its
+    temporary name)."""
+    if not os.path.isdir(work_dir):
+        return []
+    return [d for d in os.listdir(work_dir) if re.fullmatch(r"ckpt_\d+", d)]
+
+
+def latest_checkpoint(work_dir: str) -> str | None:
+    """The written checkpoint of the highest step, or None."""
+    ckpts = _list_ckpts(work_dir)
+    if not ckpts:
+        return None
+    return os.path.join(work_dir,
+                        max(ckpts, key=lambda d: int(d.split("_")[1])))
+
+
+def _load(path: str) -> dict:
+    wait_for_saves()
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_state(path: str, state: TrainState) -> TrainState:
+    """Load a train checkpoint into ``state`` in place (the model
+    strictly, the optimizer's count and moments, the step), on the
+    devices ``state`` lives on."""
+    ckpt = _load(path)
+    state.model.load_state_dict(ckpt["model"], strict=True)
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step"])
+    return state
+
+
+def restore_variables(path: str) -> dict[str, torch.Tensor]:
+    """The model's state dict from a train checkpoint of ``save_state``
+    or from a bare state dict saved by ``torch.save`` (the reference's
+    ``load_from`` takes training checkpoints the same way)."""
+    ckpt = _load(path)
+    return ckpt["model"] if "model" in ckpt and "optimizer" in ckpt else ckpt
 
 
 class _Inert:

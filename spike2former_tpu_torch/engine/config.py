@@ -1,10 +1,11 @@
 """Config dataclasses, the flagship preset and dot-key overrides (port of
 ``spike2former_tpu/engine/config.py``, without JAX).
 
-Only the fields that inference, evaluation and the semantic train step of
-the f32 SDTv2 MaskFormer read are kept, so an override of anything else
-(``model.variant``, ``train.loss_points``, ...) is rejected as an unknown
-key; the other presets wait for later slices of the port.
+Only the fields that inference, evaluation, the semantic train step and the
+train CLI of the f32 SDTv2 MaskFormer read are kept, so an override of
+anything else (``model.variant``, ``model.kind``, ``train.loss_points``,
+...) is rejected as an unknown key; the other presets wait for later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -38,20 +39,33 @@ class ModelConfig:
 class DataConfig:
     dataset: str = "ade20k"
     data_root: str = "data/ade/ADEChallengeData2016"
-    crop_size: tuple = (512, 512)     # train batches (synthetic until
-    batch_size: int = 6               # the data layer is ported)
+    crop_size: tuple = (512, 512)
+    batch_size: int = 6
+    num_workers: int = 8
     test_scale: tuple = (2048, 512)
     size_divisor: int = 32
+    # MultiImageMixDataset-style mosaic mixing probability (0 = off; the
+    # reference's RandomMosaic configs use 0.5), data/loader.py
+    mosaic_prob: float = 0.0
+    # decode-once RAM cache of the raw dataset (SegDataset.cache)
+    cache: bool = False
 
 
 @dataclass
 class TrainConfig:
     base_lr: float = 1e-3
+    # mmengine auto_scale_lr (ade20k config :212): base_lr scaled by
+    # batch_size * accum_steps / auto_scale_lr_base_batch
+    auto_scale_lr: bool = False
+    auto_scale_lr_base_batch: int = 48
     weight_decay: float = 0.005
     backbone_lr_mult: float = 0.1
     clip_norm: float = 0.01
     warmup_iters: int = 1500
     total_iters: int = 160_000
+    val_interval: int = 2500
+    checkpoint_interval: int = 10_000
+    max_keep_ckpts: int = 0           # >0: retain the newest N
     max_gt: int = 64
     # the exact fast path of the GT axis under the auction matcher
     # (losses.criterion.maskformer_loss); 0 disables
@@ -59,6 +73,7 @@ class TrainConfig:
     matcher: str = "auction"          # 'auction' (on-device) | 'host' (scipy)
     loss_at: str = "gt"               # 'gt' (the reference) | 'pred'
     accum_steps: int = 1
+    layer_decay_rate: float = 0.0     # >0: layer-wise lr decay (optim.py)
     seed: int = 0
 
 
@@ -77,6 +92,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    work_dir: str = "work_dirs"
 
 
 def build_model(cfg: ModelConfig) -> Spike2Former:

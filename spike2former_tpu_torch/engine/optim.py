@@ -1,7 +1,7 @@
 """AdamW with the reference recipe's parameter groups, global-norm
 clipping and warmup-poly schedule (port of
 ``spike2former_tpu/engine/optim.py``: ``poly_warmup_schedule``,
-``_param_labels``, ``_flat_adamw``).
+``_param_labels``, ``_flat_adamw``, ``layerwise_decay_scales``).
 
 Recipe (configs/Spike2Former/SDTv2_maskformer_DCNpixelDecoder_ade20k.py
 :138-167): AdamW(lr 1e-3, betas (0.9, 0.999), weight decay 0.005), clip at
@@ -13,13 +13,16 @@ decay.  The update is the JAX package's own arithmetic:
   ``clip_grad_norm_``'s ``clip / (|g| + 1e-6)``);
 * the schedule is read at the count before the increment, so step 0 runs
   at ``base_lr * 1e-6``;
-* decoupled decay ``u + wd * p``, the sum scaled by ``-lr * lr_mult``.
+* decoupled decay ``u + wd * p``, the sum scaled by ``-lr * lr_mult``;
+* with ``layer_decay_rate``, each parameter's ``lr_mult`` (after the
+  backbone's x0.1) times its layer-wise decay scale.
 
 Moments are updated with ``torch._foreach_*`` ops, a few launches per
 group rather than per parameter.
 """
 from __future__ import annotations
 
+import re
 from typing import Callable, Iterable
 
 import torch
@@ -54,28 +57,54 @@ def param_label(name: str) -> str:
     return "default"
 
 
+def layerwise_decay_scale(name: str, decay_rate: float = 0.9,
+                          num_layers: int = 12) -> float:
+    """Layer-wise lr decay of one parameter (mmseg's
+    LearningRateDecayOptimizerConstructor,
+    layer_decay_optimizer_constructor.py:104-207): ``decay_rate **
+    (num_layers - depth)``.  The depth is read from the name as the JAX
+    package reads it from the flax path: ``block{stage}_{i}`` is
+    ``min(2 * stage + i, num_layers)``, ``down{k}``/``conv{k}`` is ``k``,
+    anything else (the head) ``num_layers``, no decay.  The port's names
+    are the flax paths joined by ``.``, less the folded ``BatchNorm_0``,
+    which neither pattern can match."""
+    m = re.search(r"block(\d)_(\d+)", name)
+    if m:
+        depth = min(2 * int(m.group(1)) + int(m.group(2)), num_layers)
+    else:
+        m = re.search(r"(down|conv)(\d)_?", name)
+        depth = int(m.group(2)) if m else num_layers
+    return decay_rate ** (num_layers - depth)
+
+
 class AdamW:
     """AdamW over named parameters, updated in place by ``step``.
 
     Reads each parameter's ``.grad`` (a parameter without one takes a zero
-    gradient, as JAX differentiates every leaf); ``state_dict`` holds the
-    count and the moments."""
+    gradient, as JAX differentiates every leaf).  ``state_dict`` holds
+    the count and the moments by parameter name; ``load_state_dict``
+    takes them back onto the parameters' device."""
 
     def __init__(self, named_params: Iterable[tuple[str, torch.Tensor]],
                  base_lr: float = 1e-3, weight_decay: float = 0.005,
                  backbone_lr_mult: float = 0.1, clip_norm: float = 0.01,
                  warmup_iters: int = 1500, total_iters: int = 160_000,
+                 layer_decay_rate: float | None = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.schedule = poly_warmup_schedule(base_lr, warmup_iters,
                                              total_iters)
         self.clip_norm, self.b1, self.b2, self.eps = clip_norm, b1, b2, eps
-        groups: dict[str, list[torch.Tensor]] = {}
-        for name, p in named_params:
-            groups.setdefault(param_label(name), []).append(p)
         setting = {"backbone": (backbone_lr_mult, weight_decay),
                    "embed": (1.0, 0.0), "default": (1.0, weight_decay)}
-        self.groups = [(params, *setting[label])
-                       for label, params in groups.items()]
+        groups: dict[tuple[float, float], list[tuple[str, torch.Tensor]]] = {}
+        for name, p in named_params:
+            lr_mult, wd = setting[param_label(name)]
+            if layer_decay_rate is not None:
+                lr_mult *= layerwise_decay_scale(name, layer_decay_rate)
+            groups.setdefault((lr_mult, wd), []).append((name, p))
+        self.groups = [([p for _, p in members], lr_mult, wd)
+                       for (lr_mult, wd), members in groups.items()]
+        self.names = [n for members in groups.values() for n, _ in members]
         self.params = [p for params, _, _ in self.groups for p in params]
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -112,4 +141,20 @@ class AdamW:
         return norm
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        """The count and, by parameter name, the moments (the live
+        tensors, not copies)."""
+        return {"count": self.count,
+                "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict`` (from any device) into the moments, which
+        must have the same names and shapes."""
+        for key in ("mu", "nu"):
+            if set(state[key]) != set(self.names):
+                raise KeyError(f"optimizer {key} names differ: "
+                               f"{sorted(set(state[key]) ^ set(self.names))}")
+            for name, t in zip(self.names, getattr(self, key)):
+                t.copy_(state[key][name])
+        self.count = int(state["count"])

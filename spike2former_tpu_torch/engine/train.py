@@ -38,14 +38,31 @@ class TrainState:
     step: int = 0
 
 
-def init_state(model: Spike2Former, train_cfg: TrainConfig) -> TrainState:
-    """Wrap ``model`` with a fresh AdamW of ``train_cfg``'s recipe."""
-    opt = AdamW(model.named_parameters(), base_lr=train_cfg.base_lr,
+def scaled_base_lr(cfg: Config) -> float:
+    """``cfg.train.base_lr``, or with ``auto_scale_lr`` the linear scaling
+    rule against the recipe's batch (mmengine ``auto_scale_lr``, ade20k
+    config :212): times ``batch_size * accum_steps /
+    auto_scale_lr_base_batch``."""
+    t = cfg.train
+    if not t.auto_scale_lr:
+        return t.base_lr
+    return t.base_lr * (cfg.data.batch_size * t.accum_steps
+                        / t.auto_scale_lr_base_batch)
+
+
+def init_state(model: Spike2Former, train_cfg: TrainConfig,
+               base_lr: float | None = None) -> TrainState:
+    """Wrap ``model`` with a fresh AdamW of ``train_cfg``'s recipe, at
+    ``base_lr`` when given (``scaled_base_lr``), with the layer-wise decay
+    of ``train_cfg.layer_decay_rate`` when it is set."""
+    opt = AdamW(model.named_parameters(),
+                base_lr=train_cfg.base_lr if base_lr is None else base_lr,
                 weight_decay=train_cfg.weight_decay,
                 backbone_lr_mult=train_cfg.backbone_lr_mult,
                 clip_norm=train_cfg.clip_norm,
                 warmup_iters=train_cfg.warmup_iters,
-                total_iters=train_cfg.total_iters)
+                total_iters=train_cfg.total_iters,
+                layer_decay_rate=train_cfg.layer_decay_rate or None)
     return TrainState(model, opt)
 
 
@@ -129,7 +146,8 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
     """Build a model and its train step from a preset (or Config) on
     ``device`` (the card unless ``device="cpu"``).  Weights come from
     ``state_dict``, loaded strictly, or are drawn from ``seed``
-    (``engine/weights.py``), which defaults to ``cfg.train.seed``."""
+    (``engine/weights.py``), which defaults to ``cfg.train.seed``.  The
+    optimizer runs at ``scaled_base_lr(cfg)``."""
     dev = resolve_device(device)
     cfg = get_config(config, overrides) if isinstance(config, str) else config
     t = cfg.train
@@ -143,7 +161,8 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
     else:
         model.load_state_dict(state_dict, strict=True)
     model.to(dev)
-    return Trainer(cfg, init_state(model, t), step_fn, dev)
+    return Trainer(cfg, init_state(model, t, scaled_base_lr(cfg)), step_fn,
+                   dev)
 
 
 def train_steps(trainer: Trainer, batches: Iterable) -> list[dict]:

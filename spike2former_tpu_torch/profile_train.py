@@ -1,16 +1,20 @@
 """Where a flagship train step's time goes, on one NVIDIA GPU.
 
-    python -m spike2former_tpu_torch.profile_train [KEY=VALUE ...]
+    python -m spike2former_tpu_torch.profile_train [--loader] [KEY=VALUE ...]
 
 Builds the flagship preset at full width with seeded random weights, with
 the config overrides given (e.g. ``train.matcher='host'``; by default the
 preset's auction matcher with ``compact_gt=32``), and takes train steps on
 seeded synthetic batches (``data/synthetic.py``) of the preset's batch
 size and crop (6 at 512x512), f32 with TF32 off, as ``chip_smoke.py``
-does.
+does.  With ``--loader`` the batches are the train CLI's instead: the
+``TrainLoader`` crops of a seeded ADE20K-layout tree of 12 images
+(``data/synthetic.py:ADE_LIKE_SHAPES``), written to a temporary
+directory.
 Prints:
 
-* the step's wall ms (median of the timed steps) and peak memory;
+* the step's wall ms (median of the timed steps), peak memory, the
+  auction's iterations in each step and the classes of each crop;
 * the host synchronizations of one step, as
   ``torch.cuda.set_sync_debug_mode`` reports them, by the line of the
   port that issued them;
@@ -31,6 +35,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -41,7 +46,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import api
-from .data.synthetic import synthetic_batch
+from .data.dataset import make_dataset
+from .data.loader import TrainLoader
+from .data.synthetic import ADE_LIKE_SHAPES, synthetic_batch, write_ade_tree
+from .losses import criterion
+from .losses.matcher import auction_match
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
 WARMUP, TIMED = 2, 3
@@ -104,7 +113,17 @@ def sync_sites(fn) -> collections.Counter:
     return sites
 
 
-def main(overrides: list[str]) -> int:
+def loader_batches(b: int, hw: tuple[int, int], n: int) -> list:
+    """``n`` batches of the train CLI's loader on a seeded tree."""
+    with tempfile.TemporaryDirectory() as root:
+        write_ade_tree(root, ADE_LIKE_SHAPES, seed=3, split="training")
+        with TrainLoader(make_dataset("ade20k", root, "train"), b, hw,
+                         seed=0) as loader:
+            it = iter(loader)
+            return [next(it) for _ in range(n)]
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device available", file=sys.stderr)
         return 1
@@ -112,26 +131,47 @@ def main(overrides: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__}",
           flush=True)
+    loader = "--loader" in argv
+    overrides = [a for a in argv if a != "--loader"]
     tr = api.init_trainer(PRESET, overrides, seed=0)
     print(f"matcher={tr.cfg.train.matcher} compact_gt="
-          f"{tr.cfg.train.compact_gt}", flush=True)
-    rng = np.random.default_rng(0)
+          f"{tr.cfg.train.compact_gt} batches="
+          f"{'loader' if loader else 'synthetic'}", flush=True)
     b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
-    batches = [tuple(torch.as_tensor(a, device=tr.device)
-                     for a in synthetic_batch(rng, b, hw))
-               for _ in range(WARMUP + TIMED)]
+    if loader:
+        host = loader_batches(b, hw, WARMUP + TIMED)
+    else:
+        rng = np.random.default_rng(0)
+        host = [synthetic_batch(rng, b, hw) for _ in range(WARMUP + TIMED)]
+    batches = [tuple(torch.as_tensor(a, device=tr.device) for a in batch)
+               for batch in host]
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for batch in batches:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        tr.step_fn(tr.state, *batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
+    times, costs = [], []
+    real_auction = criterion.auction_match
+
+    def spy(c, **kw):
+        costs.append(c.detach().clone())
+        return real_auction(c, **kw)
+
+    criterion.auction_match = spy
+    try:
+        for batch in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.step_fn(tr.state, *batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        criterion.auction_match = real_auction
     step_ms = statistics.median(times[WARMUP:])
     print(f"step_ms={step_ms:.3f} (steps {[round(x, 1) for x in times]}) "
           f"peak_gib={torch.cuda.max_memory_allocated() / 2 ** 30:.3f}",
           flush=True)
+    iterations = [int(auction_match(c, with_stats=True)[1].iterations)
+                  for c in costs]
+    classes = [len(np.unique(s[s != 255])) for _, sem in host for s in sem]
+    print(f"auction iterations per step {iterations}; classes per crop "
+          f"{classes}", flush=True)
 
     sites = sync_sites(lambda: tr.step_fn(tr.state, *batches[-1]))
     print(f"host synchronizations in one step: {sum(sites.values())} "

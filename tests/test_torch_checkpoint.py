@@ -240,14 +240,15 @@ def test_eval_cli_matches_the_jax_pipeline(mode, compat, tmp_path, capsys):
     cfg = get_config(PRESET, list(opts))
     want = _jax_pipeline(jm, variables, root, cfg)
 
-    res = cli.evaluate(init_model(cfg, pm.state_dict(), device="cpu"),
+    res = cli.evaluate(init_model(cfg, state_dict=pm.state_dict(),
+                                  device="cpu"),
                        make_dataset("ade20k", root, "val"))
     assert res["images"] == 4
     for g, w in zip(res["preds"], want["preds"]):
         np.testing.assert_array_equal(g, w)
     for k in ("mIoU", "mAcc", "aAcc"):
         assert res[k] == want[k]
-    lines = _cli([PRESET, "--data-root", root, "--state-dict", sd_path,
+    lines = _cli([PRESET, "--data-root", root, "--checkpoint", sd_path,
                   "--device", "cpu", "--cfg-options", *opts], capsys)
     assert lines == ["images: 4", f"mIoU {want['mIoU']:.2f}  mAcc "
                      f"{want['mAcc']:.2f}  aAcc {want['aAcc']:.2f}"]

@@ -11,13 +11,17 @@ import pytest
 import torch
 
 from spike2former_tpu_torch import api
+from spike2former_tpu_torch.data.synthetic import (synthetic_batch,
+                                                    write_ade_tree)
 from spike2former_tpu_torch.device import f32_precision
-from spike2former_tpu_torch.engine import inference
+from spike2former_tpu_torch.engine import checkpoint, inference
+from spike2former_tpu_torch.engine.config import get_config
 from spike2former_tpu_torch.engine.weights import randomize_
 from spike2former_tpu_torch.losses.matcher import BIG_COST, auction_match
 from spike2former_tpu_torch.models.segmentor import Spike2Former
 from spike2former_tpu_torch.ops import dcnv3, dcnv3_grouped
 from spike2former_tpu_torch.profile_train import sync_sites
+from spike2former_tpu_torch.tools import train as train_cli
 
 pytestmark = pytest.mark.cuda
 
@@ -496,3 +500,63 @@ def test_eval_card_matches_cpu(cuda, mode):
         got = inference.slide_logits(gpu, imgs.to(cuda), *args)
     assert dcnv3.dcnv3_sample.launches > before
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+
+
+# --- the train CLI ----------------------------------------------------------
+
+def test_tiny_train_cli_card_matches_cpu(cuda, tmp_path):
+    """The train CLI's loop at tiny dims, 4 steps at batch 2 of 64x64
+    crops from a seeded tree of 4-class maps (TINY's 4 queries), on the
+    card (through K1 and K2) and on the CPU: each logged ``total`` within
+    ``chip_smoke.TRAIN_RTOL``; each run's last checkpoint holds its final
+    state."""
+    from chip_smoke import TRAIN_RTOL
+
+    root = str(tmp_path / "ade")
+    write_ade_tree(root, ((96, 128), (128, 96), (80, 80), (100, 90)),
+                   seed=4, split="training", num_classes=4, classes=(2, 4))
+    opts = TINY_OPTS + ["data.crop_size=(64,64)", "data.batch_size=2",
+                        "data.num_workers=2", "train.warmup_iters=1",
+                        "train.total_iters=4", "train.checkpoint_interval=2"]
+    totals = []
+    for dev in ("cpu", "cuda"):
+        cfg = get_config(PRESET, list(opts))
+        cfg.data.data_root = root
+        before = dcnv3.dcnv3_sample_backward.launches
+        res = train_cli.train(cfg, str(tmp_path / dev), log_interval=1,
+                              eval_images=0, device=dev)
+        if dev == "cuda":
+            assert dcnv3.dcnv3_sample_backward.launches == before + 4
+        totals.append([r["total"] for r in res["logs"]])
+        sd = checkpoint.restore_variables(str(tmp_path / dev / "ckpt_4"))
+        for k, v in res["state"].model.state_dict().items():
+            assert torch.equal(sd[k], v.cpu()), k
+    cpu, card = totals
+    assert len(cpu) == 4 and all(np.isfinite(cpu))
+    np.testing.assert_allclose(card, cpu, rtol=TRAIN_RTOL)
+
+
+def test_async_checkpoint_holds_the_state_at_its_step(cuda, tmp_path):
+    """A save on the card returns before its file is written; the steps
+    after it update the parameters and moments in place, and the file
+    still holds the state at the save's step, bit for bit."""
+    tr = api.init_trainer(PRESET, TINY_OPTS + ["train.warmup_iters=1"],
+                          device="cuda", seed=1)
+    rng = np.random.default_rng(0)
+    batches = [synthetic_batch(rng, 2, (64, 64), num_classes=4,
+                               classes=(2, 4)) for _ in range(4)]
+    api.train_steps(tr, batches[:2])
+    want = {k: v.cpu().clone() for k, v in tr.state.model.state_dict().items()}
+    mu = {k: v.cpu().clone()
+          for k, v in tr.state.optimizer.state_dict()["mu"].items()}
+    path = checkpoint.save_state(str(tmp_path), tr.state, 2)
+    api.train_steps(tr, batches[2:])
+    raw = torch.load(path, weights_only=True)
+    assert raw["step"] == 2 and raw["optimizer"]["count"] == 2
+    moved = 0
+    for k, v in want.items():
+        assert torch.equal(raw["model"][k], v), k
+        moved += not torch.equal(tr.state.model.state_dict()[k].cpu(), v)
+    for k, v in mu.items():
+        assert torch.equal(raw["optimizer"]["mu"][k], v), k
+    assert moved

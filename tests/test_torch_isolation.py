@@ -32,7 +32,10 @@ def test_port_and_chip_smoke_import_without_jax():
     ``tests/torch_golden.py``)."""
     modules = _port_modules() + ["chip_smoke"]
     for name in ("ops.dcnv3", "losses.losses", "losses.matcher",
-                 "losses.criterion", "engine.train", "engine.optim"):
+                 "losses.criterion", "engine.train", "engine.optim",
+                 "data.loader", "data.transforms", "engine.checkpoint",
+                 "engine.logging", "evaluation.visualize", "tools.train",
+                 "tools.test"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys

@@ -84,7 +84,8 @@ def _jax_and_port_api(seed=7):
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 64, 3), jnp.float32))
     jim = japi.InferenceModel(cfg, model, randomize_variables(shapes, seed))
-    tim = tapi.init_model(PRESET, from_jax_variables(jim.variables),
+    tim = tapi.init_model(PRESET,
+                          state_dict=from_jax_variables(jim.variables),
                           overrides=list(TINY_OPTS), device="cpu")
     return jim, tim
 
