@@ -96,6 +96,29 @@ Phases, each printing one flushed line with the seconds elapsed:
       ``load_reference_model`` onto the card, logits against the CPU's,
       and through the eval CLI's ``--torch-checkpoint`` on the card.
 
+The bf16 model (``model.dtype='bfloat16'``) and the bf16 forms of K1 and
+K2, run between the phases above:
+
+  (bf16 kernels) K1 on bf16 features against its plain version at the
+      serve and train shapes, K2 at the train shape, for the four kinds
+      of coordinates: out and dvalue within one bf16 ulp, dpy/dpx/dmask
+      within 1e-3 of their largest magnitude; warm and cold ms, plain ms,
+      the ``F.grid_sample`` yardstick on bf16 (and its backward), the byte
+      bounds, and the registers of the bf16 Cg=8 instantiations from the
+      build log;
+  (bf16 serve) the full-width flagship at bf16, with the f32 model's
+      seeded weights, serves the three images of (serve): 6 bf16 K1
+      launches a request, finite logits, class agreement and the largest
+      logit gap against the f32 model, median request ms, peak memory;
+  (bf16 train) batch 6 of 512x512 at the preset's defaults at bf16, then
+      with ``model.remat=True`` and ``train.packed_residuals=True``: step
+      ms and peak memory of each, bf16 K1/K2 launches (K1 12 a step under
+      remat: the recomputation samples again), finite losses, the first
+      step's losses equal across the two within 1e-5 relative;
+  (bf16 tiny) the tiny model at bf16, card against CPU: class agreement
+      >= 0.99 and the largest logit gap <= 0.064 at 64x64, and 3 train
+      steps' ``total`` within 2e-2 relative.
+
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero and prints no result; it also
@@ -631,8 +654,8 @@ def grouped_launches() -> tuple[int, int]:
 
 def zero_launches() -> None:
     """Set every kernel's launch count to 0."""
-    dcnv3.dcnv3_sample.launches = 0
-    dcnv3.dcnv3_sample_backward.launches = 0
+    for k in (dcnv3.dcnv3_sample, dcnv3.dcnv3_sample_backward):
+        k.launches = k.bf16_launches = 0
     dcnv3_grouped.dcnv3_sample_grouped.launches = 0
     dcnv3_grouped.dcnv3_sample_grouped_backward.launches = 0
 
@@ -640,6 +663,8 @@ def zero_launches() -> None:
 def read_launches() -> dict:
     return dict(k1=dcnv3.dcnv3_sample.launches,
                 k2=dcnv3.dcnv3_sample_backward.launches,
+                k1_bf16=dcnv3.dcnv3_sample.bf16_launches,
+                k2_bf16=dcnv3.dcnv3_sample_backward.bf16_launches,
                 grouped=grouped_launches())
 
 
@@ -1022,9 +1047,11 @@ def capture_auction(store: list):
         criterion.auction_match = real
 
 
-def timed_steps(tr, batches, warmup: int, tag: str) -> dict:
+def timed_steps(tr, batches, warmup: int, tag: str,
+                k1_per_step: int = 6) -> dict:
     """Take one step per batch through ``api.train_steps``; the launch
-    counts are set to 0 just before and read just after."""
+    counts are set to 0 just before and read just after (K1
+    ``k1_per_step`` a step, K2 6)."""
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     times, metrics = [], []
@@ -1046,9 +1073,10 @@ def timed_steps(tr, batches, warmup: int, tag: str) -> dict:
         f"dcnv3_sample_bwd launches={launches['k2']} "
         f"({launches['k2'] / steps:g} per step), grouped forward/backward "
         f"launches={launches['grouped']}")
-    check(launches["k1"] == 6 * steps and launches["k2"] == 6 * steps,
-          f"{tag}: expected 6 K1 and 6 K2 launches per step, got "
-          f"{launches['k1']}, {launches['k2']} over {steps} steps")
+    check(launches["k1"] == k1_per_step * steps
+          and launches["k2"] == 6 * steps,
+          f"{tag}: expected {k1_per_step} K1 and 6 K2 launches per step, "
+          f"got {launches['k1']}, {launches['k2']} over {steps} steps")
     for m in metrics:
         bad = [k for k, v in m.items() if not np.isfinite(v)]
         check(not bad, f"{tag}: non-finite train metrics {bad}")
@@ -1058,7 +1086,7 @@ def timed_steps(tr, batches, warmup: int, tag: str) -> dict:
                   f"{tag}: no gradient reaches {name}")
     timed = times[warmup:]
     return dict(launches=launches, step_ms=statistics.median(timed),
-                max_ms=max(timed), n=len(timed),
+                max_ms=max(timed), n=len(timed), first=metrics[0],
                 repaired=[m["repaired_gt"] for m in metrics],
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
@@ -1246,6 +1274,265 @@ def phase_small_train() -> dict:
               f"{rel:.3g}")
         out[matcher] = rel
     return out
+
+
+# --- the bf16 model (model.dtype='bfloat16') and the bf16 forms of K1, K2 ---
+
+BF16_OPTS = ["model.dtype='bfloat16'"]
+BF16_GRAD_RTOL = 1e-3   # dpy/dpx/dmask of bf16 K2: of the largest magnitude
+# bf16 model against f32 (tiny, 64x64, card against CPU): the JAX
+# package's own bf16-against-f32 logit gap on the tiny model, and the
+# train tolerance of tests/test_torch_bf16_model.py
+BF16_LOGIT_GAP, BF16_AGREEMENT, BF16_TRAIN_RTOL = 0.064, 0.99, 2e-2
+KNOB_RTOL = 1e-5        # remat + packed residuals against neither
+BF16_WARMUP, BF16_TIMED = 1, 3
+
+
+def within_one_bf16_ulp(got, want) -> bool:
+    """Each element of ``got`` within one bf16 ulp of ``want``'s (the ulp
+    of max(|want|, 1e-2)): two f32 sums in other orders, each rounded
+    once to bf16."""
+    scale = want.float().abs().clamp(min=1e-2)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+def registers(source: str, marker: str) -> list[str]:
+    """``Used N registers`` of the kernels of ``source`` whose mangled
+    name holds ``marker`` (``-Xptxas -v`` in the build log)."""
+    lines = (cuda_build.library_path(source).parent / "build.log"
+             ).read_text().splitlines()
+    out, name = [], None
+    for line in lines:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Used" in line and "registers" in line and name:
+            if marker in name:
+                out.append(line.split("Used")[1].split(",")[0].strip())
+            name = None
+    return out
+
+
+def phase_bf16_kernels(gen) -> dict:
+    """(bf16 kernels): K1 on bf16 features against its plain version at
+    the serve and train shapes, K2 at the train shape, for each of
+    ``KINDS``: out and dvalue within one bf16 ulp, dpy/dpx/dmask within
+    ``BF16_GRAD_RTOL``; their times with a warm and a cold L2, the plain
+    times, the ``F.grid_sample`` yardsticks on bf16 and the byte bounds."""
+    g, cg, p = 32, 8, 9
+    worst = {"k1_err": 0.0, "k2_err": 0.0}
+    rec = {}
+    for n, h, w in ((1, 32, 44), (6, 32, 32)):
+        for kind in KINDS:
+            value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, kind, gen)
+            value = value.bfloat16()
+            got = dcnv3.dcnv3_sample(value, py, px, mask)
+            torch.cuda.synchronize()
+            want = dcnv3.dcnv3_sample_reference(value, py, px, mask)
+            check(got.dtype == torch.bfloat16 and bool(
+                torch.isfinite(got).all()), f"bf16 K1 out ({kind}, N={n})")
+            check(within_one_bf16_ulp(got, want), f"bf16 K1 beyond one ulp "
+                  f"of plain ({kind}, N={n} {h}x{w})")
+            err = (got.float() - want.float()).abs().max().item()
+            worst["k1_err"] = max(worst["k1_err"], err)
+            line = f"N={n} {h}x{w} {kind}: K1 max|kernel-plain|={err:.3g}"
+            if n == 6:
+                dout = torch.randn((n, h * w, g * cg), generator=gen).cuda()
+                dout = dout.bfloat16()
+                gk = dcnv3.dcnv3_sample_backward(value, py, px, mask, dout)
+                torch.cuda.synchronize()
+                gw = dcnv3.dcnv3_sample_backward_reference(value, py, px,
+                                                           mask, dout)
+                check(gk[0].dtype == torch.bfloat16
+                      and within_one_bf16_ulp(gk[0], gw[0]),
+                      f"bf16 K2 dvalue beyond one ulp ({kind})")
+                errs = [(gk[0].float() - gw[0].float()).abs().max().item()]
+                for name, a, b in zip(("dpy", "dpx", "dmask"), gk[1:],
+                                      gw[1:]):
+                    e = (a - b).abs().max().item()
+                    check(bool(torch.isfinite(a).all()) and e <= BF16_GRAD_RTOL
+                          * b.abs().max().item(),
+                          f"bf16 K2 {name} off by {e:.3g} ({kind})")
+                    errs.append(e)
+                worst["k2_err"] = max(worst["k2_err"], *errs)
+                line += (" K2 max|kernel-plain| dvalue={:.3g} dpy={:.3g} "
+                         "dpx={:.3g} dmask={:.3g}".format(*errs))
+            log("bf16 kernels", line)
+        value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, "random", gen)
+        value = value.bfloat16()
+        coords = py.numel()
+        out_elems = n * h * w * g * cg
+        lib = [value, py.bfloat16(), px.bfloat16(), mask.bfloat16()]
+
+        def k1():
+            return dcnv3.dcnv3_sample(value, py, px, mask)
+
+        t = dict(ms=median_ms(k1), cold_ms=cuda_ms(k1, cold=True),
+                 plain_ms=cuda_ms(lambda: dcnv3.dcnv3_sample_reference(
+                     value, py, px, mask), iters=20),
+                 library_ms=cuda_ms(lambda: grid_sample_yardstick(*lib),
+                                    iters=20),
+                 bytes_ms=(2 * value.numel() + 12 * coords + 2 * out_elems)
+                 / HBM_BYTES_PER_S * 1e3,
+                 ops_ms=coords * (4 * cg * 2 + 16) / F32_FLOPS_PER_S * 1e3)
+        rec["k1", n] = t
+        log("bf16 kernels", f"K1 N={n} {h}x{w} timing: kernel_ms="
+            f"{t['ms']:.5f} cold_l2_ms={t['cold_ms']:.5f} plain_ms="
+            f"{t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
+            f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
+            f"op_bound_us={t['ops_ms'] * 1e3:.3f}")
+        if n != 6:
+            continue
+        dout = torch.randn((n, h * w, g * cg), generator=gen).cuda().bfloat16()
+        ins = [a.clone().requires_grad_() for a in lib]
+        lib_out = grid_sample_yardstick(*ins)
+
+        def k2():
+            return dcnv3.dcnv3_sample_backward(value, py, px, mask, dout)
+
+        t = dict(ms=median_ms(k2), cold_ms=cuda_ms(k2, cold=True),
+                 plain_ms=cuda_ms(
+                     lambda: dcnv3.dcnv3_sample_backward_reference(
+                         value, py, px, mask, dout), iters=10),
+                 library_ms=cuda_ms(lambda: torch.autograd.grad(
+                     lib_out, ins, dout, retain_graph=True), iters=20),
+                 bytes_ms=(2 * (2 * value.numel() + dout.numel())
+                           + 24 * coords) / HBM_BYTES_PER_S * 1e3,
+                 ops_ms=coords * (4 * 4 * cg + 40) / F32_FLOPS_PER_S * 1e3)
+        rec["k2", n] = t
+        log("bf16 kernels", f"K2 N={n} {h}x{w} timing: kernel_ms="
+            f"{t['ms']:.5f} cold_l2_ms={t['cold_ms']:.5f} plain_ms="
+            f"{t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
+            f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
+            f"op_bound_us={t['ops_ms'] * 1e3:.3f}")
+    for src, marker in ((dcnv3.SOURCE, "13__nv_bfloat16Li8E"),
+                        (dcnv3.BWD_SOURCE, "13__nv_bfloat16Li8E")):
+        log("bf16 kernels", f"{src} bf16 Cg=8 registers: "
+            f"{registers(src, marker)}")
+    rec.update(worst)
+    return rec
+
+
+def compare_logits(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(class agreement, largest |logit gap|) of two logit maps."""
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    return agree, (a.float() - b.float()).abs().max().item()
+
+
+def phase_bf16_serve(im32) -> dict:
+    """(bf16 serve): the flagship at ``model.dtype='bfloat16'``, with the
+    seeded weights of the f32 model ``im32``, serves the three images of
+    (serve): K1's bf16 form 6 times a request, finite logits, the class
+    agreement and largest logit gap against the f32 model, the median
+    request ms and the peak memory."""
+    im = api.init_model(PRESET, overrides=BF16_OPTS, seed=0)
+    check(all(torch.equal(a, b) for a, b in zip(
+        im.model.state_dict().values(), im32.model.state_dict().values())),
+        "bf16 model does not hold the f32 model's weights")
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for hw in REQUEST_SHAPES]
+    zero_launches()
+    for img in imgs:
+        api.inference_model(im, img)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["k1_bf16"] == launches["k1"] == 6 * len(imgs),
+          f"bf16 serve: K1 launches {launches}")
+    gaps = []
+    for img in imgs:
+        padded, _ = api.resize_and_pad(im.cfg, img)
+        x = torch.from_numpy(padded[None]).cuda()
+        with f32_precision():
+            lo = whole_logits(im.model, x)
+            ref = whole_logits(im32.model, x)
+        check(lo.dtype == torch.bfloat16 and bool(torch.isfinite(lo).all()),
+              "bf16 logits not finite")
+        gaps.append(compare_logits(lo, ref))
+        log("bf16 serve", f"image {img.shape[:2]}: class agreement with f32 "
+            f"{gaps[-1][0]:.6f}, max|logit gap| {gaps[-1][1]:.6g} (max|f32 "
+            f"logit| {ref.abs().max().item():.6g})")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        for img in imgs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            api.inference_model(im, img)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    return dict(launches=launches, request_ms=statistics.median(times),
+                max_ms=max(times), n=len(times),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                agreement=min(a for a, _ in gaps), gap=max(d for _, d in gaps))
+
+
+def phase_bf16_train() -> dict:
+    """(bf16 train): batch 6 of 512x512 at the preset's defaults (auction,
+    ``compact_gt=32``, ``loss_at='gt'``) at bf16, then with
+    ``model.remat=True`` and ``train.packed_residuals=True``: step ms and
+    peak memory of each, the bf16 K1/K2 launches (K1 twice per DCN layer
+    under remat: the recomputation samples again), finite losses, and the
+    first step's losses equal across the two settings within
+    ``KNOB_RTOL``."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for tag, extra in (("bf16", []), ("bf16+remat+packed", [
+            "model.remat=True", "train.packed_residuals=True"])):
+        tr = api.init_trainer(PRESET, BF16_OPTS + extra, seed=0)
+        if not out:
+            b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
+            batches = [synthetic_batch(rng, b, hw)
+                       for _ in range(BF16_WARMUP + BF16_TIMED)]
+        res = timed_steps(tr, batches, BF16_WARMUP, tag,
+                          k1_per_step=12 if extra else 6)
+        check(res["launches"]["k1_bf16"] == res["launches"]["k1"]
+              and res["launches"]["k2_bf16"] == res["launches"]["k2"],
+              f"{tag}: a K1/K2 launch was not the bf16 form")
+        out[tag] = res
+        del tr
+        torch.cuda.empty_cache()
+    a, b = (out[t]["first"] for t in out)
+    worst = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                for k in a if k.startswith(("loss", "d", "total")))
+    log("bf16 train", f"first step's losses with remat+packed against "
+        f"without: max rel diff {worst:.3g} (tol {KNOB_RTOL})")
+    check(worst <= KNOB_RTOL, f"remat/packed changed the first step's "
+          f"losses by {worst:.3g}")
+    out["knob_rel"] = worst
+    return out
+
+
+def phase_bf16_tiny() -> dict:
+    """(bf16 tiny): the tiny model at bf16, card against CPU: logits at
+    64x64 (class agreement, largest gap) and 3 train steps' ``total``
+    with the preset's auction matcher (maps of 4 classes)."""
+    opts = [f"model.{k}={v!r}".replace(" ", "") for k, v in TINY.items()]
+    opts += BF16_OPTS
+    cpu = api.init_model(PRESET, overrides=opts, device="cpu", seed=1)
+    gpu = api.init_model(PRESET, overrides=opts, seed=1)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode(), f32_precision():
+        agree, gap = compare_logits(gpu.model.predict_logits(x.cuda()).cpu(),
+                                    cpu.model.predict_logits(x))
+    log("bf16 tiny", f"64x64 card vs CPU at bf16: class agreement "
+        f"{agree:.6f}, max|logit gap| {gap:.6g}")
+    check(agree >= BF16_AGREEMENT and gap <= BF16_LOGIT_GAP,
+          f"bf16 tiny card vs CPU: agreement {agree}, gap {gap}")
+    rng = np.random.default_rng(1)
+    batches = [synthetic_batch(rng, 2, (64, 64), num_classes=4)
+               for _ in range(3)]
+    totals = []
+    for dev in ("cpu", "cuda"):
+        tr = api.init_trainer(PRESET, opts + ["train.warmup_iters=1"],
+                              device=dev, seed=1)
+        totals.append([m["total"] for m in api.train_steps(tr, batches)])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(totals[1], totals[0]))
+    log("bf16 tiny", f"3 steps' total CPU {totals[0]} card {totals[1]}: "
+        f"max rel diff {rel:.3g} (tol {BF16_TRAIN_RTOL})")
+    check(rel <= BF16_TRAIN_RTOL, f"bf16 tiny train card vs CPU {rel:.3g}")
+    return dict(agreement=agree, gap=gap, train_rel=rel)
 
 
 # the train CLI's seeded tree: the 12 training images of ADE_LIKE_SHAPES
@@ -1629,6 +1916,7 @@ def main() -> int:
     k2 = phase_backward_kernel(gen)
     grad_err = phase_core_autograd(gen)
     gk = phase_grouped(gen)
+    kb = phase_bf16_kernels(gen)
 
     t = time.perf_counter()
     im = api.init_model(PRESET, seed=0)
@@ -1648,6 +1936,13 @@ def main() -> int:
     log("reference", f"tiny model 64x64 card vs CPU max|diff|={err:.3g} "
         f"(tol {MODEL_TOL})")
     ev = phase_eval(im)
+    bs = phase_bf16_serve(im)
+    log("bf16 serve", f"median request_ms={bs['request_ms']:.3f} (max "
+        f"{bs['max_ms']:.3f}, n={bs['n']}) peak_mem_gib={bs['peak_gib']:.3f}"
+        f" against f32 {s['request_ms']:.3f}; K1 bf16 launches "
+        f"{bs['launches']['k1_bf16']} over 3 requests; least class agreement "
+        f"with f32 {bs['agreement']:.6f}, largest logit gap {bs['gap']:.6g} "
+        f"on {smi}")
     del im
     torch.cuda.empty_cache()
 
@@ -1670,6 +1965,17 @@ def main() -> int:
         f"auction {t_err['auction']:.3g}, host {t_err['host']:.3g} "
         f"(tol {TRAIN_RTOL})")
     torch.cuda.empty_cache()
+    bt = phase_bf16_train()
+    for tag in ("bf16", "bf16+remat+packed"):
+        r = bt[tag]
+        log("bf16 train", f"{tag}: median step_ms={r['step_ms']:.3f} (max "
+            f"{r['max_ms']:.3f}, n={r['n']}) peak_mem_gib="
+            f"{r['peak_gib']:.3f}; K1/K2 bf16 launches "
+            f"{r['launches']['k1_bf16']}/{r['launches']['k2_bf16']} over "
+            f"{BF16_WARMUP + BF16_TIMED} steps; f32 step_ms "
+            f"{tr['step_ms']:.3f} on {smi}")
+    bty = phase_bf16_tiny()
+    torch.cuda.empty_cache()
     cli = phase_train_cli(tr["step_ms"], smi)
     ref = phase_reference()
 
@@ -1683,6 +1989,11 @@ def main() -> int:
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
                for i in (0, 1)]
+    # the bf16 paths: the bf16 requests and both bf16 train runs
+    bf16_paths = [bs["launches"], bt["bf16"]["launches"],
+                  bt["bf16+remat+packed"]["launches"]]
+    k1_bf16 = sum(p["k1_bf16"] for p in bf16_paths)
+    k2_bf16 = sum(p["k2_bf16"] for p in bf16_paths)
 
     def row(name, source, tpu_name, launches, max_abs_err, t):
         return dict(
@@ -1712,6 +2023,13 @@ def main() -> int:
         dcnv3.GROUPED_BWD_SOURCE, GROUPED_BACKWARD, grouped[1],
         gk["errs"][GROUPED_BACKWARD],
         gk["times"][GROUPED_BACKWARD, "train"]))
+    # the bf16 forms: K1 at the serve shape, K2 at the train shape
+    kernels.append(row("dcnv3_sample[bf16]", dcnv3.SOURCE,
+                       "dcnv3_sample_pallas_t5", k1_bf16, kb["k1_err"],
+                       kb["k1", 1]))
+    kernels.append(row("dcnv3_sample_bwd[bf16]", dcnv3.BWD_SOURCE,
+                       "dcnv3_sample_pallas_t5_bwd", k2_bf16, kb["k2_err"],
+                       kb["k2", 6]))
     log("summary", f"K1 launches: serve {s['launches']}, eval "
         f"{[ev[m]['launches']['k1'] for m in EVAL_MODES]}, train "
         f"{tr['launches']['k1']}, overflow {ov['launches']['k1']}, host "
@@ -1719,7 +2037,9 @@ def main() -> int:
         f"overflow {ov['launches']['k2']}, host {host['launches']['k2']}; "
         f"train CLI K1/K2 {[(n['k1'], n['k2']) for n in cli['launches']]}; "
         f"reference CLI max|diff| {ref['err']:.3g}; auction "
-        f"{auc['ms']:.3f} ms")
+        f"{auc['ms']:.3f} ms; bf16 K1 launches {k1_bf16}, K2 {k2_bf16}; "
+        f"bf16 tiny card vs CPU gap {bty['gap']:.3g}, train rel "
+        f"{bty['train_rel']:.3g}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@
 
 Runs on the card unless ``device="cpu"`` is passed; with no card and no
 device asked for, ``init_model`` and ``init_trainer`` raise.
-``inference_model`` and ``train_steps`` compute in full float32, as
-``model.dtype`` says, whatever the caller's TF32 flags
-(``device.f32_precision``), and leave those flags as they found them.
+``inference_model`` and ``train_steps`` compute in ``model.dtype``
+(float32, or bfloat16 with the float32 parts that flax keeps), and
+what is float32 runs in full float32 whatever the caller's TF32 flags
+(``device.f32_precision``), which they leave as they found them.
 """
 from __future__ import annotations
 

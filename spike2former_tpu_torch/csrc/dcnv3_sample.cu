@@ -18,6 +18,17 @@
 // Layouts: value [N, H, W, G*Cg] channels-last; py/px/mask [N, HoWo, G, P];
 // out [N, HoWo, G*Cg].
 //
+// Element types: value and out are both f32 (dcnv3_sample_f32) or both
+// bf16 (dcnv3_sample_bf16, the bf16 model's form of the same TPU kernel,
+// which takes bf16 features and f32 coordinates and mask as the JAX package
+// hands them).  Coordinates, mask, bilinear weights and the accumulation are
+// f32 in both; the bf16 form converts the value tile to f32 while staging
+// it (dcnv3_tile.cuh) and rounds once, to bf16, at the store of out.  It
+// does not copy the TPU kernel's rounding of its selector rows to bf16.
+// Its bound halves only the feature terms: 0.72 MB in and 0.72 MB out of
+// 6.31 MB at the serve shape (1.88 us at 3.35 TB/s), 3.15 + 3.15 of
+// 27.5 MB at the train shape (8.21 us); the f32 coordinates dominate.
+//
 // Bound: memory.  Per call it must read the value map once
 // (N*H*W*G*Cg*4 bytes), 3 * N*HoWo*G*P*4 bytes of coordinates and mask, and
 // write N*HoWo*G*Cg*4 bytes: 33.8 MB at the flagship train shape (N=6,
@@ -56,6 +67,7 @@
 // bound is the shared-memory data path: a warp's random taps conflict on
 // banks.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -74,32 +86,31 @@ template <int CG>
 constexpr int kThreads = CG >= 32 ? 256 : 512;
 
 // Copy value rows [y_lo, y_hi) of groups [g0, g0 + gb) of image n into
-// shared memory, pixel-major (s[pixel*pix_stride + gl*CG + c]), with
-// cp.async: the copies fly without registers; the caller commits and
-// waits.
-template <int CG>
-__device__ __forceinline__ void stage(float* s, const float* __restrict__ value,
+// shared memory, pixel-major (s[pixel*pix_stride + gl*CG + c]), as f32:
+// with cp.async for f32 (the copies fly without registers; the caller
+// commits and waits), by converting loads for bf16.
+template <int CG, typename T>
+__device__ __forceinline__ void stage(float* s, const T* __restrict__ value,
                                       const Tile& t, int gb, int h, int w,
                                       int c_all, int pix_stride) {
   constexpr int V = CG >= 4 ? 4 : CG;
   const int per_pix = gb * CG / V;  // vectors of a pixel's staged groups
   const int items = (t.y_hi - t.y_lo) * w * per_pix;
-  const float* src = value + (static_cast<size_t>(t.n) * h + t.y_lo) * w *
-                                 c_all + t.g0 * CG;
+  const T* src = value + (static_cast<size_t>(t.n) * h + t.y_lo) * w *
+                             c_all + t.g0 * CG;
   for (int i = threadIdx.x; i < items; i += kThreads<CG>)
-    __pipeline_memcpy_async(
+    stage_vec<V>(
         s + i / per_pix * pix_stride + i % per_pix * V,
-        src + static_cast<size_t>(i / per_pix) * c_all + i % per_pix * V,
-        V * sizeof(float));
+        src + static_cast<size_t>(i / per_pix) * c_all + i % per_pix * V);
 }
 
-template <int CG>
+template <typename T, int CG>
 __global__ void __launch_bounds__(kThreads<CG>, 1)
-dcnv3_sample_kernel(const float* __restrict__ value,
+dcnv3_sample_kernel(const T* __restrict__ value,
                     const float* __restrict__ py,
                     const float* __restrict__ px,
                     const float* __restrict__ mask,
-                    float* __restrict__ out, int n_img, int howo, int groups,
+                    T* __restrict__ out, int n_img, int howo, int groups,
                     int points, int h, int w, int gb, int bands, int rows,
                     int halo) {
   constexpr int V = CG >= 4 ? 4 : CG;
@@ -143,7 +154,7 @@ dcnv3_sample_kernel(const float* __restrict__ value,
     i += b - a;
     t.n = unit / chunks;
     t.g0 = unit % chunks * gb;
-    const float* __restrict__ img =
+    const T* __restrict__ img =
         value + static_cast<size_t>(t.n) * h * w * c_all;
     // each warp takes 32 items at a time
     for (int j0 = a + warp * 32, k = 0; j0 < b || (k == 0 && unit != staged);
@@ -175,7 +186,7 @@ dcnv3_sample_kernel(const float* __restrict__ value,
       const size_t row =
           (static_cast<size_t>(t.n) * howo + j / gb) * groups + g;
       const float* s = smem + gl * CG;
-      const float* __restrict__ feat = img + g * CG;
+      const T* __restrict__ feat = img + g * CG;
       const float* mine = buf + lane * points;
 
       float acc[CG];
@@ -187,58 +198,48 @@ dcnv3_sample_kernel(const float* __restrict__ value,
                          w, mine[p], mine[32 * points + p],
                          mine[64 * points + p]);
 
-      float* __restrict__ dst = out + row * CG;
+      T* __restrict__ dst = out + row * CG;
 #pragma unroll
       for (int c = 0; c < CG; c += V) {
-        if constexpr (V == 4) {
-          *reinterpret_cast<float4*>(dst + c) =
-              make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
-        } else {
+        float v[V];
 #pragma unroll
-          for (int k = 0; k < V; ++k) dst[c + k] = acc[c + k];
-        }
+        for (int k = 0; k < V; ++k) v[k] = acc[c + k];
+        store_vec<V>(dst + c, v);  // bf16: the one rounding
       }
     }
   }
 }
 
-template <int CG>
-cudaError_t launch(const float* value, const float* py, const float* px,
-                   const float* mask, float* out, int n, int howo, int groups,
+template <typename T, int CG>
+cudaError_t launch(const T* value, const float* py, const float* px,
+                   const float* mask, T* out, int n, int howo, int groups,
                    int points, int h, int w, int gb, int bands, int rows,
                    int halo, int device, cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(tile_stride(gb, CG)) * rows * w +
                        kThreads<CG> / 32 * 3 * 32 * points) * sizeof(float);
   int sms = 0, per_sm = 0;
-  const cudaError_t err = device_facts<&dcnv3_sample_kernel<CG>>(
+  const cudaError_t err = device_facts<&dcnv3_sample_kernel<T, CG>>(
       device, &sms, bands == 0 ? &per_sm : nullptr, kThreads<CG>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(bands, groups / gb, n);
   if (bands == 0)  // one wave of resident blocks, no more than 32-item chunks
     grid = dim3(min((n * howo * groups + 31) / 32, max(1, per_sm) * sms));
-  dcnv3_sample_kernel<CG><<<grid, kThreads<CG>, smem, stream>>>(
+  dcnv3_sample_kernel<T, CG><<<grid, kThreads<CG>, smem, stream>>>(
       value, py, px, mask, out, n, howo, groups, points, h, w, gb, bands,
       rows, halo);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes.  Launches on `stream` of CUDA
-// device `device`, the current one, and does not synchronise; returns the
-// cudaError_t of the launch.  (gb, bands, rows, halo) is the tile plan of
-// ops/dcnv3.py:tile_plan.
-extern "C" int dcnv3_sample_f32(const void* value, const void* py,
-                                const void* px, const void* mask, void* out,
-                                int n, int howo, int groups, int points,
-                                int h, int w, int cg, int gb, int bands,
-                                int rows, int halo, int device,
-                                void* stream) {
-  const auto* v = static_cast<const float*>(value);
+template <typename T>
+int entry(const void* value, const void* py, const void* px, const void* mask,
+          void* out, int n, int howo, int groups, int points, int h, int w,
+          int cg, int gb, int bands, int rows, int halo, int device,
+          void* stream) {
+  const auto* v = static_cast<const T*>(value);
   const auto* y = static_cast<const float*>(py);
   const auto* x = static_cast<const float*>(px);
   const auto* m = static_cast<const float*>(mask);
-  auto* o = static_cast<float*>(out);
+  auto* o = static_cast<T*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (n * howo * groups == 0) return cudaSuccess;
   if (gb < 1 || groups % gb || bands < 0 || rows < 0 || halo < 0 ||
@@ -247,8 +248,8 @@ extern "C" int dcnv3_sample_f32(const void* value, const void* py,
   switch (cg) {
 #define DCNV3_CASE(CG)                                                      \
   case CG:                                                                  \
-    return launch<CG>(v, y, x, m, o, n, howo, groups, points, h, w, gb,     \
-                      bands, rows, halo, device, s);
+    return launch<T, CG>(v, y, x, m, o, n, howo, groups, points, h, w, gb,  \
+                         bands, rows, halo, device, s);
     DCNV3_CASE(1)
     DCNV3_CASE(2)
     DCNV3_CASE(4)
@@ -259,4 +260,31 @@ extern "C" int dcnv3_sample_f32(const void* value, const void* py,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes: value and out f32 or bf16,
+// py/px/mask f32.  Launch on `stream` of CUDA device `device`, the current
+// one, and do not synchronise; return the cudaError_t of the launch.
+// (gb, bands, rows, halo) is the tile plan of ops/dcnv3.py:tile_plan.
+extern "C" int dcnv3_sample_f32(const void* value, const void* py,
+                                const void* px, const void* mask, void* out,
+                                int n, int howo, int groups, int points,
+                                int h, int w, int cg, int gb, int bands,
+                                int rows, int halo, int device,
+                                void* stream) {
+  return entry<float>(value, py, px, mask, out, n, howo, groups, points, h,
+                      w, cg, gb, bands, rows, halo, device, stream);
+}
+
+extern "C" int dcnv3_sample_bf16(const void* value, const void* py,
+                                 const void* px, const void* mask, void* out,
+                                 int n, int howo, int groups, int points,
+                                 int h, int w, int cg, int gb, int bands,
+                                 int rows, int halo, int device,
+                                 void* stream) {
+  return entry<__nv_bfloat16>(value, py, px, mask, out, n, howo, groups,
+                              points, h, w, cg, gb, bands, rows, halo,
+                              device, stream);
 }

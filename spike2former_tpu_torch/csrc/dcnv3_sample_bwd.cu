@@ -22,6 +22,19 @@
 // Layouts as the forward: value and dvalue [N, H, W, G*Cg] channels-last;
 // py/px/mask and dpy/dpx/dmask [N, HoWo, G, P]; dout [N, HoWo, G*Cg].
 //
+// Element types: value, dout and dvalue are f32 (dcnv3_sample_bwd_f32) or
+// bf16 (dcnv3_sample_bwd_bf16); py/px/mask and their gradients are f32 in
+// both, every sum is f32.  The bf16 form reads bf16 value and dout
+// (converted to f32 while staging and loading), accumulates dvalue in an
+// f32 buffer (`dacc`, which the wrapper allocates: there are no bf16
+// atomics in the scatter, and bands overlap) and writes it to bf16 once, in
+// a second pass over the map (cast_bf16_kernel) on the same stream.  It does
+// not copy the TPU kernel's rounding of its intermediates to bf16.  Its
+// bound halves only the feature terms: 42.5 MB of coordinates and their
+// gradients and 3 x 3.15 MB of value, dout and dvalue, 51.9 MB at the train
+// shape, 15.5 us at 3.35 TB/s; the f32 buffer's write and read are traffic
+// above the bound.
+//
 // Bound: memory.  Per call it must read the value map, 3 * N*HoWo*G*P*4
 // bytes of coordinates and mask and the upstream gradient, and write dvalue
 // and 3 * N*HoWo*G*P*4 bytes of coordinate and mask gradients: 61.3 MB at
@@ -66,8 +79,11 @@
 // one group 0.186 and 0.200.  The atomics sum dvalue in an order that
 // varies from run to run (f32 rounding only).
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "dcnv3_tile.cuh"
 
@@ -81,12 +97,12 @@ using namespace dcnv3;
 template <int CG>
 constexpr int kThreads = CG >= 32 ? 128 : 256;
 
-template <int CG>
-__device__ __forceinline__ void sample_bwd(const float* __restrict__ value,
+template <typename T, int CG>
+__device__ __forceinline__ void sample_bwd(const T* __restrict__ value,
                         const float* __restrict__ py,
                         const float* __restrict__ px,
                         const float* __restrict__ mask,
-                        const float* __restrict__ dout,
+                        const T* __restrict__ dout,
                         float* __restrict__ dvalue,
                         float* __restrict__ dpy,
                         float* __restrict__ dpx,
@@ -122,10 +138,8 @@ __device__ __forceinline__ void sample_bwd(const float* __restrict__ value,
   for (int i = threadIdx.x; i < staged; i += kThreads<CG>) {
     const int pix = i / per_pix;
     const int c0 = i % per_pix * V;  // gl*CG + channel
-    __pipeline_memcpy_async(s_val + pix * pix_stride + c0,
-                            value + tile_off +
-                                static_cast<size_t>(pix) * c_all + c0,
-                            V * sizeof(float));
+    stage_vec<V>(s_val + pix * pix_stride + c0,
+                 value + tile_off + static_cast<size_t>(pix) * c_all + c0);
     const int gl = c0 / CG, c = c0 % CG;
     if (c < shared) {
 #pragma unroll
@@ -163,7 +177,7 @@ __device__ __forceinline__ void sample_bwd(const float* __restrict__ value,
           (static_cast<size_t>(t.n) * howo + t.o_lo + j / gb) * groups + g;
       const float* s = s_val + gl * CG;
       float* acc = s_acc + gl * shared * plane;
-      const float* __restrict__ feat = value + img + g * CG;
+      const T* __restrict__ feat = value + img + g * CG;
       float* __restrict__ dfeat = dvalue + img + g * CG;
       float* mine = buf + lane * points;
 
@@ -231,41 +245,58 @@ __device__ __forceinline__ void sample_bwd(const float* __restrict__ value,
 // there and not when asked for two blocks an SM, and Cg = 32 keeps d, a
 // tap and its adds (about 130 floats) live and may use 255 registers a
 // thread (one block an SM).
-template <int CG>
+template <typename T, int CG>
 __global__ void __launch_bounds__(kThreads<CG>)
-dcnv3_sample_bwd_kernel(const float* __restrict__ value,
+dcnv3_sample_bwd_kernel(const T* __restrict__ value,
                         const float* __restrict__ py,
                         const float* __restrict__ px,
                         const float* __restrict__ mask,
-                        const float* __restrict__ dout,
+                        const T* __restrict__ dout,
                         float* __restrict__ dvalue, float* __restrict__ dpy,
                         float* __restrict__ dpx, float* __restrict__ dmask,
                         int howo, int groups, int points, int h, int w,
                         int gb, int bands, int rows, int halo) {
-  sample_bwd<CG>(value, py, px, mask, dout, dvalue, dpy, dpx, dmask, howo,
-                 groups, points, h, w, gb, bands, rows, halo);
+  sample_bwd<T, CG>(value, py, px, mask, dout, dvalue, dpy, dpx, dmask,
+                    howo, groups, points, h, w, gb, bands, rows, halo);
 }
 
-template <int CG, int MIN_BLOCKS>
+template <typename T, int CG, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kThreads<CG>, MIN_BLOCKS)
-dcnv3_sample_bwd_kernel_bounded(const float* __restrict__ value,
+dcnv3_sample_bwd_kernel_bounded(const T* __restrict__ value,
                                 const float* __restrict__ py,
                                 const float* __restrict__ px,
                                 const float* __restrict__ mask,
-                                const float* __restrict__ dout,
+                                const T* __restrict__ dout,
                                 float* __restrict__ dvalue,
                                 float* __restrict__ dpy,
                                 float* __restrict__ dpx,
                                 float* __restrict__ dmask, int howo,
                                 int groups, int points, int h, int w, int gb,
                                 int bands, int rows, int halo) {
-  sample_bwd<CG>(value, py, px, mask, dout, dvalue, dpy, dpx, dmask, howo,
-                 groups, points, h, w, gb, bands, rows, halo);
+  sample_bwd<T, CG>(value, py, px, mask, dout, dvalue, dpy, dpx, dmask,
+                    howo, groups, points, h, w, gb, bands, rows, halo);
 }
 
-template <int CG>
-cudaError_t launch(const float* value, const float* py, const float* px,
-                   const float* mask, const float* dout, float* dvalue,
+// dst[i] = src[i] rounded to bf16 for i < n: the bf16 form's one rounding
+// of dvalue, four elements a thread a step (src 16-byte aligned).
+__global__ void cast_bf16_kernel(const float* __restrict__ src,
+                                 __nv_bfloat16* __restrict__ dst, size_t n) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  const size_t n4 = n / 4;
+  for (size_t i = first; i < n4; i += stride) {
+    float v[4];
+    load_vec<4>(v, src + 4 * i);
+    store_vec<4>(dst + 4 * i, v);
+  }
+  for (size_t i = 4 * n4 + first; i < n; i += stride)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+template <typename T, int CG>
+cudaError_t launch(const T* value, const float* py, const float* px,
+                   const float* mask, const T* dout, float* dvalue,
                    float* dpy, float* dpx, float* dmask, int n, int howo,
                    int groups, int points, int h, int w, int gb, int bands,
                    int rows, int halo, int device, cudaStream_t stream) {
@@ -274,11 +305,11 @@ cudaError_t launch(const float* value, const float* py, const float* px,
        kThreads<CG> / 32 * 3 * 32 * points) * sizeof(float);
   constexpr auto* kernel = [] {
     if constexpr (CG >= 32)
-      return &dcnv3_sample_bwd_kernel_bounded<CG, 1>;
+      return &dcnv3_sample_bwd_kernel_bounded<T, CG, 1>;
     else if constexpr (CG == 1)
-      return &dcnv3_sample_bwd_kernel_bounded<CG, 2>;
+      return &dcnv3_sample_bwd_kernel_bounded<T, CG, 2>;
     else
-      return &dcnv3_sample_bwd_kernel<CG>;
+      return &dcnv3_sample_bwd_kernel<T, CG>;
   }();
   int sms = 0;
   const cudaError_t err = device_facts<kernel>(device, &sms);
@@ -290,39 +321,27 @@ cudaError_t launch(const float* value, const float* py, const float* px,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes.  Launches on `stream` of CUDA
-// device `device`, the current one, and does not synchronise; returns the
-// cudaError_t of the launch.  (gb, bands, rows, halo) is the tile plan of
-// ops/dcnv3.py:tile_plan.  `dvalue` must hold zeros unless the plan is one
-// band of every row (the whole map).
-extern "C" int dcnv3_sample_bwd_f32(const void* value, const void* py,
-                                    const void* px, const void* mask,
-                                    const void* dout, void* dvalue,
-                                    void* dpy, void* dpx, void* dmask, int n,
-                                    int howo, int groups, int points, int h,
-                                    int w, int cg, int gb, int bands,
-                                    int rows, int halo, int device,
-                                    void* stream) {
-  const auto* v = static_cast<const float*>(value);
+template <typename T>
+cudaError_t entry(const void* value, const void* py, const void* px,
+                  const void* mask, const void* dout, float* dv, void* dpy,
+                  void* dpx, void* dmask, int n, int howo, int groups,
+                  int points, int h, int w, int cg, int gb, int bands,
+                  int rows, int halo, int device, cudaStream_t s) {
+  const auto* v = static_cast<const T*>(value);
   const auto* y = static_cast<const float*>(py);
   const auto* x = static_cast<const float*>(px);
   const auto* m = static_cast<const float*>(mask);
-  const auto* d = static_cast<const float*>(dout);
-  auto* dv = static_cast<float*>(dvalue);
+  const auto* d = static_cast<const T*>(dout);
   auto* dy = static_cast<float*>(dpy);
   auto* dx = static_cast<float*>(dpx);
   auto* dm = static_cast<float*>(dmask);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (n * howo * groups == 0) return cudaSuccess;
   if (gb < 1 || groups % gb || bands < 1 || rows < 0 || halo < 0)
     return cudaErrorInvalidValue;
   switch (cg) {
 #define DCNV3_BWD_CASE(CG)                                                  \
   case CG:                                                                  \
-    return launch<CG>(v, y, x, m, d, dv, dy, dx, dm, n, howo, groups,       \
-                      points, h, w, gb, bands, rows, halo, device, s);
+    return launch<T, CG>(v, y, x, m, d, dv, dy, dx, dm, n, howo, groups,    \
+                         points, h, w, gb, bands, rows, halo, device, s);
     DCNV3_BWD_CASE(1)
     DCNV3_BWD_CASE(2)
     DCNV3_BWD_CASE(4)
@@ -333,4 +352,57 @@ extern "C" int dcnv3_sample_bwd_f32(const void* value, const void* py,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  Launch on `stream` of CUDA
+// device `device`, the current one, and do not synchronise; return the
+// cudaError_t of the launch.  (gb, bands, rows, halo) is the tile plan of
+// ops/dcnv3.py:tile_plan.  The f32 form adds into `dvalue`, which must hold
+// zeros unless the plan is one band of every row (the whole map).
+extern "C" int dcnv3_sample_bwd_f32(const void* value, const void* py,
+                                    const void* px, const void* mask,
+                                    const void* dout, void* dvalue,
+                                    void* dpy, void* dpx, void* dmask, int n,
+                                    int howo, int groups, int points, int h,
+                                    int w, int cg, int gb, int bands,
+                                    int rows, int halo, int device,
+                                    void* stream) {
+  if (n * howo * groups == 0) return cudaSuccess;
+  return entry<float>(value, py, px, mask, dout, static_cast<float*>(dvalue),
+                      dpy, dpx, dmask, n, howo, groups, points, h, w, cg, gb,
+                      bands, rows, halo, device,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: value, dout and dvalue bf16; `dacc` an f32 [N, H, W, G*Cg]
+// buffer that the kernel accumulates into, under the same zero-fill rule as
+// the f32 form's dvalue, and that a second launch rounds into dvalue.
+extern "C" int dcnv3_sample_bwd_bf16(const void* value, const void* py,
+                                     const void* px, const void* mask,
+                                     const void* dout, void* dacc,
+                                     void* dvalue, void* dpy, void* dpx,
+                                     void* dmask, int n, int howo,
+                                     int groups, int points, int h, int w,
+                                     int cg, int gb, int bands, int rows,
+                                     int halo, int device, void* stream) {
+  if (n * howo * groups == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* acc = static_cast<float*>(dacc);
+  cudaError_t err = entry<__nv_bfloat16>(
+      value, py, px, mask, dout, acc, dpy, dpx, dmask, n, howo, groups,
+      points, h, w, cg, gb, bands, rows, halo, device, s);
+  if (err != cudaSuccess) return err;
+  const size_t elems = static_cast<size_t>(n) * h * w * groups * cg;
+  int sms = 0;
+  err = device_facts<&cast_bf16_kernel>(device, &sms);
+  if (err != cudaSuccess) return err;
+  const size_t blocks = (elems / 4 + 255) / 256;
+  cast_bf16_kernel<<<static_cast<unsigned>(
+                         std::max<size_t>(1, std::min<size_t>(
+                                                 blocks, 8 * sms))),
+                     256, 0, s>>>(acc, static_cast<__nv_bfloat16*>(dvalue),
+                                  elems);
+  return cudaGetLastError();
 }

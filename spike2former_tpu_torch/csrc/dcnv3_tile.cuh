@@ -7,11 +7,22 @@
 // one point's bilinear sample and its backward against a staged tile, the
 // walk that copies a warp's coordinates, and what a launch needs to know of
 // the device, kept per device.
+//
+// The feature element type T is float or __nv_bfloat16 (K1 and K2 take
+// both; the grouped pair float only).  A staged tile is f32 whatever T: a
+// bf16 feature is converted to f32 while it is staged (stage_vec), so the
+// shared-memory layout, its bank arithmetic and the host's plan sizes
+// (4 bytes a staged channel) are the same for both types, and a tap read
+// from shared memory costs no conversion.  Taps of rows outside the staged
+// tile read T from device memory and convert.  Coordinates, mask, bilinear
+// weights and every sum are f32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <mutex>
 
 namespace dcnv3 {
@@ -62,6 +73,28 @@ __device__ __forceinline__ void load_vec(float (&v)[V], const float* src) {
   }
 }
 
+// v[0:V] = src[0:V] converted to f32, one vector load of 2*V bytes (8
+// bytes at V = 4, aligned for any Cg since a vector starts at a multiple of
+// V elements).
+template <int V>
+__device__ __forceinline__ void load_vec(float (&v)[V],
+                                         const __nv_bfloat16* src) {
+  if constexpr (V == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else if constexpr (V == 2) {
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = __bfloat162float(*src);
+  }
+}
+
 // dst[0:V] += v, one vector atomic (sm_90: red.global.add.v4.f32 / .v2).
 template <int V>
 __device__ __forceinline__ void add_vec(float* dst, const float (&v)[V]) {
@@ -86,6 +119,41 @@ __device__ __forceinline__ void store_vec(float* dst, const float (&v)[V]) {
   }
 }
 
+// dst[0:V] = v rounded to bf16 (round to nearest even), one store of 2*V
+// bytes.
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst,
+                                          const float (&v)[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&a);
+    u.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(dst) = u;
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    *dst = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// Stage src[0:V] into shared memory at dst as f32: an f32 vector by
+// cp.async (the caller commits and waits), a bf16 one by a load, the
+// conversion and a shared store (cp.async cannot convert).
+template <int V>
+__device__ __forceinline__ void stage_vec(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, V * sizeof(float));
+}
+
+template <int V>
+__device__ __forceinline__ void stage_vec(float* dst,
+                                          const __nv_bfloat16* src) {
+  float v[V];
+  load_vec<V>(v, src);
+  store_vec<V>(dst, v);
+}
+
 // Floats between neighbouring pixels of a forward kernel's staged tile of
 // `groups` groups of `cg` channels, padded to an odd number of 16-byte
 // quads so that 8 lanes reading 16 bytes of 8 neighbouring pixels hit 8
@@ -99,14 +167,15 @@ __host__ __device__ __forceinline__ int tile_stride(int groups, int cg) {
 // four floor-based taps (y0 = floor(y), y0 + 1; likewise x), zero outside
 // [0, h) x [0, w), NaN coordinates dropped.  Map rows [y_lo, y_hi) are
 // staged at `s` (row y_lo first, `stride` floats a pixel); a tap of
-// another row reads `feat` in device memory (`gstride` floats a pixel).
+// another row reads `feat` in device memory (`gstride` elements a pixel,
+// float or bf16).
 // A tap off the map reads its clamped neighbour with weight 0.  The
 // additions go tap by tap in one order in every kernel, so the forwards
 // agree.
-template <int CG>
+template <int CG, typename T>
 __device__ __forceinline__ void sample_point(
     float (&acc)[CG], const float* s, int stride, int y_lo, int y_hi,
-    const float* __restrict__ feat, int gstride, int h, int w, float y,
+    const T* __restrict__ feat, int gstride, int h, int w, float y,
     float x, float m) {
   constexpr int V = CG >= 4 ? 4 : CG;
   const float y0f = floorf(y);
@@ -159,13 +228,15 @@ __device__ __forceinline__ void sample_point(
       const float wt = dy ? (dx ? w11 : w10) : (dx ? w01 : w00);
       if (wt == 0.f) continue;
       const int xx = dx ? xb : xa;
-      const float* src =
-          in_tile ? s + ((yy - y_lo) * w + xx) * stride
-                  : feat + (static_cast<size_t>(yy) * w + xx) * gstride;
+      const float* src = s + ((yy - y_lo) * w + xx) * stride;
+      const T* gsrc = feat + (static_cast<size_t>(yy) * w + xx) * gstride;
 #pragma unroll
       for (int c = 0; c < CG; c += V) {
         float v[V];
-        load_vec<V>(v, src + c);
+        if (in_tile)
+          load_vec<V>(v, src + c);
+        else
+          load_vec<V>(v, gsrc + c);
 #pragma unroll
         for (int k = 0; k < V; ++k) acc[c + k] += wt * v[k];
       }
@@ -206,9 +277,10 @@ __device__ __forceinline__ void scatter(float* acc, int i, int plane,
   }
 }
 
-// <F, d> for the CG channels at `src` (shared or device memory).
-template <int CG>
-__device__ __forceinline__ float dot(const float* src, const float (&d)[CG]) {
+// <F, d> for the CG channels at `src` (shared or device memory; f32 or
+// bf16 F, f32 sum).
+template <int CG, typename T>
+__device__ __forceinline__ float dot(const T* src, const float (&d)[CG]) {
   constexpr int V = CG >= 4 ? 4 : CG;
   float sum = 0.f;
 #pragma unroll
@@ -229,12 +301,13 @@ __device__ __forceinline__ float dot(const float* src, const float (&d)[CG]) {
 // gy and gx by m), dwy/dy = -1 on row y0 and +1 on row y0 + 1, likewise x:
 // floor-based also at exact integer coordinates.  Taps off the map give 0
 // to every term, NaN coordinates are dropped.  The staged tile and the
-// device-memory map as in sample_point; `acc` holds the staged pixels'
-// shared channels in planes of `plane` floats.
-template <int CG>
+// device-memory map as in sample_point (`feat` f32 or bf16; `dfeat`, the
+// gradient's device-memory accumulator, is f32 in both cases); `acc`
+// holds the staged pixels' shared channels in planes of `plane` floats.
+template <int CG, typename T>
 __device__ __forceinline__ void sample_point_bwd(
     float& gy, float& gx, float& gm, const float* s, int stride, float* acc,
-    int plane, int y_lo, int y_hi, const float* __restrict__ feat,
+    int plane, int y_lo, int y_hi, const T* __restrict__ feat,
     float* __restrict__ dfeat, int gstride, int h, int w,
     const float (&d)[CG], float y, float x, float m) {
   constexpr int V = CG >= 4 ? 4 : CG;

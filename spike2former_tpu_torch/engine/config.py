@@ -2,15 +2,27 @@
 ``spike2former_tpu/engine/config.py``, without JAX).
 
 Only the fields that inference, evaluation, the semantic train step and the
-train CLI of the f32 SDTv2 MaskFormer read are kept, so an override of
+train CLI of the SDTv2 MaskFormer read are kept, so an override of
 anything else (``model.variant``, ``model.kind``, ``train.loss_points``,
 ...) is rejected as an unknown key; the other presets wait for later
 slices of the port.
+
+``model.dtype`` ('float32' or 'bfloat16') is the compute dtype of the
+convolutions and dense layers, as flax's ``dtype=``; parameters, BN
+statistics and the optimizer stay float32.  ``model.remat`` recomputes
+each backbone block and DCN encoder layer in the backward, and
+``train.packed_residuals`` saves the spike codes at Spike->Conv sites as
+packed 4-bit ``uint8`` (``ops/spike_op.py``): neither changes a number.
+``train.unroll_loss`` is accepted and changes nothing: in the JAX package
+it unrolls the loss's layer scans for the TPU compiler, and the port's
+loss is a Python loop already.
 """
 from __future__ import annotations
 
 import ast
 from dataclasses import dataclass, field
+
+import torch
 
 from ..models.segmentor import Spike2Former
 
@@ -32,7 +44,9 @@ class ModelConfig:
     norm_eval: bool = True            # freeze backbone BN in training
     collapse_t: bool = True           # skip provably-identical time steps
     eval_last_only: bool = True
+    remat: bool = False               # recompute blocks in the backward
     lazy_masks: bool = True           # factored train-time mask logits
+    dtype: str = "float32"            # compute dtype: float32 | bfloat16
 
 
 @dataclass
@@ -73,6 +87,12 @@ class TrainConfig:
     matcher: str = "auction"          # 'auction' (on-device) | 'host' (scipy)
     loss_at: str = "gt"               # 'gt' (the reference) | 'pred'
     accum_steps: int = 1
+    # a TPU compile knob of the JAX package (criterion.py's layer scans);
+    # the port's loss loops in Python: accepted, no effect
+    unroll_loss: bool = False
+    # save Spike->Conv activations for the backward as packed 4-bit codes
+    # (ops/spike_op.py): bit-identical gradients, less activation memory
+    packed_residuals: bool = False
     layer_decay_rate: float = 0.0     # >0: layer-wise lr decay (optim.py)
     seed: int = 0
 
@@ -95,8 +115,21 @@ class Config:
     work_dir: str = "work_dirs"
 
 
-def build_model(cfg: ModelConfig) -> Spike2Former:
-    """The f32 SDTv2 MaskFormer for ``cfg`` (the only kind ported yet)."""
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"model.dtype must be one of {tuple(DTYPES)}, "
+                         f"got {name!r}")
+    return DTYPES[name]
+
+
+def build_model(cfg: ModelConfig, packed_residuals: bool = False
+                ) -> Spike2Former:
+    """The SDTv2 MaskFormer for ``cfg`` (the only kind ported yet), in
+    ``cfg.dtype``; ``packed_residuals`` (``train.packed_residuals``) saves
+    packed spike codes at its Spike->Conv sites."""
     return Spike2Former(
         num_classes=cfg.num_classes, embed_dim=tuple(cfg.embed_dim),
         backbone_heads=cfg.backbone_heads, T=cfg.T,
@@ -106,7 +139,9 @@ def build_model(cfg: ModelConfig) -> Spike2Former:
         depths_stage3=cfg.depths_stage3, depths_stage4=cfg.depths_stage4,
         dcn_group=cfg.dcn_group, compat=cfg.compat,
         norm_eval=cfg.norm_eval, collapse_t=cfg.collapse_t,
-        eval_last_only=cfg.eval_last_only, lazy_masks=cfg.lazy_masks)
+        eval_last_only=cfg.eval_last_only, lazy_masks=cfg.lazy_masks,
+        remat=cfg.remat, dtype=compute_dtype(cfg.dtype),
+        packed_residuals=packed_residuals)
 
 
 def apply_overrides(cfg: Config, options: list[str]) -> Config:

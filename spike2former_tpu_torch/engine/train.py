@@ -144,7 +144,9 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
                  state_dict: dict[str, torch.Tensor] | None = None
                  ) -> Trainer:
     """Build a model and its train step from a preset (or Config) on
-    ``device`` (the card unless ``device="cpu"``).  Weights come from
+    ``device`` (the card unless ``device="cpu"``), in ``model.dtype``, with
+    ``model.remat`` and ``train.packed_residuals`` as the config says (the
+    parameters, gradients and AdamW moments stay float32).  Weights come from
     ``state_dict``, loaded strictly, or are drawn from ``seed``
     (``engine/weights.py``), which defaults to ``cfg.train.seed``.  The
     optimizer runs at ``scaled_base_lr(cfg)``."""
@@ -155,7 +157,7 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
                               matcher=t.matcher, loss_at=t.loss_at,
                               accum_steps=t.accum_steps,
                               compact_gt=t.compact_gt)
-    model = build_model(cfg.model)
+    model = build_model(cfg.model, packed_residuals=t.packed_residuals)
     if state_dict is None:
         randomize_(model, t.seed if seed is None else seed)
     else:

@@ -14,6 +14,12 @@ layer's ``[B, G, H, W]`` buffers are alive at a time.
 ``compact_gt`` truncates the GT axis for the auction matcher only, as in
 the JAX package; under the host matcher the GT axis stays at the full
 ``max_gt`` width.
+
+The losses take float32 logits: a bf16 model's mask logits are float32
+sums of its bf16 mask features (``LazyMasks``), and its class scores are
+float32.  The matching costs of such a model see its mask logits rounded
+to bf16, and run their elementwise terms in bf16, as the JAX package's do
+(criterion.py:635-639, matcher.py:56-60).
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ class LazyMasks(NamedTuple):
     """Deep-supervision mask predictions in factored form: the dense
     per-layer logits are ``einsum('tbqc,tbhwc->bqhw', embeds[l], feats) /
     T``; the loss contracts one layer, and only its matched slots, at a
-    time."""
+    time.  The logits are float32 sums of the operands' values
+    (``preferred_element_type=float32``), whatever their dtype."""
 
     embeds: torch.Tensor  # [L, T, B, nq, C] post-SDME mask embeddings
     feats: torch.Tensor   # [T, B, h, w, C] mask features
@@ -42,14 +49,14 @@ class LazyMasks(NamedTuple):
 
     def layer(self, embeds_l: torch.Tensor) -> torch.Tensor:
         """Dense [B, nq, h, w] logits of one layer's embeddings."""
-        return torch.einsum("tbqc,tbhwc->bqhw", embeds_l,
-                            self.feats) / self.feats.shape[0]
+        return torch.einsum("tbqc,tbhwc->bqhw", embeds_l.float(),
+                            self.feats.float()) / self.feats.shape[0]
 
     def layer_flat(self, embeds_l: torch.Tensor) -> torch.Tensor:
         """[B, nq, h*w] logits of one layer, flat pixel axis."""
         t, b, h, w, c = self.feats.shape
-        return torch.einsum("tbqc,tbpc->bqp", embeds_l,
-                            self.feats.reshape(t, b, h * w, c)) / t
+        return torch.einsum("tbqc,tbpc->bqp", embeds_l.float(),
+                            self.feats.reshape(t, b, h * w, c).float()) / t
 
     def layer_slots(self, embeds_l: torch.Tensor, q_idx: torch.Tensor
                     ) -> torch.Tensor:
@@ -64,7 +71,7 @@ def slot_logits(embeds_l: torch.Tensor, feats: torch.Tensor,
     t, b, _, c = embeds_l.shape
     idx = q_idx[None, :, :, None].expand(t, b, q_idx.shape[1], c)
     emb = embeds_l.gather(2, idx)  # [T, B, G, C]
-    return torch.einsum("tbgc,tbhwc->bghw", emb, feats) / t
+    return torch.einsum("tbgc,tbhwc->bghw", emb.float(), feats.float()) / t
 
 
 class GroundTruth(NamedTuple):
@@ -206,7 +213,9 @@ def match_all_layers(all_cls_scores: torch.Tensor, all_mask_preds,
     costs = []
     for li in range(num_layers):
         if lazy:
-            mask_l = all_mask_preds.layer_flat(all_mask_preds.embeds[li])
+            # a bf16 model's costs take bf16 logits (JAX criterion.py:638)
+            mask_l = all_mask_preds.layer_flat(
+                all_mask_preds.embeds[li]).to(all_mask_preds.feats.dtype)
         else:
             mask_l = all_mask_preds[li].reshape(b, all_mask_preds.shape[2],
                                                 -1)

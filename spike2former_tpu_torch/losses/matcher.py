@@ -34,8 +34,10 @@ def mask_cost_terms(mask_pred: torch.Tensor, alpha: float = 0.25,
                     gamma: float = 2.0, eps: float = 1e-12):
     """(p, pos, neg) per-pixel cost terms of [..., nq, P] logits from one
     ``exp(-|x|)`` and one ``log1p``; the log terms saturate at ``log(eps)``
-    as the reference's ``log(p + eps)`` does."""
-    x = mask_pred.float()
+    as the reference's ``log(p + eps)`` does.  They run in the logits'
+    dtype when it is float32 or bfloat16 (JAX matcher.py:56-60)."""
+    x = (mask_pred if mask_pred.dtype in (torch.float32, torch.bfloat16)
+         else mask_pred.float())
     e = torch.exp(-x.abs())
     l1p = torch.log1p(e)
     p = torch.where(x >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
@@ -56,14 +58,18 @@ def match_costs(cls_logits: torch.Tensor, mask_pred: torch.Tensor,
     """Weighted cost matrices [..., nq, G]: cls_logits [..., nq, K+1];
     mask_pred [..., nq, P] logits over a flat pixel axis; gt_labels and
     gt_valid [..., G]; gt_masks [..., G, P] {0, 1}.  Invalid GT columns
-    are set to ``BIG_COST``."""
+    are set to ``BIG_COST``.  The contractions take their operands in the
+    logits' dtype and sum in f32 (JAX matcher.py:123-135)."""
     p, pos, neg = mask_cost_terms(mask_pred)
-    g = gt_masks.float()
+    ct = p.dtype
+    g = gt_masks.to(ct).float()
     gt_ = g.transpose(-1, -2)
     n = p.shape[-1]
-    focal = (pos @ gt_ + neg @ (1.0 - g).transpose(-1, -2)) / n
-    num = 2 * (p @ gt_)
-    den = p.sum(-1)[..., :, None] + g.sum(-1)[..., None, :]
+    focal = (pos.float() @ gt_
+             + neg.float() @ (1.0 - g).to(ct).float().transpose(-1, -2)) / n
+    num = 2 * (p.float() @ gt_)
+    den = (p.float().sum(-1)[..., :, None]
+           + g.sum(-1)[..., None, :])
     dice = 1.0 - (num + 1.0) / (den + 1.0)
     cost = (cls_weight * classification_cost(cls_logits, gt_labels)
             + focal_weight * focal + dice_weight * dice)

@@ -5,23 +5,23 @@
 Attention is softmax-free: raw ``q k^T / sqrt(embed_dims)`` scores multiply
 the values, and masked scores are zeroed.  Tokens are ``[T, B, N, C]``.  The
 flax ``nn.Conv`` with kernel ``(1,)`` over channels-last tokens is a
-``nn.Linear`` here.
+``Linear`` here, computing in the module's ``dtype``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .layers import BatchNorm, Spike, fold_t, unfold_t
+from .layers import BatchNorm, Linear, Spike, fold_t, unfold_t
 
 
 class TokenConvBN(nn.Module):
     """spike -> pointwise projection -> BN over tokens [T, B, N, C]."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, dtype=torch.float32):
         super().__init__()
         self.spike = Spike()
-        self.Conv_0 = nn.Linear(cin, features)
+        self.Conv_0 = Linear(cin, features, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x):
@@ -46,34 +46,41 @@ class SpikeMHA(nn.Module):
     ``factored``: with no mask the output is linear in the scores, so
     ``(q k^T) v == q (k^T v)``; used only when no mask is given and there
     are at least ``factored_min_kv`` keys (transformer_decoder.py:45-50).
+
+    The contractions take the spikes in their dtype with f32 sums, scaled
+    in f32 and rounded to the spikes' dtype before the next product, as
+    JAX's (attention.py:129-144): they run on f32 copies of bf16 spikes.
     """
 
     def __init__(self, embed_dims: int, num_heads: int = 8,
-                 factored: bool = False, factored_min_kv: int = 1024):
+                 factored: bool = False, factored_min_kv: int = 1024,
+                 dtype=torch.float32):
         super().__init__()
         self.embed_dims, self.num_heads = embed_dims, num_heads
         self.factored, self.factored_min_kv = factored, factored_min_kv
         self.spike = Spike()
-        self.q = TokenConvBN(embed_dims, embed_dims)
-        self.k = TokenConvBN(embed_dims, embed_dims)
-        self.v = TokenConvBN(embed_dims, embed_dims)
-        self.Conv_0 = nn.Linear(embed_dims, embed_dims)
+        self.q = TokenConvBN(embed_dims, embed_dims, dtype)
+        self.k = TokenConvBN(embed_dims, embed_dims, dtype)
+        self.v = TokenConvBN(embed_dims, embed_dims, dtype)
+        self.Conv_0 = Linear(embed_dims, embed_dims, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(embed_dims)
 
     def forward(self, query, key, value, attn_mask=None):
         q = self.spike(self.q(query))
         k = self.spike(self.k(key))
         v = self.spike(self.v(value))
-        qh, kh, vh = (_split_heads(y, self.num_heads) for y in (q, k, v))
+        dt = q.dtype
+        qh, kh, vh = (_split_heads(y, self.num_heads).float()
+                      for y in (q, k, v))
         if (self.factored and attn_mask is None
                 and key.shape[-2] >= self.factored_min_kv):
             kv = (kh.transpose(-1, -2) @ vh) / (self.embed_dims ** 0.5)
-            out = qh @ kv
+            out = (qh @ kv.to(dt).float()).to(dt)
         else:
             scores = (qh @ kh.transpose(-1, -2)) / (self.embed_dims ** 0.5)
             if attn_mask is not None:
                 scores = scores.masked_fill(attn_mask, 0.0)
-            out = scores @ vh
+            out = (scores.to(dt).float() @ vh).to(dt)
         out = self.spike(_merge_heads(out))
         return self.BatchNorm_0(self.Conv_0(out))
 
@@ -89,13 +96,16 @@ class MSDAFFN(nn.Module):
     """
 
     def __init__(self, embed_dims: int = 256,
-                 feedforward_channels: int = 2048, compat: bool = False):
+                 feedforward_channels: int = 2048, compat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.compat = compat
         self.spike = Spike()
-        self.Conv_0 = nn.Linear(embed_dims, feedforward_channels)
+        self.Conv_0 = Linear(embed_dims, feedforward_channels, dtype=dtype,
+                             spike_input=True)
         self.BatchNorm_0 = BatchNorm(feedforward_channels)
-        self.Conv_1 = nn.Linear(feedforward_channels, embed_dims)
+        self.Conv_1 = Linear(feedforward_channels, embed_dims, dtype=dtype,
+                             spike_input=True)
         self.BatchNorm_1 = BatchNorm(embed_dims)
 
     def forward(self, x):
@@ -120,13 +130,14 @@ class SpikeMLP3(nn.Module):
     """fc->(spike*a)->fc->(spike*a)->fc mask-embedding MLP
     (SNN_core.py:95-123, quant_const=4)."""
 
-    def __init__(self, dim: int, out_dim: int, quant_const: float = 4.0):
+    def __init__(self, dim: int, out_dim: int, quant_const: float = 4.0,
+                 dtype=torch.float32):
         super().__init__()
         self.quant_const = quant_const
         self.spike = Spike()
-        self.Dense_0 = nn.Linear(dim, dim, bias=False)
-        self.Dense_1 = nn.Linear(dim, dim, bias=False)
-        self.Dense_2 = nn.Linear(dim, out_dim)
+        self.Dense_0 = Linear(dim, dim, bias=False, dtype=dtype)
+        self.Dense_1 = Linear(dim, dim, bias=False, dtype=dtype)
+        self.Dense_2 = Linear(dim, out_dim, dtype=dtype)
 
     def forward(self, x):
         x = self.spike(self.Dense_0(x)) * self.quant_const

@@ -2,7 +2,9 @@
 
 SepConv_Spike input/output projections, conv1x1+BN offset and mask heads,
 and a Q-IF spike on the sampling mask in place of softmax
-(modules/dcnv3.py:213-215).  Layout [T, B, H, W, C].
+(modules/dcnv3.py:213-215).  Layout [T, B, H, W, C].  The sampler takes
+the value map in the compute dtype and the offsets and mask in float32
+(``ops/dcnv3.py:dcnv3_core``).
 """
 from __future__ import annotations
 
@@ -19,21 +21,24 @@ class DCNv3(nn.Module):
     flagship's, and the JAX module's defaults)."""
 
     def __init__(self, channels: int = 256, group: int = 32,
-                 dw_kernel_size: int = 5, compat: bool = False):
+                 dw_kernel_size: int = 5, compat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.channels, self.group, self.compat = channels, group, compat
         p = 9  # 3x3 sampling points
         dw_pad = (dw_kernel_size - 1) // 2
         sep_kw = dict(kernel_size=dw_kernel_size, padding=dw_pad,
-                      dw_bn=True, num_spikes=3)
+                      dw_bn=True, num_spikes=3, dtype=dtype)
+        spiked = dict(dtype=dtype, spike_input=True)
         self.spike = Spike()
         self.input_proj = SepConv(channels, **sep_kw)
         self.dw_conv = conv2d(channels, channels, dw_kernel_size, pad=dw_pad,
-                              groups=channels)
+                              groups=channels, **spiked)
         self.dw_bn = BatchNorm(channels)
-        self.offset_conv = conv2d(channels, group * p * 2, 1, bias=True)
+        self.offset_conv = conv2d(channels, group * p * 2, 1, bias=True,
+                                  **spiked)
         self.offset_bn = BatchNorm(group * p * 2)
-        self.mask_conv = conv2d(channels, group * p, 1, bias=True)
+        self.mask_conv = conv2d(channels, group * p, 1, bias=True, **spiked)
         self.mask_bn = BatchNorm(group * p)
         self.output_proj = SepConv(channels, **sep_kw)
 

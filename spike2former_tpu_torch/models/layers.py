@@ -12,13 +12,41 @@ flag (``model.train()``) with flax's arithmetic: batch statistics over all
 leading axes with the biased variance, and running statistics updated as
 ``ra = 0.9 * ra + 0.1 * batch`` (the biased variance is stored, unlike
 ``torch.nn.BatchNorm2d``).
+
+Mixed precision is flax's: parameters stay float32; each convolution and
+dense layer casts its input, weight and bias to its compute ``dtype``
+(float32 or bfloat16, flax's ``dtype=``) and returns that dtype, adding
+the bias after the product in that dtype as flax does (in float32 the
+product takes the bias, as the float32 port always has);
+BatchNorm computes its statistics and normalisation in float32 and
+returns the dtype of its input.  Everything else follows PyTorch's type
+promotion, which is JAX's for these operands (a bf16 activation plus an
+f32 parameter is f32).
+
+A convolution or dense layer whose input is a spike output is built with
+``spike_input=True``; ``set_packed_residuals`` switches those sites to
+``ops/spike_op.py``, which saves the spike codes packed to 4 bits instead
+of the activation for the backward (bit-identical gradients), as the JAX
+package's ``_packed_cgd`` sites do.
+
+``remat`` (``checkpoint``) recomputes a block in the backward.  The
+recomputation must not move BN running statistics a second time (flax's
+``nn.remat`` keeps one update): it runs under ``frozen_running_stats``.
 """
 from __future__ import annotations
 
-import torch
-from torch import nn
+import contextlib
+import threading
 
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops import spike_op
 from ..ops.spike import qspike
+
+SPIKE_CODE_SCALE = 8.0   # qspike's levels k/8: the packed code is k
 
 
 def fold_t(x: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -30,30 +58,127 @@ def unfold_t(x: torch.Tensor, t: int) -> torch.Tensor:
     return x.reshape((t, -1) + tuple(x.shape[1:]))
 
 
-def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW ``nn.Conv2d`` to an NHWC tensor."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (float32 parameters) that computes in
+    ``compute_dtype``; ``spike_input`` marks a conv whose input is a spike
+    output, ``packed`` (``set_packed_residuals``) saves it packed."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32,
+                 spike_input: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+        self.spike_input = spike_input
+        self.packed = False
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (float32 parameters) over the last axis that computes
+    in ``compute_dtype``, as flax's ``nn.Dense`` and width-1 ``nn.Conv``
+    with ``dtype=``; ``spike_input`` and ``packed`` as ``Conv2d``."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True, *,
+                 dtype: torch.dtype = torch.float32,
+                 spike_input: bool = False):
+        super().__init__(cin, cout, bias=bias)
+        self.compute_dtype = dtype
+        self.spike_input = spike_input
+        self.packed = False
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        fused = _bias_fused(dt)
+        if self.packed and torch.is_grad_enabled():
+            out = spike_op.spike_linear(x, self.weight,
+                                        self.bias if fused else None, dt,
+                                        SPIKE_CODE_SCALE)
+        else:
+            out = F.linear(x.to(dt), self.weight.to(dt),
+                           self.bias.to(dt) if fused and self.bias is not None
+                           else None)
+        return out if fused or self.bias is None else out + self.bias.to(dt)
+
+
+def _bias_fused(dt: torch.dtype) -> bool:
+    """Whether a layer computing in ``dt`` hands its bias to the product
+    (float32) or adds it after, rounded to ``dt`` twice as flax's
+    ``y = dot(x, w); y += b`` is."""
+    return dt == torch.float32
+
+
+def set_packed_residuals(model: nn.Module, enabled: bool) -> None:
+    """Switch every spike-input conv and dense layer of ``model`` to the
+    packed residuals of ``ops/spike_op.py`` (``train.packed_residuals``),
+    or back.  Outputs and gradients do not change."""
+    for m in model.modules():
+        if isinstance(m, (Conv2d, Linear)) and m.spike_input:
+            m.packed = enabled
+
+
+def conv_nhwc(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Apply an NCHW ``Conv2d`` to an NHWC tensor in its compute dtype."""
+    dt = conv.compute_dtype
+    fused = _bias_fused(dt)
+    bias = conv.bias if fused else None
+    if conv.packed and torch.is_grad_enabled():
+        out = spike_op.spike_conv(
+            x, conv.weight, bias, dt, SPIKE_CODE_SCALE, stride=conv.stride,
+            padding=conv.padding, dilation=conv.dilation, groups=conv.groups)
+    else:
+        out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
+                       None if bias is None else bias.to(dt), conv.stride,
+                       conv.padding, conv.dilation,
+                       conv.groups).permute(0, 2, 3, 1)
+    return out if fused or conv.bias is None else out + conv.bias.to(dt)
 
 
 def conv2d(cin: int, cout: int, k: int = 1, stride: int = 1, pad: int = 0,
-           groups: int = 1, bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, groups=groups,
-                     bias=bias)
+           groups: int = 1, bias: bool = False,
+           dtype: torch.dtype = torch.float32,
+           spike_input: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=pad, groups=groups,
+                  bias=bias, dtype=dtype, spike_input=spike_input)
 
 
 class Spike(nn.Module):
-    """Quantized spike site (``qspike``, the only kind on the SDTv2 path)."""
+    """Quantized spike site (``qspike``, the only kind on the SDTv2 path),
+    in its input's dtype."""
 
     def forward(self, x):
         return qspike(x)
 
 
 MOMENTUM = 0.9  # flax convention: ra = m * ra + (1 - m) * batch
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """BN running statistics stay as they are inside the block (in this
+    thread): the recomputation of a ``remat`` block."""
+    prev = getattr(_RECOMPUTE, "frozen", False)
+    _RECOMPUTE.frozen = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.frozen = prev
 
 
 def _update_running(ra: torch.Tensor, batch: torch.Tensor) -> None:
+    if getattr(_RECOMPUTE, "frozen", False):
+        return
     with torch.no_grad():
         ra.copy_(MOMENTUM * ra + (1.0 - MOMENTUM) * batch)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of saving its
+    activations (flax's ``nn.remat``), under ``frozen_running_stats``; a
+    plain call where no gradient is recorded."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          frozen_running_stats()))
 
 
 class BatchNorm(nn.Module):
@@ -78,23 +203,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x):
+        xf = x.float()
         if self.training:
-            var, mean = torch.var_mean(x, tuple(range(x.dim() - 1)),
+            var, mean = torch.var_mean(xf, tuple(range(x.dim() - 1)),
                                        correction=0)
             _update_running(self.mean, mean)
             _update_running(self.var, var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean) * mul + self.bias
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
 class ConvBN(nn.Module):
     """Conv2d (+ optional bias) then BatchNorm, on [(T*B), H, W, C]."""
 
-    def __init__(self, cin, cout, k=1, stride=1, pad=0, bias=False):
+    def __init__(self, cin, cout, k=1, stride=1, pad=0, bias=False,
+                 dtype=torch.float32, spike_input=False):
         super().__init__()
-        self.Conv_0 = conv2d(cin, cout, k, stride, pad, bias=bias)
+        self.Conv_0 = conv2d(cin, cout, k, stride, pad, bias=bias,
+                             dtype=dtype, spike_input=spike_input)
         self.BatchNorm_0 = BatchNorm(cout)
 
     def forward(self, x):
@@ -118,17 +246,19 @@ class BNAndPad(nn.Module):
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x):
+        xf = x.float()
         if self.training:
-            var, mean = torch.var_mean(x, tuple(range(x.dim() - 1)),
+            var, mean = torch.var_mean(xf, tuple(range(x.dim() - 1)),
                                        correction=0)
             _update_running(self.mean, mean)
             _update_running(self.var, var)
         else:
             mean, var = self.mean, self.var
-        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        y = ((xf - mean) * torch.rsqrt(var + self.eps) * self.scale
+             + self.bias).to(x.dtype)
         p = self.p
         pad_value = (self.bias.detach() - self.mean * self.scale.detach()
-                     * torch.rsqrt(self.var + self.eps))
+                     * torch.rsqrt(self.var + self.eps)).to(y.dtype)
         n, h, w, c = y.shape
         out = pad_value.expand(n, h + 2 * p, w + 2 * p, c).clone()
         out[:, p:h + p, p:w + p] = y
@@ -138,12 +268,14 @@ class BNAndPad(nn.Module):
 class RepConv(nn.Module):
     """1x1 -> BNAndPad(1) -> dw3x3 VALID -> 1x1 -> BN (sdtv2.py:112-132)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32,
+                 spike_input: bool = False):
         super().__init__()
-        self.Conv_0 = conv2d(cin, cin, 1)
+        self.Conv_0 = conv2d(cin, cin, 1, dtype=dtype,
+                             spike_input=spike_input)
         self.BNAndPad_0 = BNAndPad(cin)
-        self.Conv_1 = conv2d(cin, cin, 3, groups=cin)
-        self.Conv_2 = conv2d(cin, cout, 1)
+        self.Conv_1 = conv2d(cin, cin, 3, groups=cin, dtype=dtype)
+        self.Conv_2 = conv2d(cin, cout, 1, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(cout)
 
     def forward(self, x):
@@ -162,15 +294,17 @@ class SepConv(nn.Module):
     """
 
     def __init__(self, dim, expansion_ratio=2, kernel_size=7, padding=3,
-                 dw_bn=False, num_spikes=2):
+                 dw_bn=False, num_spikes=2, dtype=torch.float32):
         super().__init__()
         med = int(expansion_ratio * dim)
         self.num_spikes = num_spikes
         self.spike = Spike()
-        self.ConvBN_0 = ConvBN(dim, med, 1)
-        self.Conv_0 = conv2d(med, med, kernel_size, pad=padding, groups=med)
+        self.ConvBN_0 = ConvBN(dim, med, 1, dtype=dtype, spike_input=True)
+        self.Conv_0 = conv2d(med, med, kernel_size, pad=padding, groups=med,
+                             dtype=dtype, spike_input=True)
         self.BatchNorm_0 = BatchNorm(med) if dw_bn else None
-        self.ConvBN_1 = ConvBN(med, dim, 1)
+        self.ConvBN_1 = ConvBN(med, dim, 1, dtype=dtype,
+                               spike_input=num_spikes >= 3)
 
     def forward(self, x):
         xf, t = fold_t(x)
@@ -187,12 +321,14 @@ class MSConvBlock(nn.Module):
     """x += SepConv(x); then spike->3x3(4x)->BN->spike->3x3->BN residual
     (sdtv2.py:183-219)."""
 
-    def __init__(self, dim: int, mlp_ratio: int = 4):
+    def __init__(self, dim: int, mlp_ratio: int = 4, dtype=torch.float32):
         super().__init__()
         self.spike = Spike()
-        self.SepConv_0 = SepConv(dim)
-        self.ConvBN_0 = ConvBN(dim, dim * mlp_ratio, 3, pad=1)
-        self.ConvBN_1 = ConvBN(dim * mlp_ratio, dim, 3, pad=1)
+        self.SepConv_0 = SepConv(dim, dtype=dtype)
+        self.ConvBN_0 = ConvBN(dim, dim * mlp_ratio, 3, pad=1, dtype=dtype,
+                               spike_input=True)
+        self.ConvBN_1 = ConvBN(dim * mlp_ratio, dim, 3, pad=1, dtype=dtype,
+                               spike_input=True)
 
     def forward(self, x):
         x = x + self.SepConv_0(x)
@@ -205,12 +341,14 @@ class MSConvBlock(nn.Module):
 class MSMLP(nn.Module):
     """Pointwise spiking MLP over [T, B, H, W, C] (sdtv2.py:222-255)."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype=torch.float32):
         super().__init__()
         self.spike = Spike()
-        self.Conv_0 = conv2d(dim, hidden, 1, bias=True)
+        self.Conv_0 = conv2d(dim, hidden, 1, bias=True, dtype=dtype,
+                             spike_input=True)
         self.BatchNorm_0 = BatchNorm(hidden)
-        self.Conv_1 = conv2d(hidden, dim, 1, bias=True)
+        self.Conv_1 = conv2d(hidden, dim, 1, bias=True, dtype=dtype,
+                             spike_input=True)
         self.BatchNorm_1 = BatchNorm(dim)
 
     def forward(self, x):
@@ -224,11 +362,12 @@ class DownSampling(nn.Module):
     """(spike->)conv(k, s, p)->BN stage transition (sdtv2.py:386-421)."""
 
     def __init__(self, cin, cout, kernel=3, stride=2, padding=1,
-                 first_layer=False):
+                 first_layer=False, dtype=torch.float32):
         super().__init__()
         self.first_layer = first_layer
         self.spike = Spike()
-        self.Conv_0 = conv2d(cin, cout, kernel, stride, padding, bias=True)
+        self.Conv_0 = conv2d(cin, cout, kernel, stride, padding, bias=True,
+                             dtype=dtype, spike_input=not first_layer)
         self.BatchNorm_0 = BatchNorm(cout)
 
     def forward(self, x):

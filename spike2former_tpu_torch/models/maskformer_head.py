@@ -10,6 +10,14 @@ decoder layer's output is returned, the initial queries' too, and the
 query-axis BN uses batch statistics; with ``lazy_masks`` the mask logits
 come in the factored ``LazyMasks`` form.  ``valid_hw`` masks the padding
 of bucket-padded eval inputs.  Masked attention is not ported yet.
+
+Mixed precision follows the JAX head: the queries, query embeddings,
+level embeddings and positional encodings are float32 parameters or
+made in float32, so the decoder's residual stream is float32 while its
+convolutions compute in ``dtype``; the SDME sigmoid runs in float32, the
+class scores come back in float32 and the mask logits are float32 sums
+of the embeddings and the mask features (JAX ``maskformer_head.py``
+:194-218).
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ from torch import nn
 
 from ..losses.criterion import LazyMasks
 from .attention import SpikeMLP3
-from .layers import BatchNorm, Spike
+from .layers import BatchNorm, Linear, Spike
 from .pixel_decoder import DCNPixelDecoder
 from .positional import sine_pe_for_shape, sine_positional_encoding
 from .transformer_decoder import DetrDecoderLayer
@@ -36,7 +44,8 @@ class MaskFormerHead(nn.Module):
                  num_encoder_layers: int = 6, dcn_group: int = 32,
                  dw_kernel_size: int = 5, alpha: float = 4.0,
                  eval_last_only: bool = True, lazy_masks: bool = False,
-                 compat: bool = False):
+                 compat: bool = False, remat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         c, nq = feat_channels, num_queries
         self.c, self.alpha = c, alpha
@@ -46,16 +55,19 @@ class MaskFormerHead(nn.Module):
         self.lazy_masks = lazy_masks
         self.pixel_decoder = DCNPixelDecoder(
             in_channels, c, out_channels, num_encoder_layers,
-            encoder_ffn_channels, dcn_group, dw_kernel_size, compat=compat)
+            encoder_ffn_channels, dcn_group, dw_kernel_size, compat=compat,
+            remat=remat, dtype=dtype)
         self.query_feat = nn.Parameter(torch.zeros(nq, c))
         self.query_embed = nn.Parameter(torch.zeros(nq, c))
         self.level_embed = nn.Parameter(torch.zeros(num_feat_levels, c))
         for i in range(num_decoder_layers):
             setattr(self, f"decoder_{i}", DetrDecoderLayer(
-                c, num_heads, decoder_ffn_channels, compat=compat))
+                c, num_heads, decoder_ffn_channels, compat=compat,
+                dtype=dtype))
         self.spike = Spike()
-        self.cls_embed = nn.Linear(c, num_classes + 1)
-        self.mask_embed = SpikeMLP3(c, out_channels, quant_const=alpha)
+        self.cls_embed = Linear(c, num_classes + 1, dtype=dtype)
+        self.mask_embed = SpikeMLP3(c, out_channels, quant_const=alpha,
+                                    dtype=dtype)
         self.shortcut_bn = BatchNorm(nq)
         self.shortcut_kernel = nn.Parameter(torch.zeros(nq, nq))
         self.w = nn.Parameter(torch.ones(1))
@@ -65,24 +77,26 @@ class MaskFormerHead(nn.Module):
         [L, B, nq, ncls+1] and post-spike mask embeddings [L, T, B, nq, C]
         (the factored half of the mask logits)."""
         a = self.alpha
-        out_sig = torch.sigmoid(out)
+        out_sig = torch.sigmoid(out.float()).to(out.dtype)
         out_spiked = a * self.spike(out_sig)
         cls_scores = self.cls_embed(out_spiked).mean(1)
         mask_embed = self.mask_embed(out_spiked)
         # shortcut: a conv over the QUERY axis + BN over queries
-        # (maskformer_head.py:152-155,576-579)
-        sc = torch.einsum("ltbqc,pq->ltbpc", a * self.spike(out_sig),
-                          self.shortcut_kernel)
+        # (maskformer_head.py:152-155,576-579), in the promoted dtype
+        sc = a * self.spike(out_sig)
+        dt = torch.promote_types(sc.dtype, self.shortcut_kernel.dtype)
+        sc = torch.einsum("ltbqc,pq->ltbpc", sc.to(dt),
+                          self.shortcut_kernel.to(dt))
         sc = self.shortcut_bn(sc.movedim(3, -1)).movedim(-1, 3)
-        return cls_scores, a * self.spike(mask_embed + self.w * sc)
+        return cls_scores.float(), a * self.spike(mask_embed + self.w * sc)
 
     def sdme(self, out: torch.Tensor, mask_features: torch.Tensor):
         """out [L, T, B, nq, C] -> class scores [L, B, nq, ncls+1] and mask
         logits [L, B, nq, h, w]."""
         cls_scores, mask_embed = self.sdme_embed(out)
         t = mask_features.shape[0]
-        mask_preds = torch.einsum("ltbqc,tbhwc->lbqhw", mask_embed,
-                                  mask_features) / t
+        mask_preds = torch.einsum("ltbqc,tbhwc->lbqhw", mask_embed.float(),
+                                  mask_features.float()) / t
         return cls_scores, mask_preds
 
     def forward(self, feats: Sequence[torch.Tensor],
@@ -144,9 +158,12 @@ class MaskFormerHead(nn.Module):
         return self.sdme(out, mask_features)
 
 
-def semantic_inference(cls_scores: torch.Tensor, mask_preds: torch.Tensor
-                       ) -> torch.Tensor:
+def semantic_inference(cls_scores: torch.Tensor, mask_preds: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``einsum(softmax(cls)[..., :-1], sigmoid(masks))``: cls [B, nq,
-    ncls+1], masks [B, nq, H, W] -> [B, H, W, ncls] channels-last."""
-    cls_prob = torch.softmax(cls_scores.float(), -1)[..., :-1]
-    return torch.einsum("bqc,bqhw->bhwc", cls_prob, torch.sigmoid(mask_preds))
+    ncls+1], masks [B, nq, H, W] -> [B, H, W, ncls] channels-last, in
+    ``dtype``: the operands are cast to it and the product sums in f32 and
+    rounds once (JAX ``maskformer_head.py:335-350``)."""
+    cls_prob = torch.softmax(cls_scores.float(), -1)[..., :-1].to(dtype)
+    mask_prob = torch.sigmoid(mask_preds).to(dtype)
+    return torch.einsum("bqc,bqhw->bhwc", cls_prob, mask_prob)

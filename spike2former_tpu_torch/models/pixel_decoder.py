@@ -4,7 +4,9 @@
 The /16 level runs through layer-scaled SepConv_Spike -> DCNv3 -> MS_MLP
 encoder layers, then a top-down spiking FPN builds the /8, /4 and /2 maps.
 Returns (mask_feature [T,B,H/2,W/2,out], memory [T,B,H/16,W/16,feat],
-multi_scale [/16, /8, /4]).
+multi_scale [/16, /8, /4]).  ``dtype`` is the convolutions' compute dtype;
+``remat`` recomputes each encoder layer in the backward (its BN running
+statistics move once, ``layers.remat``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from ..ops.resize import resize_bilinear
 from .attention import MSDAFFN
 from .dcn import DCNv3
 from .layers import (BatchNorm, ConvBN, SepConv, Spike, conv2d, conv_nhwc,
-                     fold_t, unfold_t)
+                     fold_t, remat, unfold_t)
 
 
 class DCNEncoderLayer(nn.Module):
@@ -27,16 +29,18 @@ class DCNEncoderLayer(nn.Module):
     def __init__(self, embed_dims: int = 256,
                  feedforward_channels: int = 1024, group: int = 32,
                  dw_kernel_size: int = 5, layer_scale: float = 1e-6,
-                 compat: bool = False):
+                 compat: bool = False, dtype=torch.float32):
         super().__init__()
         for name in ("gamma1", "gamma2", "gamma3"):
             setattr(self, name,
                     nn.Parameter(torch.full((embed_dims,), layer_scale)))
         self.conv = SepConv(embed_dims, kernel_size=3, padding=1, dw_bn=True,
-                            num_spikes=3)
+                            num_spikes=3, dtype=dtype)
         self.dcn = DCNv3(channels=embed_dims, group=group,
-                         dw_kernel_size=dw_kernel_size, compat=compat)
-        self.ffn = MSDAFFN(embed_dims, feedforward_channels, compat=compat)
+                         dw_kernel_size=dw_kernel_size, compat=compat,
+                         dtype=dtype)
+        self.ffn = MSDAFFN(embed_dims, feedforward_channels, compat=compat,
+                           dtype=dtype)
 
     def forward(self, x):
         x = x + self.gamma1 * self.conv(x)
@@ -51,32 +55,36 @@ class DCNPixelDecoder(nn.Module):
                  feat_channels: int = 256, out_channels: int = 256,
                  num_encoder_layers: int = 6,
                  feedforward_channels: int = 1024, group: int = 32,
-                 dw_kernel_size: int = 5, compat: bool = False):
+                 dw_kernel_size: int = 5, compat: bool = False,
+                 remat: bool = False, dtype=torch.float32):
         super().__init__()
         c = feat_channels
+        dt = dict(dtype=dtype)
         self.num_inputs = len(in_channels)
         self.num_encoder_layers = num_encoder_layers
+        self.remat = remat
         self.spike = Spike()
-        self.encoder_in_proj = ConvBN(in_channels[-1], c, 1, bias=True)
+        self.encoder_in_proj = ConvBN(in_channels[-1], c, 1, bias=True, **dt)
         for i in range(num_encoder_layers):
             setattr(self, f"encoder_{i}", DCNEncoderLayer(
                 c, feedforward_channels, group, dw_kernel_size,
-                compat=compat))
-        self.encoder_out_proj = ConvBN(c, c, 1, bias=True)
+                compat=compat, **dt))
+        self.encoder_out_proj = ConvBN(c, c, 1, bias=True, **dt)
         for idx, i in enumerate(range(self.num_inputs - 2, -1, -1)):
             setattr(self, f"lateral_{idx}",
-                    ConvBN(in_channels[i], c, 1, bias=True))
+                    ConvBN(in_channels[i], c, 1, bias=True, **dt))
             setattr(self, f"output_conv_{idx}",
-                    conv2d(c, c, 3, pad=1, groups=c))
+                    conv2d(c, c, 3, pad=1, groups=c, **dt))
             setattr(self, f"output_bn_{idx}", BatchNorm(c))
-        self.mask_feature = conv2d(c, out_channels, 1, bias=True)
+        self.mask_feature = conv2d(c, out_channels, 1, bias=True, **dt)
 
     def forward(self, feats: Sequence[torch.Tensor]):
         t = feats[-1].shape[0]
         xf = self.encoder_in_proj(self.spike(fold_t(feats[-1])[0]))
         x = unfold_t(xf, t)
         for i in range(self.num_encoder_layers):
-            x = getattr(self, f"encoder_{i}")(x)
+            layer = getattr(self, f"encoder_{i}")
+            x = remat(layer, x) if self.remat else layer(x)
         memory = self.spike(x)
         y = self.encoder_out_proj(fold_t(memory)[0])
 

@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear_hw
+from .layers import set_packed_residuals
 from .maskformer_head import MaskFormerHead, semantic_inference
 from .sdtv2 import SpikingMetaFormer
 
@@ -35,13 +36,16 @@ class Spike2Former(nn.Module):
                  depths_stage3: int = 6, depths_stage4: int = 2,
                  dcn_group: int = 32, compat: bool = False,
                  norm_eval: bool = True, collapse_t: bool = True,
-                 eval_last_only: bool = True, lazy_masks: bool = False):
+                 eval_last_only: bool = True, lazy_masks: bool = False,
+                 remat: bool = False, dtype: torch.dtype = torch.float32,
+                 packed_residuals: bool = False):
         super().__init__()
         e = tuple(embed_dim)
+        self.dtype = dtype
         self.backbone = SpikingMetaFormer(
             e, num_heads=backbone_heads, T=T, depths_stage3=depths_stage3,
             depths_stage4=depths_stage4, collapse_t=collapse_t,
-            norm_eval=norm_eval)
+            norm_eval=norm_eval, remat=remat, dtype=dtype)
         self.head = MaskFormerHead(
             in_channels=(e[0] // 2, e[0], e[1], e[3]),
             feat_channels=feat_channels, out_channels=feat_channels,
@@ -50,7 +54,8 @@ class Spike2Former(nn.Module):
             num_encoder_layers=num_encoder_layers,
             dcn_group=min(dcn_group, feat_channels),
             eval_last_only=eval_last_only, lazy_masks=lazy_masks,
-            compat=compat)
+            compat=compat, remat=remat, dtype=dtype)
+        set_packed_residuals(self, packed_residuals)
 
     def forward(self, images: torch.Tensor,
                 valid_hw: torch.Tensor | None = None):
@@ -65,7 +70,10 @@ class Spike2Former(nn.Module):
 
     def predict_logits(self, images: torch.Tensor,
                        valid_hw: torch.Tensor | None = None) -> torch.Tensor:
-        """Whole-image semantic logits at input resolution [B, H, W, ncls]."""
+        """Whole-image semantic logits at input resolution [B, H, W, ncls],
+        in the model's dtype: the upsample and the semantic einsum run in
+        it, as JAX's ``predict_logits`` (segmentor.py:118-123)."""
         cls_scores, mask_preds = self(images, valid_hw)
-        mask = resize_bilinear_hw(mask_preds[-1], tuple(images.shape[1:3]))
-        return semantic_inference(cls_scores[-1], mask)
+        mask = resize_bilinear_hw(mask_preds[-1].to(self.dtype),
+                                  tuple(images.shape[1:3]))
+        return semantic_inference(cls_scores[-1], mask, self.dtype)

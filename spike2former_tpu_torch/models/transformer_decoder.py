@@ -3,6 +3,7 @@
 cross-attn -> self-attn -> FFN, residual adds in the layer."""
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .attention import MSDAFFN, SpikeMHA
@@ -10,13 +11,16 @@ from .attention import MSDAFFN, SpikeMHA
 
 class DetrDecoderLayer(nn.Module):
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
-                 feedforward_channels: int = 2048, compat: bool = False):
+                 feedforward_channels: int = 2048, compat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         # the factored form kills the [nq, nk] score tensor over the big
         # pixel-token levels; compat keeps the reference's summation order
-        self.cross_attn = SpikeMHA(embed_dims, num_heads, factored=not compat)
-        self.self_attn = SpikeMHA(embed_dims, num_heads)
-        self.ffn = MSDAFFN(embed_dims, feedforward_channels, compat=compat)
+        self.cross_attn = SpikeMHA(embed_dims, num_heads, factored=not compat,
+                                   dtype=dtype)
+        self.self_attn = SpikeMHA(embed_dims, num_heads, dtype=dtype)
+        self.ffn = MSDAFFN(embed_dims, feedforward_channels, compat=compat,
+                           dtype=dtype)
 
     def forward(self, query, key, value, query_pos, key_pos,
                 cross_attn_mask=None, self_attn_mask=None):

@@ -13,7 +13,13 @@ backward launches ``csrc/dcnv3_sample_bwd.cu`` (which replaces
 ``dcnv3_sample_pallas_t5_bwd``) through ``dcnv3_sample_backward``.  For a
 tensor on the CPU it is the plain version ``dcnv3_sample_reference``, with
 PyTorch's autograd of it.  Launches are counted in
-``dcnv3_sample.launches`` (forward) and ``dcnv3_sample_backward.launches``.
+``dcnv3_sample.launches`` (forward) and ``dcnv3_sample_backward.launches``,
+and those of the bf16 forms also in ``.bf16_launches``.
+
+Both kernels take float32 or bfloat16 features (``value``, and ``dout`` for
+the backward) with float32 coordinates and mask, as the JAX package hands
+a bf16 model's features to its Pallas kernels; out and dvalue come back in
+the features' dtype, dpy/dpx/dmask in float32, and every sum is float32.
 
 Both kernels stage a tile of the value map in shared memory: a block owns
 one image, a few groups and a band of output pixels.  ``tile_plan`` chooses
@@ -77,7 +83,8 @@ def dcnv3_sample_reference(value: torch.Tensor, py: torch.Tensor,
     with validity masks, zero padding outside the map, f32 accumulation.
 
     value [N, H, W, G*Cg]; py/px/mask [N, HoWo, G, P] (pixel coordinates in
-    unpadded half-pixel space) -> [N, HoWo, G*Cg].
+    unpadded half-pixel space) -> [N, HoWo, G*Cg] in ``value.dtype``: a
+    bf16 value is summed in f32 and rounded once, at the end.
     """
     n, h, w, c = value.shape
     _, howo, g, p = py.shape
@@ -106,7 +113,8 @@ def dcnv3_sample_backward_reference(value: torch.Tensor, py: torch.Tensor,
     Taps off the map give 0 to every term.
 
     value [N, H, W, G*Cg]; py/px/mask [N, HoWo, G, P]; dout [N, HoWo, G*Cg]
-    -> (dvalue [N, H, W, G*Cg], dpy, dpx, dmask [N, HoWo, G, P]), f32.
+    -> (dvalue [N, H, W, G*Cg] in ``value.dtype``, summed in f32 and
+    rounded once; dpy, dpx, dmask [N, HoWo, G, P] in f32).
     """
     n, h, w, c = value.shape
     _, howo, g, p = py.shape
@@ -124,7 +132,7 @@ def dcnv3_sample_backward_reference(value: torch.Tensor, py: torch.Tensor,
         dpx += mask * wy * sx * s
         wt = torch.where(ok, mask * wy * wx, 0.0)
         dvalue.scatter_add_(1, idx, (wt[..., None] * d).reshape(n, -1, cg))
-    return dvalue.reshape(n, h, w, c), dpy, dpx, dmask
+    return dvalue.reshape(n, h, w, c).to(value.dtype), dpy, dpx, dmask
 
 
 # Shared-memory tiles of the two kernels (see the notes in their sources).
@@ -212,7 +220,10 @@ def tile_plan(n: int, h: int, w: int, howo: int, g: int, cg: int, p: int,
     bands until the rows fit; bands too narrow for the budget first lose
     halo rows, then stage nothing.  A single band that stages the whole
     map owns it: K2 then stores dvalue without atomics or zero-fill.
-    Plans are kept per shape: the wrappers ask on every launch."""
+    Plans are kept per shape: the wrappers ask on every launch.  They
+    hold for both feature dtypes: the bf16 kernels convert the value tile
+    to f32 while staging it, so a staged channel takes 4 bytes either way
+    (the ``* 4`` of ``smem_bytes``)."""
     budget = BWD_SMEM_BYTES if backward else FWD_SMEM_BYTES
     groups = 2 if (not backward and n * g >= NUM_SMS and g % 2 == 0
                    and TilePlan(2, 0, h, 0).smem_bytes(w, cg, p, False)
@@ -258,14 +269,20 @@ BWD_SOURCE = "dcnv3_sample_bwd.cu"
 GROUPED_SOURCE = "dcnv3_sample_grouped.cu"
 GROUPED_BWD_SOURCE = "dcnv3_sample_grouped_bwd.cu"
 CHANNELS_PER_GROUP = (1, 2, 4, 8, 16, 32)
-# each library's entry point: (name, tensor pointers, ints); the ints are
-# (n, howo, groups, points, h, w, cg), then the tile plan (K1's and K2's
-# TilePlan; the grouped pair's GroupedPlan, and the grouped forward's
-# layout flag) and the device index; the stream comes last
-_ENTRY = {SOURCE: ("dcnv3_sample_f32", 5, 12),
-          BWD_SOURCE: ("dcnv3_sample_bwd_f32", 9, 12),
-          GROUPED_SOURCE: ("dcnv3_sample_grouped_f32", 5, 12),
-          GROUPED_BWD_SOURCE: ("dcnv3_sample_grouped_bwd_f32", 9, 11)}
+# each library's entry points by the features' dtype: (name, tensor
+# pointers, ints); the ints are (n, howo, groups, points, h, w, cg), then
+# the tile plan (K1's and K2's TilePlan; the grouped pair's GroupedPlan,
+# and the grouped forward's layout flag) and the device index; the stream
+# comes last.  K2's bf16 entry takes an f32 accumulator beside dvalue.
+_ENTRY = {
+    (SOURCE, torch.float32): ("dcnv3_sample_f32", 5, 12),
+    (SOURCE, torch.bfloat16): ("dcnv3_sample_bf16", 5, 12),
+    (BWD_SOURCE, torch.float32): ("dcnv3_sample_bwd_f32", 9, 12),
+    (BWD_SOURCE, torch.bfloat16): ("dcnv3_sample_bwd_bf16", 10, 12),
+    (GROUPED_SOURCE, torch.float32): ("dcnv3_sample_grouped_f32", 5, 12),
+    (GROUPED_BWD_SOURCE, torch.float32): ("dcnv3_sample_grouped_bwd_f32", 9,
+                                          11)}
+SOURCES = tuple(dict.fromkeys(src for src, _ in _ENTRY))
 
 
 @functools.cache
@@ -273,11 +290,12 @@ def _library(source: str) -> ctypes.CDLL:
     from .cuda_build import load
 
     lib = load(source)
-    name, n_ptrs, n_ints = _ENTRY[source]
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for (src, _), (name, n_ptrs, n_ints) in _ENTRY.items():
+        if src == source:
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -286,16 +304,17 @@ def build_kernels() -> None:
     grouped-layout pair), the ``nvcc`` runs side by side."""
     from .cuda_build import build_all
 
-    build_all(tuple(_ENTRY))
-    for source in _ENTRY:
+    build_all(SOURCES)
+    for source in SOURCES:
         _library(source)
 
 
 def _launch(source: str, tensors, ints) -> None:
-    """Call ``source``'s entry point on PyTorch's current stream with the
-    tensors' pointers and ``ints``; raise if the launch fails."""
+    """Call ``source``'s entry point for the first tensor's dtype on
+    PyTorch's current stream with the tensors' pointers and ``ints``;
+    raise if the launch fails."""
     dev = tensors[0].device
-    name = _ENTRY[source][0]
+    name = _ENTRY[source, tensors[0].dtype][0]
     with torch.cuda.device(dev):
         err = getattr(_library(source), name)(
             *(t.data_ptr() for t in tensors), *ints,
@@ -304,10 +323,14 @@ def _launch(source: str, tensors, ints) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_kernel_args(value: torch.Tensor, py: torch.Tensor,
                        *others: tuple[str, torch.Tensor]) -> tuple:
-    """Raise on what the kernels do not take; returns
-    ``(n, h, w, c, howo, g, p)``."""
+    """Raise on what the kernels do not take: ``value`` (and a ``dout``
+    among ``others``) float32 or bfloat16, the coordinates and mask
+    float32; returns ``(n, h, w, c, howo, g, p)``."""
     n, h, w, c = value.shape
     if py.dim() != 4 or py.shape[0] != n:
         raise ValueError(f"coordinates {tuple(py.shape)} do not match "
@@ -320,9 +343,14 @@ def _check_kernel_args(value: torch.Tensor, py: torch.Tensor,
     if c % g or (c // g) not in CHANNELS_PER_GROUP:
         raise ValueError(f"channels {c} over {g} groups: the kernels "
                          "take 1, 2, 4, 8, 16 or 32 channels a group")
+    if value.dtype not in FEATURE_DTYPES:
+        raise TypeError(f"value must be float32 or bfloat16, got "
+                        f"{value.dtype}")
     for name, t in (("value", value), ("py", py)) + others:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = value.dtype if name in ("value", "dout") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} with a {value.dtype} "
+                            f"value, got {t.dtype}")
         if t.device != value.device:
             raise ValueError(
                 f"{name} is on {t.device}, value on {value.device}")
@@ -334,7 +362,9 @@ def _check_kernel_args(value: torch.Tensor, py: torch.Tensor,
 
 
 class _SampleFunction(torch.autograd.Function):
-    """K1 forward, K2 backward, on CUDA tensors."""
+    """K1 forward, K2 backward, on CUDA tensors; the gradient of
+    ``value`` comes back in ``value.dtype``, those of the coordinates and
+    mask in float32."""
 
     @staticmethod
     def forward(ctx, sampler, value, py, px, mask):
@@ -343,10 +373,12 @@ class _SampleFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        dout = dout.contiguous()
+        # read once: under torch.utils.checkpoint a saved tensor unpacks once
+        saved = ctx.saved_tensors
+        dout = dout.to(saved[0].dtype).contiguous()
         if dout.data_ptr() % 16:  # a contiguous view at an odd offset
             dout = dout.clone()
-        return (None, *dcnv3_sample_backward(*ctx.saved_tensors, dout))
+        return (None, *dcnv3_sample_backward(*saved, dout))
 
 
 class _DCNv3Sample:
@@ -356,10 +388,12 @@ class _DCNv3Sample:
 
     ``launches`` counts the forward kernel's launches (a plain int, on the
     wrapper object so that it survives the name being rebound, as a test
-    that wraps the sampler does)."""
+    that wraps the sampler does), ``bf16_launches`` those of its bf16
+    form among them."""
 
     def __init__(self):
         self.launches = 0
+        self.bf16_launches = 0
 
     def __call__(self, value: torch.Tensor, py: torch.Tensor,
                  px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -379,6 +413,7 @@ class _DCNv3Sample:
         _launch(SOURCE, (value, py, px, mask, out),
                 (n, howo, g, p, h, w, c // g, *plan, value.device.index))
         self.launches += 1
+        self.bf16_launches += value.dtype == torch.bfloat16
         return out
 
 
@@ -386,10 +421,11 @@ class _DCNv3SampleBackward:
     """Gradients of the sampler: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor.  Shapes as
     ``dcnv3_sample_backward_reference``; ``launches`` counts the kernel's
-    launches."""
+    launches, ``bf16_launches`` those of its bf16 form among them."""
 
     def __init__(self):
         self.launches = 0
+        self.bf16_launches = 0
 
     def __call__(self, value: torch.Tensor, py: torch.Tensor,
                  px: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor):
@@ -402,14 +438,23 @@ class _DCNv3SampleBackward:
                              f"{(n, howo, c)}")
         plan = tile_plan(n, h, w, howo, g, c // g, p, backward=True)
         # a block that owns a group's whole map stores its dvalue; with
-        # bands the halos overlap and the kernel adds with atomics
-        dvalue = (torch.empty_like(value) if plan.whole(h)
-                  else torch.zeros_like(value))
+        # bands the halos overlap and the kernel adds with atomics.  The
+        # bf16 form adds into an f32 buffer (no bf16 atomics) that its
+        # second pass rounds into dvalue.
+        acc = (torch.empty if plan.whole(h) else torch.zeros)(
+            value.shape, dtype=torch.float32, device=value.device)
         dpy, dpx, dmask = (torch.empty_like(py) for _ in range(3))
-        _launch(BWD_SOURCE, (value, py, px, mask, dout, dvalue, dpy, dpx,
+        if value.dtype == torch.bfloat16:
+            dvalue = torch.empty_like(value)
+            bufs = (acc, dvalue)
+        else:
+            dvalue = acc
+            bufs = (dvalue,)
+        _launch(BWD_SOURCE, (value, py, px, mask, dout, *bufs, dpy, dpx,
                              dmask),
                 (n, howo, g, p, h, w, c // g, *plan, value.device.index))
         self.launches += 1
+        self.bf16_launches += value.dtype == torch.bfloat16
         return dvalue, dpy, dpx, dmask
 
 

@@ -1,10 +1,12 @@
 """Where a flagship request's time goes, on one NVIDIA GPU.
 
-    python -m spike2former_tpu_torch.profile_request
+    python -m spike2former_tpu_torch.profile_request [--cfg-options] \
+        [KEY=VALUE ...]
 
 Serves the same seeded requests as ``chip_smoke.py`` (flagship preset at full
 width, seeded random weights, uint8 images of 512x683, 683x512, 512x512,
-f32 with TF32 off) and prints:
+with TF32 off; the config overrides given, e.g. ``model.dtype='bfloat16'``)
+and prints:
 
 * host stages per request (resize/pad, upload, forward, post-process,
   download), median ms over the timed rounds;
@@ -92,7 +94,7 @@ def _part_hooks(model):
     return events, handles
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_request: no CUDA device available", file=sys.stderr)
         return 1
@@ -100,7 +102,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__}",
           flush=True)
-    im = api.init_model(PRESET, seed=0)
+    overrides = [a for a in argv if a != "--cfg-options"]
+    im = api.init_model(PRESET, overrides=overrides, seed=0)
+    print(f"dtype={im.cfg.model.dtype}", flush=True)
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
             for hw in REQUEST_SHAPES]
@@ -165,4 +169,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

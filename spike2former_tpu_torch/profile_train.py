@@ -1,13 +1,16 @@
 """Where a flagship train step's time goes, on one NVIDIA GPU.
 
-    python -m spike2former_tpu_torch.profile_train [--loader] [KEY=VALUE ...]
+    python -m spike2former_tpu_torch.profile_train [--loader] \
+        [--cfg-options] [KEY=VALUE ...]
 
 Builds the flagship preset at full width with seeded random weights, with
-the config overrides given (e.g. ``train.matcher='host'``; by default the
-preset's auction matcher with ``compact_gt=32``), and takes train steps on
+the config overrides given, with or without ``--cfg-options`` before them
+as the CLIs take them (e.g. ``train.matcher='host'``, or
+``model.dtype='bfloat16'`` for the bf16 step; by default the preset's
+auction matcher with ``compact_gt=32`` in f32), and takes train steps on
 seeded synthetic batches (``data/synthetic.py``) of the preset's batch
-size and crop (6 at 512x512), f32 with TF32 off, as ``chip_smoke.py``
-does.  With ``--loader`` the batches are the train CLI's instead: the
+size and crop (6 at 512x512), with TF32 off (a bf16 model's float32 parts
+stay float32), as ``chip_smoke.py`` does.  With ``--loader`` the batches are the train CLI's instead: the
 ``TrainLoader`` crops of a seeded ADE20K-layout tree of 12 images
 (``data/synthetic.py:ADE_LIKE_SHAPES``), written to a temporary
 directory.
@@ -24,7 +27,11 @@ Prints:
   host ms inside the range (waits for the device included) and the device
   ms of the kernels launched from it; device launches, device busy time
   against the unprofiled step time, the kernels with the most device
-  time, and the two DCNv3 kernels' share.
+  time, and the two DCNv3 kernels' share;
+* the step's matrix-product and convolution kernels (by the names cuBLAS,
+  CUTLASS and cuDNN give them) by the element type their names carry:
+  device ms and launches of each group, and the five largest kernels of
+  each.
 
 It exits non-zero without a card, or if the profiler sees no device time.
 """
@@ -132,10 +139,12 @@ def main(argv: list[str]) -> int:
     print(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__}",
           flush=True)
     loader = "--loader" in argv
-    overrides = [a for a in argv if a != "--loader"]
+    overrides = [a for a in argv if a not in ("--loader", "--cfg-options")]
     tr = api.init_trainer(PRESET, overrides, seed=0)
     print(f"matcher={tr.cfg.train.matcher} compact_gt="
-          f"{tr.cfg.train.compact_gt} batches="
+          f"{tr.cfg.train.compact_gt} dtype={tr.cfg.model.dtype} remat="
+          f"{tr.cfg.model.remat} packed_residuals="
+          f"{tr.cfg.train.packed_residuals} batches="
           f"{'loader' if loader else 'synthetic'}", flush=True)
     b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
     if loader:
@@ -205,7 +214,45 @@ def main(argv: list[str]) -> int:
         print(f"{name}: {sum(e.self_device_time_total for e in ks) / 1e3:.4f}"
               f" ms in {sum(e.count for e in ks)} launches per step",
               flush=True)
+    for (kind, dtype), ks in sorted(product_kernels(kernels).items()):
+        ms = sum(e.self_device_time_total for e in ks) / 1e3
+        print(f"{kind} kernels, {dtype}: {ms:.3f} ms in "
+              f"{sum(e.count for e in ks)} launches per step", flush=True)
+        for e in ks[:5]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:5d}  {e.key[:110]}", flush=True)
     return 0
+
+
+# name fragments of the library kernels: a convolution's (cuDNN's implicit
+# GEMMs and its depthwise and weight-gradient kernels) and a matrix
+# product's (cuBLAS, CUTLASS); the element type by the fragments the names
+# carry, f32 where none does (cuBLAS's and cuDNN's plain f32 kernels name
+# no type: "sgemm", "fprop" without "bf16")
+CONV_NAMES = ("conv", "implicit", "fprop", "dgrad", "wgrad", "depthwise",
+              "nchwToNhwc", "nhwcToNchw")
+GEMM_NAMES = ("gemm", "cutlass", "sm90_xmma", "Kernel2", "splitK")
+DTYPE_NAMES = (("bf16", ("bf16", "bfloat16", "BFloat16")),
+               ("tf32", ("tf32",)), ("f16", ("f16", "fp16", "half")))
+
+
+def product_kernels(kernels) -> dict:
+    """{('conv' | 'gemm', dtype): kernels} of a profile's device kernels,
+    each group sorted by device time."""
+    out = collections.defaultdict(list)
+    for e in kernels:
+        name = e.key
+        low = name.lower()
+        if any(f.lower() in low for f in CONV_NAMES):
+            kind = "conv"
+        elif any(f.lower() in low for f in GEMM_NAMES):
+            kind = "gemm"
+        else:
+            continue
+        dtype = next((d for d, frags in DTYPE_NAMES
+                      if any(f.lower() in low for f in frags)), "f32")
+        out[kind, dtype].append(e)
+    return out
 
 
 if __name__ == "__main__":

@@ -560,3 +560,62 @@ def test_async_checkpoint_holds_the_state_at_its_step(cuda, tmp_path):
     for k, v in mu.items():
         assert torch.equal(raw["optimizer"]["mu"][k], v), k
     assert moved
+
+
+# --- slice eight: the bf16 forms of K1 and K2, the bf16 model --------------
+
+@pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
+def test_bf16_kernels_match_plain(cuda, cg):
+    """K1 and K2 on bf16 features against their plain versions: out and
+    dvalue within one bf16 ulp (``chip_smoke.within_one_bf16_ulp``),
+    dpy/dpx/dmask within ``chip_smoke.BF16_GRAD_RTOL`` of the largest
+    magnitude; the bf16 launch counts move."""
+    from chip_smoke import BF16_GRAD_RTOL, within_one_bf16_ulp
+
+    gen = torch.Generator().manual_seed(20 + cg)
+    n, h, w, g, p, howo = 2, 9, 13, 4, 9, 60
+    value = torch.randn((n, h, w, g * cg), generator=gen).bfloat16()
+    py, px = _coords(gen, n, howo, g, p, h, w)
+    mask = torch.rand((n, howo, g, p), generator=gen)
+    dout = torch.randn((n, howo, g * cg), generator=gen).bfloat16()
+    before = (dcnv3.dcnv3_sample.bf16_launches,
+              dcnv3.dcnv3_sample_backward.bf16_launches)
+    args = [t.to(cuda) for t in (value, py, px, mask)]
+    out = dcnv3.dcnv3_sample(*args)
+    grads = dcnv3.dcnv3_sample_backward(*args, dout.to(cuda))
+    torch.cuda.synchronize()
+    assert (dcnv3.dcnv3_sample.bf16_launches,
+            dcnv3.dcnv3_sample_backward.bf16_launches) == (
+                before[0] + 1, before[1] + 1)
+    assert out.dtype == grads[0].dtype == torch.bfloat16
+    assert within_one_bf16_ulp(out.cpu(), dcnv3.dcnv3_sample_reference(
+        value, py, px, mask))
+    want = dcnv3.dcnv3_sample_backward_reference(value, py, px, mask, dout)
+    assert within_one_bf16_ulp(grads[0].cpu(), want[0])
+    for gv, wv in zip(grads[1:], want[1:]):
+        assert gv.dtype == torch.float32
+        assert (gv.cpu() - wv).abs().max() <= BF16_GRAD_RTOL * wv.abs().max()
+
+
+def test_bf16_tiny_model_card_matches_cpu(cuda):
+    """The tiny model at bf16 on the card against the CPU at bf16, at
+    ``chip_smoke``'s (bf16 tiny) tolerances: class agreement >= 0.99 and
+    the largest logit gap <= 0.064 (the JAX package's own
+    bf16-against-f32 gap on the tiny model)."""
+    from chip_smoke import BF16_AGREEMENT, BF16_LOGIT_GAP
+    from spike2former_tpu_torch.engine.config import build_model
+
+    cfg = get_config(PRESET, TINY_OPTS + ["model.dtype='bfloat16'"])
+
+    cpu = randomize_(build_model(cfg.model), seed=1)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, 64, 64, 3)).astype(np.float32))
+    before = dcnv3.dcnv3_sample.bf16_launches
+    with torch.inference_mode():
+        want = cpu.predict_logits(x).float()
+        got = gpu.predict_logits(x.to(cuda)).float().cpu()
+    assert dcnv3.dcnv3_sample.bf16_launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= BF16_AGREEMENT
+    assert (got - want).abs().max() <= BF16_LOGIT_GAP

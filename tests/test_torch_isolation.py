@@ -31,9 +31,10 @@ def test_port_and_chip_smoke_import_without_jax():
     runs chip_smoke's reference-format state dict (which reads
     ``tests/torch_golden.py``)."""
     modules = _port_modules() + ["chip_smoke"]
-    for name in ("ops.dcnv3", "losses.losses", "losses.matcher",
-                 "losses.criterion", "engine.train", "engine.optim",
-                 "data.loader", "data.transforms", "engine.checkpoint",
+    for name in ("ops.dcnv3", "ops.spike_op", "losses.losses",
+                 "losses.matcher", "losses.criterion", "engine.train",
+                 "engine.optim", "data.loader", "data.transforms",
+                 "engine.checkpoint",
                  "engine.logging", "evaluation.visualize", "tools.train",
                  "tools.test"):
         assert f"spike2former_tpu_torch.{name}" in modules

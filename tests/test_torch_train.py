@@ -79,7 +79,10 @@ def _recording(tx):
     return optax.GradientTransformation(init, update)
 
 
-def _run_jax(jm, variables, batches, accum_steps, matcher, compact_gt):
+def _run_jax(jm, variables, batches, accum_steps, matcher, compact_gt,
+             compiler_options=None):
+    """JAX's jitted step over ``batches``; ``compiler_options`` (e.g.
+    ``torch_port_helpers.EXACT_BF16``) go to its compilation."""
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     stats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
     tx = _recording(make_optimizer(params, warmup_iters=1))
@@ -88,6 +91,10 @@ def _run_jax(jm, variables, batches, accum_steps, matcher, compact_gt):
     step = jax.jit(jtrain.make_train_step(
         jm, tx, num_classes=NUM_CLASSES, matcher=matcher, loss_at="gt",
         accum_steps=accum_steps, compact_gt=compact_gt))
+    if compiler_options:
+        images, sem = batches[0]
+        step = step.lower(state, jnp.asarray(images), jnp.asarray(sem)
+                          ).compile(compiler_options=compiler_options)
     metrics, grads = [], []
     for images, sem in batches:
         state, m = step(state, jnp.asarray(images), jnp.asarray(sem))

@@ -80,14 +80,17 @@ def randomize_variables(variables, seed: int = 0, fan_in_scaled=False):
 
 
 def make_pair(cfg=TINY, compat=False, T=1, collapse_t=True, seed=0,
-              init_hw=(64, 64), fan_in_scaled=False):
-    """(jax_model, variables, port_model) with identical weights; the port
-    model is on the CPU in eval mode."""
-    jm = JaxSpike2Former(T=T, compat=compat, collapse_t=collapse_t, **cfg)
+              init_hw=(64, 64), fan_in_scaled=False, dtype="float32"):
+    """(jax_model, variables, port_model) with identical weights, both
+    computing in ``dtype`` ('float32' or 'bfloat16'); the port model is on
+    the CPU in eval mode."""
+    jm = JaxSpike2Former(T=T, compat=compat, collapse_t=collapse_t,
+                         dtype=getattr(jnp, dtype), **cfg)
     variables = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
                                jnp.zeros((1, *init_hw, 3), jnp.float32))
     variables = randomize_variables(variables, seed, fan_in_scaled)
-    pm = Spike2Former(T=T, compat=compat, collapse_t=collapse_t, **cfg)
+    pm = Spike2Former(T=T, compat=compat, collapse_t=collapse_t,
+                      dtype=getattr(torch, dtype), **cfg)
     pm.load_state_dict(from_jax_variables(variables), strict=True)
     return jm, variables, pm.eval()
 
@@ -116,6 +119,21 @@ def load_port(jax_module, port_module, *args, seed=0):
     port_module.load_state_dict(from_jax_variables(variables), strict=True)
     port_module.eval()
     return variables
+
+
+# XLA may keep the intermediates of fused bf16 ops in f32
+# (``xla_allow_excess_precision``, on by default), which op-by-op JAX does
+# not: in a quantized net the skipped roundings flip q8 spike levels, so a
+# jitted bf16 reference would drift from JAX's own op-by-op semantics.
+# The bf16 parity tests compile their JAX references without that licence:
+# each op rounds to bf16, as op-by-op JAX and the port do.
+EXACT_BF16 = {"xla_allow_excess_precision": False}
+
+
+def jit_exact(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled under ``EXACT_BF16``."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options=EXACT_BF16)(*args)
 
 
 def run_both(jax_module, port_module, *args, seed=0):
