@@ -1,6 +1,6 @@
-"""Single-image inference API (port of ``spike2former_tpu/api.py``:
-``init_model``, ``inference_model``) and the training entry points
-``init_trainer`` / ``train_steps`` (``engine/train.py``).
+"""Inference API (port of ``spike2former_tpu/api.py``: ``init_model``,
+``inference_model``, the batch ``Inferencer``) and the training entry
+points ``init_trainer`` / ``train_steps`` (``engine/train.py``).
 
 Runs on the card unless ``device="cpu"`` is passed; with no card and no
 device asked for, ``init_model`` and ``init_trainer`` raise.
@@ -11,10 +11,12 @@ what is float32 runs in full float32 whatever the caller's TF32 flags
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from PIL import Image
 
 from .data.metainfo import DATASETS
 from .data.transforms import load_image, test_pipeline
@@ -24,6 +26,7 @@ from .engine.config import Config, build_model, get_config
 from .engine.inference import postprocess_pred, whole_logits
 from .engine.train import init_trainer, train_steps  # noqa: F401
 from .engine.weights import randomize_
+from .evaluation.visualize import draw_sem_seg
 from .models.segmentor import Spike2Former
 
 
@@ -90,3 +93,48 @@ def inference_model(im: InferenceModel, image: str | np.ndarray
         logits = whole_logits(im.model, x)
         pred = postprocess_pred(logits, hw, img.shape[:2])
     return pred[0].cpu().numpy()
+
+
+class Inferencer:
+    """Batch inference (the JAX package's ``Inferencer``, mmseg's
+    MMSegInferencer): one image or a list of them, as paths or RGB arrays,
+    through ``inference_model``; with ``out_dir``, each prediction's
+    palette overlay on its image goes to ``{out_dir}/{name}_pred.png``
+    (``name`` the file's stem, or ``img_{i}`` for an array).  The
+    arguments are ``init_model``'s: the card unless ``device="cpu"``."""
+
+    def __init__(self, config: str | Config, checkpoint: str | None = None,
+                 overrides: list[str] | None = None,
+                 device: str | torch.device | None = None, seed: int = 0,
+                 state_dict: dict[str, torch.Tensor] | None = None):
+        self.im = init_model(config, checkpoint, overrides, device=device,
+                             seed=seed, state_dict=state_dict)
+
+    @property
+    def classes(self) -> tuple:
+        return self.im.classes
+
+    def __call__(self, inputs, out_dir: str | None = None,
+                 opacity: float = 0.5) -> dict:
+        """Returns ``{'predictions': [[H, W] int32, ...],
+        'visualization': [path, ...]}`` (no paths without ``out_dir``)."""
+        items = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+        meta = DATASETS[self.im.cfg.data.dataset]
+        palette = (np.asarray(meta.palette, np.uint8)
+                   if meta.palette is not None else None)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+        preds, paths = [], []
+        for i, item in enumerate(items):
+            img = load_image(item) if isinstance(item, str) else item
+            pred = inference_model(self.im, img)
+            preds.append(pred)
+            if out_dir:
+                name = (os.path.splitext(os.path.basename(item))[0]
+                        if isinstance(item, str) else f"img_{i}")
+                path = os.path.join(out_dir, f"{name}_pred.png")
+                Image.fromarray(draw_sem_seg(img.astype(np.uint8), pred,
+                                             palette=palette,
+                                             alpha=opacity)).save(path)
+                paths.append(path)
+        return {"predictions": preds, "visualization": paths}

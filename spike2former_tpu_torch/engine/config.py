@@ -1,11 +1,17 @@
-"""Config dataclasses, the flagship preset and dot-key overrides (port of
-``spike2former_tpu/engine/config.py``, without JAX).
+"""Config dataclasses, the SDTv2 MaskFormer presets and dot-key overrides
+(port of ``spike2former_tpu/engine/config.py``, without JAX).
 
 Only the fields that inference, evaluation, the semantic train step and the
 train CLI of the SDTv2 MaskFormer read are kept, so an override of
-anything else (``model.variant``, ``model.kind``, ``train.loss_points``,
-...) is rejected as an unknown key; the other presets wait for later
-slices of the port.
+anything else (``model.variant``, ``model.kind``, ...) is rejected as an
+unknown key.  The presets are the SDTv2 MaskFormer's on ADE20K,
+Cityscapes, VOC 2012 and COCO-Stuff (the same model on other data); the
+SDTv3 and panoptic ones wait for later slices of the port.
+
+``train.loss_points > 0`` trains with the point-sampled matching costs
+and mask losses (``losses/point_sample.py``; 12544 points, oversample 3.0
+and importance 0.75 upstream); the presets keep 0, the reference's
+active recipe.
 
 ``model.dtype`` ('float32' or 'bfloat16') is the compute dtype of the
 convolutions and dense layers, as flax's ``dtype=``; parameters, BN
@@ -94,6 +100,13 @@ class TrainConfig:
     # (ops/spike_op.py): bit-identical gradients, less activation memory
     packed_residuals: bool = False
     layer_decay_rate: float = 0.0     # >0: layer-wise lr decay (optim.py)
+    # point-sampled matching and mask losses (the Mask2Former recipe):
+    # 0 = off (the loss_at path); 12544 upstream
+    loss_points: int = 0
+    loss_points_oversample: float = 3.0
+    loss_points_importance: float = 0.75
+    # the gradient-carrying point sampler's operand dtype
+    loss_points_dtype: str = "float32"
     seed: int = 0
 
 
@@ -168,11 +181,49 @@ def _ade_spike2former_sdtv2() -> Config:
     """SDTv2_maskformer_DCNpixelDecoder_ade20k.py, the flagship."""
     return Config(name="SDTv2_maskformer_DCNpixelDecoder_ade20k",
                   model=ModelConfig(T=1, num_classes=150),
-                  data=DataConfig(dataset="ade20k"),
+                  data=DataConfig(dataset="ade20k", batch_size=6),
                   test=TestConfig(mode="whole"))
 
 
-PRESETS = {"SDTv2_maskformer_DCNpixelDecoder_ade20k": _ade_spike2former_sdtv2}
+def _cityscapes_spike2former_sdtv2() -> Config:
+    """SDTv2_maskformer_DCNPixelDecoder_CityScapes.py: 512x1024 crops,
+    whole-image eval at (2048, 1024)."""
+    return Config(name="SDTv2_maskformer_DCNPixelDecoder_CityScapes",
+                  model=ModelConfig(T=1, num_classes=19),
+                  data=DataConfig(dataset="cityscapes", crop_size=(512, 1024),
+                                  data_root="data/cityscapes",
+                                  test_scale=(2048, 1024), batch_size=2),
+                  test=TestConfig(mode="whole"))
+
+
+def _voc_spike2former_sdtv2() -> Config:
+    """SDTv2_Spike2former_voc_512x512.py."""
+    return Config(name="SDTv2_Spike2former_voc_512x512",
+                  model=ModelConfig(T=1, num_classes=21),
+                  data=DataConfig(dataset="voc2012",
+                                  data_root="data/VOCdevkit/VOC2012",
+                                  test_scale=(2048, 512)))
+
+
+def _cocostuff_spike2former_sdtv2(k: str) -> Config:
+    """SDTv2_maskformer_cocostuff{10k,164k}_512x512.py: both read the
+    164k layout, as the JAX package's presets do."""
+    return Config(name=f"SDTv2_maskformer_cocostuff{k}_512x512",
+                  model=ModelConfig(T=1, num_classes=171),
+                  data=DataConfig(dataset="coco_stuff164k",
+                                  data_root="data/coco_stuff164k"))
+
+
+PRESETS = {
+    "SDTv2_maskformer_DCNpixelDecoder_ade20k": _ade_spike2former_sdtv2,
+    "SDTv2_maskformer_DCNPixelDecoder_CityScapes":
+        _cityscapes_spike2former_sdtv2,
+    "SDTv2_Spike2former_voc_512x512": _voc_spike2former_sdtv2,
+    "SDTv2_maskformer_cocostuff10k_512x512":
+        lambda: _cocostuff_spike2former_sdtv2("10k"),
+    "SDTv2_maskformer_cocostuff164k_512x512":
+        lambda: _cocostuff_spike2former_sdtv2("164k"),
+}
 
 
 def get_config(name: str, overrides: list[str] | None = None) -> Config:

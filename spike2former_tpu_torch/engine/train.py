@@ -17,13 +17,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..device import f32_precision, resolve_device
 from ..losses.criterion import maskformer_loss, semantic_to_instances
+from ..losses.point_sample import Draw, uniform_draw
 from ..models.segmentor import Spike2Former, preprocess
-from .config import Config, TrainConfig, build_model, get_config
+from .config import (Config, TrainConfig, build_model, compute_dtype,
+                     get_config)
 from .optim import AdamW
 from .weights import randomize_
 
@@ -66,9 +69,26 @@ def init_state(model: Spike2Former, train_cfg: TrainConfig,
     return TrainState(model, opt)
 
 
+def point_generator(seed: int, step: int, microbatch: int,
+                    device: torch.device) -> torch.Generator:
+    """The ``torch.Generator`` on ``device`` of one microbatch's point
+    draws, seeded from (``seed``, ``step``, ``microbatch``), as the JAX
+    step folds the step and the microbatch into ``PRNGKey(seed)``: runs
+    are reproducible and a resumed run draws what it would have."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence(
+        [seed, step, microbatch]).generate_state(1, np.uint64)[0]))
+    return g
+
+
 def make_train_step(num_classes: int, max_gt: int = 64,
                     matcher: str = "auction", loss_at: str = "gt",
-                    accum_steps: int = 1, compact_gt: int = 32) -> Callable:
+                    accum_steps: int = 1, compact_gt: int = 32,
+                    num_points: int = 0, oversample_ratio: float = 3.0,
+                    importance_sample_ratio: float = 0.75,
+                    points_dtype: str = "float32", seed: int = 0,
+                    point_draw: Callable[[int, int], Draw] | None = None
+                    ) -> Callable:
     """Returns ``train_step(state, images_u8, sem_seg) -> (state,
     metrics)``.
 
@@ -85,6 +105,12 @@ def make_train_step(num_classes: int, max_gt: int = 64,
     ``compact_gt`` (0 disables) cuts the GT axis for the auction matcher
     where no slot past it is valid (``losses.criterion.maskformer_loss``).
 
+    ``num_points > 0`` trains on point-sampled matching costs and mask
+    losses (``train.loss_points`` and its ``oversample_ratio``,
+    ``importance_sample_ratio`` and ``points_dtype``).  Microbatch ``m``
+    of step ``s`` draws its points from ``point_draw(s, m)``, by default
+    the uniforms of ``point_generator(seed, s, m)``.
+
     The stages run inside ``torch.profiler.record_function`` ranges
     (``forward``, ``match_and_loss``, ``backward``, ``optimizer``), which
     ``profile_train.py`` reads."""
@@ -93,8 +119,9 @@ def make_train_step(num_classes: int, max_gt: int = 64,
             f"matcher must be 'auction' or 'host', got {matcher!r}")
     if loss_at not in ("gt", "pred"):
         raise ValueError(f"loss_at must be 'gt' or 'pred', got {loss_at!r}")
+    pdt = compute_dtype(points_dtype)
 
-    def microbatch(model, images, sem_seg) -> dict[str, torch.Tensor]:
+    def microbatch(model, images, sem_seg, draw) -> dict[str, torch.Tensor]:
         with record_function("forward"):
             cls_scores, mask_preds = model(preprocess(images))
         with record_function("match_and_loss"):
@@ -102,7 +129,12 @@ def make_train_step(num_classes: int, max_gt: int = 64,
             losses = maskformer_loss(cls_scores, mask_preds, gt,
                                      num_classes=num_classes,
                                      matcher=matcher, loss_at=loss_at,
-                                     compact_gt=compact_gt or None)
+                                     compact_gt=compact_gt or None,
+                                     num_points=num_points,
+                                     oversample_ratio=oversample_ratio,
+                                     importance_sample_ratio=(
+                                         importance_sample_ratio),
+                                     points_dtype=pdt, draw=draw)
         with record_function("backward"):
             (losses["total"] / accum_steps).backward()
         losses = {k: v.detach() for k, v in losses.items()}
@@ -118,8 +150,15 @@ def make_train_step(num_classes: int, max_gt: int = 64,
                              f"{accum_steps} microbatches")
         for p in model.parameters():
             p.grad = None
-        per_mb = [microbatch(model, im, seg) for im, seg in zip(
-            images_u8.chunk(accum_steps), sem_seg.chunk(accum_steps))]
+        per_mb = []
+        for m, (im, seg) in enumerate(zip(images_u8.chunk(accum_steps),
+                                          sem_seg.chunk(accum_steps))):
+            draw = None
+            if num_points:
+                draw = (point_draw(state.step, m) if point_draw else
+                        uniform_draw(point_generator(seed, state.step, m,
+                                                     im.device)))
+            per_mb.append(microbatch(model, im, seg, draw))
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                    for k in per_mb[0]}
         with record_function("optimizer"):
@@ -153,10 +192,13 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
     dev = resolve_device(device)
     cfg = get_config(config, overrides) if isinstance(config, str) else config
     t = cfg.train
-    step_fn = make_train_step(cfg.model.num_classes, max_gt=t.max_gt,
-                              matcher=t.matcher, loss_at=t.loss_at,
-                              accum_steps=t.accum_steps,
-                              compact_gt=t.compact_gt)
+    step_fn = make_train_step(
+        cfg.model.num_classes, max_gt=t.max_gt, matcher=t.matcher,
+        loss_at=t.loss_at, accum_steps=t.accum_steps,
+        compact_gt=t.compact_gt, num_points=t.loss_points,
+        oversample_ratio=t.loss_points_oversample,
+        importance_sample_ratio=t.loss_points_importance,
+        points_dtype=t.loss_points_dtype, seed=t.seed)
     model = build_model(cfg.model, packed_residuals=t.packed_residuals)
     if state_dict is None:
         randomize_(model, t.seed if seed is None else seed)

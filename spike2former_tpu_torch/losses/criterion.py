@@ -15,6 +15,14 @@ layer's ``[B, G, H, W]`` buffers are alive at a time.
 the JAX package; under the host matcher the GT axis stays at the full
 ``max_gt`` width.
 
+``num_points > 0`` is the point-sampled Mask2Former recipe
+(``losses/point_sample.py``): the matching costs of each layer on one
+shared uniform point set per image, and the mask losses of each matched
+pair on ``num_points`` uncertainty-importance points, where the JAX
+package draws its coordinates from ``jax.random`` keys and the port from
+a ``Draw`` (a seeded ``torch.Generator`` in training; the JAX draws in the
+parity tests).
+
 The losses take float32 logits: a bf16 model's mask logits are float32
 sums of its bf16 mask features (``LazyMasks``), and its class scores are
 float32.  The matching costs of such a model see its mask logits rounded
@@ -31,6 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.resize import resize_bilinear_hw, resize_nearest_torch
 from .losses import dice_loss, sigmoid_focal_loss, weighted_cross_entropy
 from .matcher import auction_match, hungarian_host, match_costs
+from .point_sample import (Draw, point_sample, point_sample_shared,
+                           point_sample_slot, uncertain_point_coords)
 
 
 class LazyMasks(NamedTuple):
@@ -142,9 +152,9 @@ def classification_targets(matched_q: torch.Tensor, gt_labels: torch.Tensor,
 
 
 def _layer_loss(cls_scores, pred_at_gt, matched_q, gt: GroundTruth,
-                slot_ds, *, num_classes: int, class_weight,
+                slot_ds, draws=None, *, num_classes: int, class_weight,
                 focal_weight: float, dice_weight: float, num_total_masks,
-                loss_at: str):
+                loss_at: str, point_cfg: tuple | None = None):
     """Losses of one decoder layer, given its assignment.
 
     cls_scores [B, nq, K+1]; pred_at_gt [B, G, h, w] logits of the query
@@ -152,13 +162,39 @@ def _layer_loss(cls_scores, pred_at_gt, matched_q, gt: GroundTruth,
     slot_ds [B, h, w] the slot map nearest-downsampled to mask resolution.
     ``loss_at='gt'`` upsamples the predictions bilinearly to GT resolution
     (the reference, maskformer_head.py:475-479); ``'pred'`` takes the
-    downsampled GT instead."""
+    downsampled GT instead.
+
+    ``point_cfg = (num_points, oversample, importance, dtype)`` takes the
+    mask losses on each pair's uncertainty-importance points instead
+    (mask2former_track_head.py:405-436; JAX criterion.py:376-405), made
+    from ``draws`` (the oversampled and the fresh uniforms, drawn before
+    the call so that the backward's recomputation sees the same): the
+    ranking and the GT targets at bfloat16, the predictions at ``dtype``;
+    dice over the points with ``avg_factor = num_total_masks`` and focal
+    with ``num_total_masks * num_points``."""
     b, nq = cls_scores.shape[:2]
     g = gt.labels.shape[1]
     labels = classification_targets(matched_q, gt.labels, nq, num_classes)
     loss_cls = weighted_cross_entropy(
         cls_scores.reshape(b * nq, -1), labels.reshape(-1), class_weight)
     pair_w = (gt.valid & (matched_q >= 0)).float()       # [B, G]
+    if point_cfg is not None:
+        n_pts, osr, imp, pdt = point_cfg
+        queue = list(draws)
+        coords = uncertain_point_coords(
+            pred_at_gt.float(), n_pts, osr, imp,
+            draw=lambda shape: queue.pop(0), dtype=torch.bfloat16)
+        pred_pts = point_sample(pred_at_gt, coords, dtype=pdt)  # [B, G, P]
+        tgt_pts = point_sample_slot(gt.slot_map, g, coords,
+                                    dtype=torch.bfloat16)
+        loss_dice = dice_loss(
+            pred_pts.reshape(b * g, n_pts), tgt_pts.reshape(b * g, n_pts),
+            weight=pair_w.reshape(-1), eps=1.0, naive=True, activate=True,
+            avg_factor=num_total_masks)
+        loss_focal = sigmoid_focal_loss(
+            pred_pts, tgt_pts, weight=pair_w[..., None],
+            avg_factor=num_total_masks * n_pts)
+        return (loss_cls, loss_focal * focal_weight, loss_dice * dice_weight)
     if loss_at == "gt":
         gh, gw = gt.gt_hw
         pred_m = resize_bilinear_hw(pred_at_gt, (gh, gw))
@@ -180,24 +216,26 @@ def _layer_loss(cls_scores, pred_at_gt, matched_q, gt: GroundTruth,
 
 
 def _lazy_layer_loss(cls_scores, embeds_l, feats, matched_q, gt, slot_ds,
-                     **kw):
+                     draws=None, **kw):
     safe_q = torch.where(matched_q >= 0, matched_q, 0)
     return _layer_loss(cls_scores, slot_logits(embeds_l, feats, safe_q),
-                       matched_q, gt, slot_ds, **kw)
+                       matched_q, gt, slot_ds, draws, **kw)
 
 
-def _dense_layer_loss(cls_scores, masks_l, matched_q, gt, slot_ds, **kw):
+def _dense_layer_loss(cls_scores, masks_l, matched_q, gt, slot_ds,
+                      draws=None, **kw):
     safe_q = torch.where(matched_q >= 0, matched_q, 0)
     idx = safe_q[:, :, None, None].expand(-1, -1, *masks_l.shape[-2:])
     return _layer_loss(cls_scores, masks_l.gather(1, idx), matched_q, gt,
-                       slot_ds, **kw)
+                       slot_ds, draws, **kw)
 
 
 @torch.no_grad()
 def match_all_layers(all_cls_scores: torch.Tensor, all_mask_preds,
-                     gt: GroundTruth, slot_ds: torch.Tensor, *,
+                     gt: GroundTruth, slot_ds: torch.Tensor | None, *,
                      matcher: str = "host", focal_weight: float = 20.0,
-                     dice_weight: float = 1.0
+                     dice_weight: float = 1.0,
+                     point_coords: list[torch.Tensor] | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The assignment of every layer in ONE matcher call over the L*B cost
     matrices (one host round trip for ``'host'``, one auction for
@@ -205,13 +243,25 @@ def match_all_layers(all_cls_scores: torch.Tensor, all_mask_preds,
     invalid or unmatched, and the number of columns the auction's greedy
     repair filled (0 for the host matcher, which always completes).
     Costs are taken at mask resolution against the nearest-downsampled
-    GT."""
+    GT, or with ``point_coords`` (one [B, P, 2] point set per layer) on
+    the predictions and GT sampled at those points
+    (mask2former_track_head.py:300-319; JAX criterion.py:600-625)."""
     num_layers, b = all_cls_scores.shape[:2]
     g = gt.labels.shape[1]
     lazy = isinstance(all_mask_preds, LazyMasks)
-    gt_cost = slot_masks(slot_ds, g).reshape(b, g, -1).float()
+    if point_coords is None:
+        gt_cost = slot_masks(slot_ds, g).reshape(b, g, -1).float()
     costs = []
     for li in range(num_layers):
+        if point_coords is not None:
+            mask_l = (all_mask_preds.layer(all_mask_preds.embeds[li])
+                      if lazy else all_mask_preds[li])
+            pts = point_coords[li]
+            costs.append(match_costs(
+                all_cls_scores[li], point_sample_shared(mask_l, pts),
+                gt.labels, point_sample_slot(gt.slot_map, g, pts), gt.valid,
+                focal_weight=focal_weight, dice_weight=dice_weight))
+            continue
         if lazy:
             # a bf16 model's costs take bf16 logits (JAX criterion.py:638)
             mask_l = all_mask_preds.layer_flat(
@@ -237,8 +287,11 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
                     gt: GroundTruth, *, num_classes: int,
                     bg_class_weight: float = 0.1, focal_weight: float = 20.0,
                     dice_weight: float = 1.0, matcher: str = "host",
-                    loss_at: str = "pred", compact_gt: int | None = None
-                    ) -> dict[str, torch.Tensor]:
+                    loss_at: str = "pred", compact_gt: int | None = None,
+                    num_points: int = 0, oversample_ratio: float = 3.0,
+                    importance_sample_ratio: float = 0.75,
+                    points_dtype: torch.dtype = torch.float32,
+                    draw: Draw | None = None) -> dict[str, torch.Tensor]:
     """Deep-supervised loss over all L layers (loss_by_feat :367-408).
 
     all_cls_scores [L, B, nq, K+1]; all_mask_preds dense [L, B, nq, h, w]
@@ -254,12 +307,21 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
     ``minimum(slot_map, compact_gt)``) with no change to any number:
     invalid columns carry ``BIG_COST`` and zero pair weight.  Otherwise
     the loss runs at full width.  JAX picks the branch on the device with
-    ``lax.cond``; here the overflow test is one host read per call."""
+    ``lax.cond``; here the overflow test is one host read per call.
+
+    ``num_points > 0`` (``train.loss_points``) takes the matching costs and
+    the mask losses on sampled points (the module docstring), with the
+    uniforms from ``draw``, in this order: each layer's shared matching
+    points [B, P, 2], then for each layer the per-pair oversampled points
+    [B, G, P * oversample, 2] and the fresh ones.  ``points_dtype`` is the
+    gradient-carrying sampler's (``train.loss_points_dtype``)."""
     if loss_at not in ("pred", "gt"):
         raise ValueError(f"loss_at must be 'pred' or 'gt', got {loss_at!r}")
     if matcher not in ("host", "auction"):
         raise ValueError(
             f"matcher must be 'host' or 'auction', got {matcher!r}")
+    if num_points and draw is None:
+        raise ValueError("num_points > 0 needs a draw of uniforms")
     gc = compact_gt
     if (gc and gc < gt.labels.shape[1] and matcher != "host"
             and not bool(gt.valid[:, gc:].any())):
@@ -269,7 +331,10 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
         return maskformer_loss(
             all_cls_scores, all_mask_preds, small, num_classes=num_classes,
             bg_class_weight=bg_class_weight, focal_weight=focal_weight,
-            dice_weight=dice_weight, matcher=matcher, loss_at=loss_at)
+            dice_weight=dice_weight, matcher=matcher, loss_at=loss_at,
+            num_points=num_points, oversample_ratio=oversample_ratio,
+            importance_sample_ratio=importance_sample_ratio,
+            points_dtype=points_dtype, draw=draw)
     dev = all_cls_scores.device
     class_weight = torch.tensor([1.0] * num_classes + [bg_class_weight],
                                 device=dev)
@@ -277,15 +342,34 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
     num_layers = all_cls_scores.shape[0]
     lazy = isinstance(all_mask_preds, LazyMasks)
     h, w = (all_mask_preds.mask_hw if lazy else all_mask_preds.shape[-2:])
-    slot_ds = resize_nearest_torch(gt.slot_map[..., None], (h, w))[..., 0]
+    b, g = gt.labels.shape
+    point_cfg = match_pts = None
+    if num_points:
+        # the point path samples GT at its own resolution: no slot_ds
+        slot_ds = None
+        point_cfg = (num_points, oversample_ratio, importance_sample_ratio,
+                     points_dtype)
+        match_pts = [draw((b, num_points, 2)).to(dev)
+                     for _ in range(num_layers)]
+        n_imp = int(importance_sample_ratio * num_points)
+        shapes = [(b, g, int(num_points * oversample_ratio), 2)]
+        if num_points > n_imp:
+            shapes.append((b, g, num_points - n_imp, 2))
+    else:
+        slot_ds = resize_nearest_torch(gt.slot_map[..., None],
+                                       (h, w))[..., 0]
     matched, repaired = match_all_layers(
         all_cls_scores, all_mask_preds, gt, slot_ds, matcher=matcher,
-        focal_weight=focal_weight, dice_weight=dice_weight)
+        focal_weight=focal_weight, dice_weight=dice_weight,
+        point_coords=match_pts)
     kw = dict(num_classes=num_classes, class_weight=class_weight,
               focal_weight=focal_weight, dice_weight=dice_weight,
-              num_total_masks=num_total, loss_at=loss_at)
+              num_total_masks=num_total, loss_at=loss_at,
+              point_cfg=point_cfg)
     per_layer = []
     for li in range(num_layers):
+        draws = ([draw(s).to(dev) for s in shapes] if num_points
+                 else None)
         if lazy:
             fn, mask_args = _lazy_layer_loss, (all_mask_preds.embeds[li],
                                                all_mask_preds.feats)
@@ -294,7 +378,7 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
         # recomputed in the backward: one layer's buffers alive at a time
         per_layer.append(checkpoint(
             fn, all_cls_scores[li], *mask_args, matched[li], gt, slot_ds,
-            use_reentrant=False, **kw))
+            draws, use_reentrant=False, **kw))
     losses: dict[str, torch.Tensor] = {}
     for k, name in enumerate(("loss_cls", "loss_mask", "loss_dice")):
         losses[name] = per_layer[-1][k]

@@ -20,12 +20,12 @@ class TokenConvBN(nn.Module):
 
     def __init__(self, cin: int, features: int, dtype=torch.float32):
         super().__init__()
-        self.spike = Spike()
+        self.Spike_0 = Spike()
         self.Conv_0 = Linear(cin, features, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x):
-        return self.BatchNorm_0(self.Conv_0(self.spike(x)))
+        return self.BatchNorm_0(self.Conv_0(self.Spike_0(x)))
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -58,7 +58,9 @@ class SpikeMHA(nn.Module):
         super().__init__()
         self.embed_dims, self.num_heads = embed_dims, num_heads
         self.factored, self.factored_min_kv = factored, factored_min_kv
-        self.spike = Spike()
+        # Spike_0-2 on q, k and v, Spike_3 on the merged heads
+        for i in range(4):
+            setattr(self, f"Spike_{i}", Spike())
         self.q = TokenConvBN(embed_dims, embed_dims, dtype)
         self.k = TokenConvBN(embed_dims, embed_dims, dtype)
         self.v = TokenConvBN(embed_dims, embed_dims, dtype)
@@ -66,9 +68,9 @@ class SpikeMHA(nn.Module):
         self.BatchNorm_0 = BatchNorm(embed_dims)
 
     def forward(self, query, key, value, attn_mask=None):
-        q = self.spike(self.q(query))
-        k = self.spike(self.k(key))
-        v = self.spike(self.v(value))
+        q = self.Spike_0(self.q(query))
+        k = self.Spike_1(self.k(key))
+        v = self.Spike_2(self.v(value))
         dt = q.dtype
         qh, kh, vh = (_split_heads(y, self.num_heads).float()
                       for y in (q, k, v))
@@ -81,7 +83,7 @@ class SpikeMHA(nn.Module):
             if attn_mask is not None:
                 scores = scores.masked_fill(attn_mask, 0.0)
             out = (scores.to(dt).float() @ vh).to(dt)
-        out = self.spike(_merge_heads(out))
+        out = self.Spike_3(_merge_heads(out))
         return self.BatchNorm_0(self.Conv_0(out))
 
 
@@ -100,7 +102,7 @@ class MSDAFFN(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.compat = compat
-        self.spike = Spike()
+        self.Spike_0, self.Spike_1 = Spike(), Spike()
         self.Conv_0 = Linear(embed_dims, feedforward_channels, dtype=dtype,
                              spike_input=True)
         self.BatchNorm_0 = BatchNorm(feedforward_channels)
@@ -110,7 +112,7 @@ class MSDAFFN(nn.Module):
 
     def forward(self, x):
         xf, t = fold_t(x)
-        xf = self.spike(xf)
+        xf = self.Spike_0(xf)
         shape = xf.shape
         spatial = xf.dim() == 4
         if self.compat:
@@ -120,7 +122,7 @@ class MSDAFFN(nn.Module):
             xf = (xf.reshape(tb, -1, c) if spatial
                   else xf.reshape(tb, c, -1).transpose(1, 2))
         xf = self.BatchNorm_0(self.Conv_0(xf))
-        xf = self.BatchNorm_1(self.Conv_1(self.spike(xf)))
+        xf = self.BatchNorm_1(self.Conv_1(self.Spike_1(xf)))
         if self.compat:
             xf = xf.transpose(1, 2).reshape(shape)
         return unfold_t(xf, t)
@@ -134,12 +136,12 @@ class SpikeMLP3(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.quant_const = quant_const
-        self.spike = Spike()
+        self.Spike_0, self.Spike_1 = Spike(), Spike()
         self.Dense_0 = Linear(dim, dim, bias=False, dtype=dtype)
         self.Dense_1 = Linear(dim, dim, bias=False, dtype=dtype)
         self.Dense_2 = Linear(dim, out_dim, dtype=dtype)
 
     def forward(self, x):
-        x = self.spike(self.Dense_0(x)) * self.quant_const
-        x = self.spike(self.Dense_1(x)) * self.quant_const
+        x = self.Spike_0(self.Dense_0(x)) * self.quant_const
+        x = self.Spike_1(self.Dense_1(x)) * self.quant_const
         return self.Dense_2(x)

@@ -30,7 +30,7 @@ class DCNv3(nn.Module):
         sep_kw = dict(kernel_size=dw_kernel_size, padding=dw_pad,
                       dw_bn=True, num_spikes=3, dtype=dtype)
         spiked = dict(dtype=dtype, spike_input=True)
-        self.spike = Spike()
+        self.Spike_0, self.Spike_1, self.Spike_2 = Spike(), Spike(), Spike()
         self.input_proj = SepConv(channels, **sep_kw)
         self.dw_conv = conv2d(channels, channels, dw_kernel_size, pad=dw_pad,
                               groups=channels, **spiked)
@@ -46,8 +46,8 @@ class DCNv3(nn.Module):
         t, _, h, w, _ = x.shape
         value = self.input_proj(x)
 
-        x1f = self.spike(fold_t(x)[0])
-        x1f = self.spike(self.dw_bn(conv_nhwc(self.dw_conv, x1f)))
+        x1f = self.Spike_0(fold_t(x)[0])
+        x1f = self.Spike_1(self.dw_bn(conv_nhwc(self.dw_conv, x1f)))
         offset = self.offset_bn(conv_nhwc(self.offset_conv, x1f))
         mask = self.mask_bn(conv_nhwc(self.mask_conv, x1f))
         if self.compat:
@@ -57,7 +57,7 @@ class DCNv3(nn.Module):
             tb = offset.shape[0]
             offset = offset.permute(0, 3, 1, 2).reshape(tb, h, w, -1)
             mask = mask.permute(0, 3, 1, 2).reshape(tb, h, w, -1)
-        mask = self.spike(mask)
+        mask = self.Spike_2(mask)
 
         out = dcnv3_core(fold_t(value)[0], offset, mask, group=self.group,
                          group_channels=self.channels // self.group)

@@ -139,12 +139,55 @@ def conv2d(cin: int, cout: int, k: int = 1, stride: int = 1, pad: int = 0,
                   bias=bias, dtype=dtype, spike_input=spike_input)
 
 
+_OBSERVE = threading.local()
+
+
 class Spike(nn.Module):
     """Quantized spike site (``qspike``, the only kind on the SDTv2 path),
-    in its input's dtype."""
+    in its input's dtype.
+
+    Each site of the JAX package's model is one ``Spike`` submodule here,
+    named as flax names it (``Spike_0``, ``Spike_1``, ... in call order, or
+    the JAX module's explicit name), so ``observe_spikes`` reports the
+    same site names as JAX's ``spikes`` collection."""
 
     def forward(self, x):
-        return qspike(x)
+        y = qspike(x)
+        sink = getattr(_OBSERVE, "sink", None)
+        if sink is not None:
+            sink(self, y)
+        return y
+
+
+@contextlib.contextmanager
+def observe_spikes(model: nn.Module):
+    """Record the firing statistics of every ``Spike`` site of ``model``
+    that runs inside the block (in this thread), as JAX's ``Spike`` sows
+    them (models/layers.py:74-93): ``{path}/rate`` = ``mean(y) * D`` (D
+    = 8, qspike's level) and
+    ``{path}/nonfire`` = ``mean(y == 0)``, with ``path`` the site's module
+    path joined by ``/``.  A site that runs more than once keeps its first
+    call's values.  Yields the dict, filled as the forward runs, of 0-dim
+    float32 tensors on the model's device.  Outside the block a site
+    computes nothing but its spike."""
+    names = {m: n.replace(".", "/") for n, m in model.named_modules()
+             if isinstance(m, Spike)}
+    stats: dict[str, torch.Tensor] = {}
+
+    def sink(mod: Spike, y: torch.Tensor) -> None:
+        name = names.get(mod)
+        if name is None or f"{name}/rate" in stats:
+            return
+        yf = y.detach().float()
+        stats[f"{name}/rate"] = yf.mean() * SPIKE_CODE_SCALE
+        stats[f"{name}/nonfire"] = (yf == 0).float().mean()
+
+    prev = getattr(_OBSERVE, "sink", None)
+    _OBSERVE.sink = sink
+    try:
+        yield stats
+    finally:
+        _OBSERVE.sink = prev
 
 
 MOMENTUM = 0.9  # flax convention: ra = m * ra + (1 - m) * batch
@@ -297,8 +340,8 @@ class SepConv(nn.Module):
                  dw_bn=False, num_spikes=2, dtype=torch.float32):
         super().__init__()
         med = int(expansion_ratio * dim)
-        self.num_spikes = num_spikes
-        self.spike = Spike()
+        self.Spike_0, self.Spike_1 = Spike(), Spike()
+        self.Spike_2 = Spike() if num_spikes >= 3 else None
         self.ConvBN_0 = ConvBN(dim, med, 1, dtype=dtype, spike_input=True)
         self.Conv_0 = conv2d(med, med, kernel_size, pad=padding, groups=med,
                              dtype=dtype, spike_input=True)
@@ -308,12 +351,12 @@ class SepConv(nn.Module):
 
     def forward(self, x):
         xf, t = fold_t(x)
-        xf = self.ConvBN_0(self.spike(xf))
-        xf = conv_nhwc(self.Conv_0, self.spike(xf))
+        xf = self.ConvBN_0(self.Spike_0(xf))
+        xf = conv_nhwc(self.Conv_0, self.Spike_1(xf))
         if self.BatchNorm_0 is not None:
             xf = self.BatchNorm_0(xf)
-        if self.num_spikes >= 3:
-            xf = self.spike(xf)
+        if self.Spike_2 is not None:
+            xf = self.Spike_2(xf)
         return unfold_t(self.ConvBN_1(xf), t)
 
 
@@ -323,7 +366,7 @@ class MSConvBlock(nn.Module):
 
     def __init__(self, dim: int, mlp_ratio: int = 4, dtype=torch.float32):
         super().__init__()
-        self.spike = Spike()
+        self.Spike_0, self.Spike_1 = Spike(), Spike()
         self.SepConv_0 = SepConv(dim, dtype=dtype)
         self.ConvBN_0 = ConvBN(dim, dim * mlp_ratio, 3, pad=1, dtype=dtype,
                                spike_input=True)
@@ -333,8 +376,8 @@ class MSConvBlock(nn.Module):
     def forward(self, x):
         x = x + self.SepConv_0(x)
         xf, t = fold_t(x)
-        xf = self.ConvBN_0(self.spike(xf))
-        xf = self.ConvBN_1(self.spike(xf))
+        xf = self.ConvBN_0(self.Spike_0(xf))
+        xf = self.ConvBN_1(self.Spike_1(xf))
         return x + unfold_t(xf, t)
 
 
@@ -343,7 +386,7 @@ class MSMLP(nn.Module):
 
     def __init__(self, dim: int, hidden: int, dtype=torch.float32):
         super().__init__()
-        self.spike = Spike()
+        self.Spike_0, self.Spike_1 = Spike(), Spike()
         self.Conv_0 = conv2d(dim, hidden, 1, bias=True, dtype=dtype,
                              spike_input=True)
         self.BatchNorm_0 = BatchNorm(hidden)
@@ -353,8 +396,8 @@ class MSMLP(nn.Module):
 
     def forward(self, x):
         xf, t = fold_t(x)
-        xf = self.BatchNorm_0(conv_nhwc(self.Conv_0, self.spike(xf)))
-        xf = self.BatchNorm_1(conv_nhwc(self.Conv_1, self.spike(xf)))
+        xf = self.BatchNorm_0(conv_nhwc(self.Conv_0, self.Spike_0(xf)))
+        xf = self.BatchNorm_1(conv_nhwc(self.Conv_1, self.Spike_1(xf)))
         return unfold_t(xf, t)
 
 
@@ -364,15 +407,14 @@ class DownSampling(nn.Module):
     def __init__(self, cin, cout, kernel=3, stride=2, padding=1,
                  first_layer=False, dtype=torch.float32):
         super().__init__()
-        self.first_layer = first_layer
-        self.spike = Spike()
+        self.Spike_0 = None if first_layer else Spike()
         self.Conv_0 = conv2d(cin, cout, kernel, stride, padding, bias=True,
                              dtype=dtype, spike_input=not first_layer)
         self.BatchNorm_0 = BatchNorm(cout)
 
     def forward(self, x):
         xf, t = fold_t(x)
-        if not self.first_layer:
-            xf = self.spike(xf)
+        if self.Spike_0 is not None:
+            xf = self.Spike_0(xf)
         xf = self.BatchNorm_0(conv_nhwc(self.Conv_0, xf))
         return unfold_t(xf, t)

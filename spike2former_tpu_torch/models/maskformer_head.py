@@ -64,7 +64,9 @@ class MaskFormerHead(nn.Module):
             setattr(self, f"decoder_{i}", DetrDecoderLayer(
                 c, num_heads, decoder_ffn_channels, compat=compat,
                 dtype=dtype))
-        self.spike = Spike()
+        self.decoder_out_spike = Spike()
+        self.shortcut_spike = Spike()
+        self.mask_embed_spike = Spike()
         self.cls_embed = Linear(c, num_classes + 1, dtype=dtype)
         self.mask_embed = SpikeMLP3(c, out_channels, quant_const=alpha,
                                     dtype=dtype)
@@ -78,17 +80,18 @@ class MaskFormerHead(nn.Module):
         (the factored half of the mask logits)."""
         a = self.alpha
         out_sig = torch.sigmoid(out.float()).to(out.dtype)
-        out_spiked = a * self.spike(out_sig)
+        out_spiked = a * self.decoder_out_spike(out_sig)
         cls_scores = self.cls_embed(out_spiked).mean(1)
         mask_embed = self.mask_embed(out_spiked)
         # shortcut: a conv over the QUERY axis + BN over queries
         # (maskformer_head.py:152-155,576-579), in the promoted dtype
-        sc = a * self.spike(out_sig)
+        sc = a * self.shortcut_spike(out_sig)
         dt = torch.promote_types(sc.dtype, self.shortcut_kernel.dtype)
         sc = torch.einsum("ltbqc,pq->ltbpc", sc.to(dt),
                           self.shortcut_kernel.to(dt))
         sc = self.shortcut_bn(sc.movedim(3, -1)).movedim(-1, 3)
-        return cls_scores.float(), a * self.spike(mask_embed + self.w * sc)
+        mask_embed = a * self.mask_embed_spike(mask_embed + self.w * sc)
+        return cls_scores.float(), mask_embed
 
     def sdme(self, out: torch.Tensor, mask_features: torch.Tensor):
         """out [L, T, B, nq, C] -> class scores [L, B, nq, ncls+1] and mask

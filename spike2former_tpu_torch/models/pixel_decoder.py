@@ -63,7 +63,7 @@ class DCNPixelDecoder(nn.Module):
         self.num_inputs = len(in_channels)
         self.num_encoder_layers = num_encoder_layers
         self.remat = remat
-        self.spike = Spike()
+        self.in_spike, self.out_spike = Spike(), Spike()
         self.encoder_in_proj = ConvBN(in_channels[-1], c, 1, bias=True, **dt)
         for i in range(num_encoder_layers):
             setattr(self, f"encoder_{i}", DCNEncoderLayer(
@@ -71,31 +71,35 @@ class DCNPixelDecoder(nn.Module):
                 compat=compat, **dt))
         self.encoder_out_proj = ConvBN(c, c, 1, bias=True, **dt)
         for idx, i in enumerate(range(self.num_inputs - 2, -1, -1)):
+            setattr(self, f"lateral_spike_{idx}", Spike())
+            setattr(self, f"output_spike_{idx}", Spike())
             setattr(self, f"lateral_{idx}",
                     ConvBN(in_channels[i], c, 1, bias=True, **dt))
             setattr(self, f"output_conv_{idx}",
                     conv2d(c, c, 3, pad=1, groups=c, **dt))
             setattr(self, f"output_bn_{idx}", BatchNorm(c))
+        self.mask_spike = Spike()
         self.mask_feature = conv2d(c, out_channels, 1, bias=True, **dt)
 
     def forward(self, feats: Sequence[torch.Tensor]):
         t = feats[-1].shape[0]
-        xf = self.encoder_in_proj(self.spike(fold_t(feats[-1])[0]))
+        xf = self.encoder_in_proj(self.in_spike(fold_t(feats[-1])[0]))
         x = unfold_t(xf, t)
         for i in range(self.num_encoder_layers):
             layer = getattr(self, f"encoder_{i}")
             x = remat(layer, x) if self.remat else layer(x)
-        memory = self.spike(x)
+        memory = self.out_spike(x)
         y = self.encoder_out_proj(fold_t(memory)[0])
 
         outs = [unfold_t(y, t)]
         for idx, i in enumerate(range(self.num_inputs - 2, -1, -1)):
-            lf = self.spike(fold_t(feats[i])[0])
+            lf = getattr(self, f"lateral_spike_{idx}")(fold_t(feats[i])[0])
             cur = getattr(self, f"lateral_{idx}")(lf)
             y = cur + resize_bilinear(y, tuple(cur.shape[1:3]))
-            y = conv_nhwc(getattr(self, f"output_conv_{idx}"), self.spike(y))
+            y = getattr(self, f"output_spike_{idx}")(y)
+            y = conv_nhwc(getattr(self, f"output_conv_{idx}"), y)
             y = getattr(self, f"output_bn_{idx}")(y)
             outs.append(unfold_t(y, t))
 
-        mask_feature = conv_nhwc(self.mask_feature, self.spike(y))
+        mask_feature = conv_nhwc(self.mask_feature, self.mask_spike(y))
         return unfold_t(mask_feature, t), memory, outs[:3]

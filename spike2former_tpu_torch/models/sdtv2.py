@@ -33,7 +33,10 @@ class SpikeAttention(nn.Module):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.scale = (dim // num_heads) ** -0.5
-        self.spike = Spike()
+        # Spike_0 on the input, Spike_1-3 on q, k and v, Spike_4 before
+        # the output projection (JAX's call order)
+        for i in range(5):
+            setattr(self, f"Spike_{i}", Spike())
         for name in ("q", "k", "v", "proj"):
             setattr(self, f"{name}_rep",
                     RepConv(dim, dim, dtype=dtype, spike_input=True))
@@ -42,18 +45,20 @@ class SpikeAttention(nn.Module):
     def forward(self, x):
         t, b, h, w, c = x.shape
         n, nh = h * w, self.num_heads
-        xf = self.spike(fold_t(x)[0])
+        xf = self.Spike_0(fold_t(x)[0])
 
-        def proj(name):
+        def proj(name, spike):
             y = getattr(self, f"{name}_bn")(getattr(self, f"{name}_rep")(xf))
             # [(T*B), H, W, C] -> [T*B, heads, N, C/heads]
-            return self.spike(y).reshape(t * b, n, nh, c // nh).transpose(1, 2)
+            return spike(y).reshape(t * b, n, nh, c // nh).transpose(1, 2)
 
-        q, k, v = proj("q"), proj("k"), proj("v")
+        q = proj("q", self.Spike_1)
+        k = proj("k", self.Spike_2)
+        v = proj("v", self.Spike_3)
         kv = k.transpose(-1, -2) @ v
         out = ((q.float() @ kv.float()) * self.scale).to(x.dtype)
         out = out.transpose(1, 2).reshape(t * b, h, w, c)
-        out = self.proj_bn(self.proj_rep(self.spike(out)))
+        out = self.proj_bn(self.proj_rep(self.Spike_4(out)))
         return unfold_t(out, t)
 
 

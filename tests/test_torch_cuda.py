@@ -619,3 +619,155 @@ def test_bf16_tiny_model_card_matches_cpu(cuda):
     assert torch.isfinite(got).all()
     assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= BF16_AGREEMENT
     assert (got - want).abs().max() <= BF16_LOGIT_GAP
+
+
+# --- firing rates, TTA, point-sampled losses, the Cityscapes preset ---------
+
+TINY_DIMS = dict(num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
+                 feat_channels=16, num_queries=4, num_decoder_layers=1,
+                 num_encoder_layers=1, depths_stage3=1, depths_stage4=1,
+                 dcn_group=4)
+
+
+def test_firing_rates_card_match_cpu(cuda):
+    """Every site's rate and non-fire fraction, T=2 without the collapse
+    and every decoder layer, card against CPU: the same keys within
+    1e-6."""
+    from spike2former_tpu_torch.utils.firing import firing_rates
+
+    cpu = randomize_(Spike2Former(T=2, collapse_t=False,
+                                  eval_last_only=False, **TINY_DIMS),
+                     seed=2).eval()
+    gpu = copy.deepcopy(cpu).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (1, 64, 64, 3)).astype(np.float32))
+    want = firing_rates(cpu, x)
+    before = dcnv3.dcnv3_sample.launches
+    got = firing_rates(gpu, x.to(cuda))
+    assert dcnv3.dcnv3_sample.launches == before + 1
+    assert set(got) == set(want)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-6, k
+
+
+def test_tta_and_inferencer_card_match_cpu(cuda, tmp_path):
+    from spike2former_tpu_torch.evaluation.tta import tta_logits
+
+    cpu = randomize_(Spike2Former(T=1, **TINY_DIMS), seed=3).eval()
+    gpu = copy.deepcopy(cpu).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (1, 64, 48, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = tta_logits(cpu.predict_logits, x, (0.5, 1.0, 1.5))
+        got = tta_logits(gpu.predict_logits, x.to(cuda), (0.5, 1.0, 1.5))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+
+    opts = TINY_OPTS + ["data.test_scale=(96,64)"]
+    imgs = [np.random.default_rng(i).integers(0, 256, (50, 70, 3),
+                                              dtype=np.uint8)
+            for i in range(2)]
+    outs = [api.Inferencer(PRESET, overrides=opts, device=dev)(
+        imgs, out_dir=str(tmp_path / dev)) for dev in ("cpu", "cuda")]
+    for a, b in zip(*(o["predictions"] for o in outs)):
+        assert (a == b).mean() >= 0.99
+    assert [p.split("/")[-1] for p in outs[1]["visualization"]] == [
+        "img_0_pred.png", "img_1_pred.png"]
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 17, 23), (6, 32, 128, 128)])
+def test_point_samplers_card_match_cpu(cuda, shape):
+    from spike2former_tpu_torch.losses.point_sample import (
+        point_sample, point_sample_shared, point_sample_slot,
+        uncertain_point_coords)
+
+    gen = torch.Generator().manual_seed(0)
+    b, g, h, w = shape
+    masks = torch.randn(shape, generator=gen) * 3
+    coords = torch.rand((b, g, 300, 2), generator=gen)
+    smap = torch.randint(0, g + 1, (b, 4 * h, 4 * w), generator=gen)
+    for dt in (torch.float32, torch.bfloat16):
+        torch.testing.assert_close(
+            point_sample(masks.to(cuda), coords.to(cuda), dtype=dt).cpu(),
+            point_sample(masks, coords, dtype=dt), atol=1e-6, rtol=0)
+        torch.testing.assert_close(
+            point_sample_slot(smap.to(cuda), g, coords.to(cuda),
+                              dtype=dt).cpu(),
+            point_sample_slot(smap, g, coords, dtype=dt), atol=1e-6, rtol=0)
+    shared = coords[:, 0]
+    torch.testing.assert_close(
+        point_sample_shared(masks.to(cuda), shared.to(cuda)).cpu(),
+        point_sample_shared(masks, shared), atol=1e-6, rtol=0)
+    assert torch.equal(point_sample_slot(smap.to(cuda), g,
+                                         shared.to(cuda)).cpu(),
+                       point_sample_slot(smap, g, shared))
+    draws = [torch.rand((b, g, 300, 2), generator=gen),
+             torch.rand((b, g, 25, 2), generator=gen)]
+    picks = []
+    for dev in ("cpu", cuda):
+        queue = [d.to(dev) for d in draws]
+        picks.append(uncertain_point_coords(
+            masks.to(dev), 100, 3.0, 0.75, draw=lambda s: queue.pop(0),
+            dtype=torch.bfloat16).cpu())
+    assert (picks[0] == picks[1]).all(-1).float().mean() >= 0.99
+
+
+def test_point_train_step_card_matches_cpu(cuda):
+    """The tiny model's step with ``train.loss_points``, card against CPU
+    on the same uniforms: ``total`` within 1e-3 relative (chip_smoke's
+    tiny train tolerance), K1 and K2 once each."""
+    from spike2former_tpu_torch.engine import train as ttrain
+
+    opts = TINY_OPTS + ["train.loss_points=40", "train.matcher='host'"]
+    gen = torch.Generator().manual_seed(0)
+    draws = []
+
+    def recording(step, mb):
+        def draw(shape):
+            draws.append(torch.rand(shape, generator=gen))
+            return draws[-1]
+        return draw
+
+    def replaying(step, mb):
+        queue = iter(draws)
+        return lambda shape: next(queue).to(cuda)
+
+    images, sem = synthetic_batch(np.random.default_rng(0), 2, (64, 64),
+                                  num_classes=4, classes=(2, 4))
+    totals = []
+    for dev, point_draw in (("cpu", recording), ("cuda", replaying)):
+        tr = api.init_trainer(PRESET, opts, device=dev, seed=1)
+        step = ttrain.make_train_step(
+            5, max_gt=tr.cfg.train.max_gt, matcher="host", num_points=40,
+            point_draw=point_draw)
+        k1, k2 = (dcnv3.dcnv3_sample.launches,
+                  dcnv3.dcnv3_sample_backward.launches)
+        _, m = step(tr.state, torch.as_tensor(images, device=dev),
+                    torch.as_tensor(sem, device=dev))
+        totals.append(float(m["total"]))
+        if dev == "cuda":
+            assert (dcnv3.dcnv3_sample.launches == k1 + 1
+                    and dcnv3.dcnv3_sample_backward.launches == k2 + 1)
+    assert abs(totals[1] - totals[0]) <= 1e-3 * abs(totals[0])
+
+
+def test_cityscapes_shapes_kernels_match_plain(cuda):
+    """K1 and K2 at the Cityscapes preset's maps: a 512x1024 crop's /16
+    map at batch 2 and a 1024x2048 image's at batch 1."""
+    gen = torch.Generator().manual_seed(7)
+    g, cg, p = 32, 8, 9
+    for n, h, w in ((2, 32, 64), (1, 64, 128)):
+        value = torch.randn((n, h, w, g * cg), generator=gen)
+        py = torch.rand((n, h * w, g, p), generator=gen) * (h + 4) - 2
+        px = torch.rand((n, h * w, g, p), generator=gen) * (w + 4) - 2
+        mask = torch.rand((n, h * w, g, p), generator=gen)
+        dout = torch.randn((n, h * w, g * cg), generator=gen)
+        want = dcnv3.dcnv3_sample_reference(value, py, px, mask)
+        got = dcnv3.dcnv3_sample(*(t.to(cuda) for t in (value, py, px,
+                                                         mask)))
+        torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+        wants = dcnv3.dcnv3_sample_backward_reference(value, py, px, mask,
+                                                      dout)
+        gots = dcnv3.dcnv3_sample_backward(
+            *(t.to(cuda) for t in (value, py, px, mask, dout)))
+        for a, b in zip(gots, wants):
+            torch.testing.assert_close(a.cpu(), b, atol=3e-4, rtol=1e-3)

@@ -36,7 +36,10 @@ def test_port_and_chip_smoke_import_without_jax():
                  "engine.optim", "data.loader", "data.transforms",
                  "engine.checkpoint",
                  "engine.logging", "evaluation.visualize", "tools.train",
-                 "tools.test"):
+                 "tools.test", "utils.firing", "tools.cal_firing_num",
+                 "evaluation.tta", "losses.point_sample",
+                 "evaluation.cityscapes_metric", "tools.dataset_converters",
+                 "data.label_constants"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
@@ -75,6 +78,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         api.init_trainer(PRESET, overrides=["model.num_encoder_layers=1"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_inferencer_and_firing_cli_raise_without_cuda(monkeypatch, tmp_path):
+    """The batch Inferencer and the firing CLI run on the card unless the
+    CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.Inferencer(PRESET, overrides=["model.num_encoder_layers=1"])
+    from spike2former_tpu_torch.tools import cal_firing_num
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cal_firing_num.main([PRESET, "--data-root", str(tmp_path),
+                             "--out", str(tmp_path / "rates"),
+                             "--cfg-options", "model.num_encoder_layers=1"])
 
 
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):

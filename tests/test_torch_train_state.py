@@ -303,6 +303,6 @@ def test_new_config_keys_have_the_jax_defaults():
             assert getattr(getattr(got, part), k) == getattr(
                 getattr(want, part), k), (part, k)
     assert got.work_dir == want.work_dir
-    for key in ("model.kind='fpn'", "train.loss_points=12544"):
+    for key in ("model.kind='fpn'", "model.variant='sdtv3'"):
         with pytest.raises(AttributeError, match="unknown config key"):
             get_config(PRESET, [key])
