@@ -149,6 +149,34 @@ Every K1 and K2 call of one run of each of these paths is held to the
 plain version on the same card tensors, and K1 and K2 are timed at the
 Cityscapes shapes with their bounds.
 
+The micro-batching ServingEngine, the tools and the SDTv3 family, run
+between the phases above (f32, full width, seeded images and weights):
+
+  (serving) the flagship through ``ServingEngine(max_batch=16,
+      bucket=128)``: 64 requests of 512x683, 683x512, 512x512 and 384x512
+      submitted by 4 threads at once (img/s, p50/p99, the histogram of
+      micro-batch sizes, peak memory, K1 6 launches a micro-batch); the
+      same traffic again with each request's logits held to its
+      bucket-padded image served alone (N=1, the same ``valid_hw``,
+      1e-3) and every K1 call held to its plain version at each N it was
+      handed; the same 64 one at a time (N=1: the micro-batched class
+      maps agree with these in >= 0.99 of pixels), and a loop of
+      ``inference_model`` (img/s beside the engine's); K1 timed at the
+      largest micro-batch.  Every future must resolve with a class map;
+  (tools) ``tools/benchmark.py`` for 20 forwards and 5 train steps at
+      batch 6 with ``--mfu``: FLOPs finite and positive, the MFU in
+      (0, 1), the peak the card's own for f32; ``tools/export.py`` of the
+      flagship at batch 1: 6 calls of K1's operator in the graph, the
+      program saved, loaded back and run within 1e-6 of eager;
+      ``ServingEngine.close()`` with requests queued fails them;
+  (sdtv3), (sdtv3mae) ``SDTv3_b_Spike2former_ade20k_512x512`` and
+      ``SDTv3MAE_Spike2former_ade20k_512x512``: 3 requests (K1 held at
+      each DCN call), 3 train steps at batch 6 of 512x512 after a
+      warm-up (finite losses, non-zero DCN gradients, K1 and K2 6 each,
+      K2 held to plain), request and step ms, device ms and peak memory;
+      the tiny model card vs CPU (1e-3); a reference-format state dict of
+      the variant loaded strictly onto the card (logits vs CPU, 1e-3).
+
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero and prints no result; it also
@@ -165,6 +193,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -195,11 +224,15 @@ from spike2former_tpu_torch.losses import matcher
 from spike2former_tpu_torch.losses.matcher import BIG_COST, auction_match
 from spike2former_tpu_torch.models.segmentor import Spike2Former, preprocess
 from spike2former_tpu_torch.ops import cuda_build, dcnv3, dcnv3_grouped
+from spike2former_tpu_torch import serving
 from spike2former_tpu_torch.profile_train import STAGES, sync_sites
-from spike2former_tpu_torch.tools import cal_firing_num, dataset_converters
+from spike2former_tpu_torch.serving import ServingEngine
+from spike2former_tpu_torch.tools import (benchmark, cal_firing_num,
+                                          dataset_converters, export)
 from spike2former_tpu_torch.tools import test as eval_cli
 from spike2former_tpu_torch.tools import train as train_cli
 from spike2former_tpu_torch.utils.firing import energy_proxy, firing_rates
+from spike2former_tpu_torch.utils.flops import peak_tflops
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
 KERNEL_TOL = 2e-5     # f32 sampler against its plain version
@@ -1867,10 +1900,10 @@ GOLDEN = dict(num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
               dcn_group=4)
 
 
-def golden_state_dict(seed: int = 3) -> dict:
+def golden_state_dict(seed: int = 3, variant: str = "sdtv2") -> dict:
     """The reference-format state dict of ``tests/torch_golden.py``'s
-    ``GoldenSpike2Former`` at ``GOLDEN``'s dims, drawn by its
-    ``randomize_torch``.  Its forward needs ``tests/test_dcnv3.py``,
+    ``GoldenSpike2Former`` with the ``variant`` backbone at ``GOLDEN``'s
+    dims, drawn by its ``randomize_torch``.  Its forward needs ``tests/test_dcnv3.py``,
     which imports JAX; only the state dict is taken here, so that import
     is answered by an empty module."""
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
@@ -1893,7 +1926,8 @@ def golden_state_dict(seed: int = 3) -> dict:
         heads=g["backbone_heads"], T=1, feat=g["feat_channels"],
         num_queries=g["num_queries"], dec_layers=g["num_decoder_layers"],
         enc_layers=g["num_encoder_layers"], group=g["dcn_group"],
-        depths_stage3=g["depths_stage3"], depths_stage4=g["depths_stage4"])
+        depths_stage3=g["depths_stage3"], depths_stage4=g["depths_stage4"],
+        variant=variant)
     torch_golden.randomize_torch(golden, seed=seed)
     return golden.state_dict()
 
@@ -2011,13 +2045,16 @@ def hold_captured(store: dict, tag: str, k1: int, k2: int = 0,
     return worst
 
 
-def device_busy_ms(fn) -> float:
+def device_busy_ms(fn, cpu: bool = True) -> float:
     """The device's kernel time in one call of ``fn`` (``torch.profiler``;
-    the train step's ``record_function`` ranges left out)."""
+    the train step's ``record_function`` ranges left out).  ``cpu=False``
+    traces the card alone, which a step's tens of thousands of host
+    events make several times cheaper to read."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     busy = sum(e.self_device_time_total for e in prof.key_averages()
@@ -2366,6 +2403,362 @@ def phase_presets(gen, smi: str) -> dict:
     return out
 
 
+# --- the micro-batching ServingEngine, the SDTv3 family, the tools ----------
+
+SERVE_SHAPES = ((512, 683), (683, 512), (512, 512), (384, 512))
+SERVE_REQUESTS, SERVE_THREADS = 64, 4
+SERVE_TOL = 1e-3      # a request's logits in a micro-batch against alone
+SERVE_AGREEMENT = 0.99  # the engine's class maps against inference_model's
+EXPORT_TOL = 1e-6     # the exported program's logits against eager
+V3_PRESETS = {"sdtv3": "SDTv3_b_Spike2former_ade20k_512x512",
+              "sdtv3mae": "SDTv3MAE_Spike2former_ade20k_512x512"}
+V3_STEPS = 3
+
+
+def serve_images() -> list:
+    rng = np.random.default_rng(13)
+    return [rng.integers(0, 256, (*SERVE_SHAPES[i % len(SERVE_SHAPES)], 3),
+                         dtype=np.uint8) for i in range(SERVE_REQUESTS)]
+
+
+def run_engine(eng, imgs, threads: int) -> tuple[list, float]:
+    """Submit ``imgs`` from ``threads`` threads at once (each its share,
+    then waits on its futures), or one at a time after the last one's
+    result with ``threads=0``; returns every request's class map (or the
+    exception its future holds) and the wall seconds."""
+    out = [None] * len(imgs)
+
+    def client(k):
+        futs = [(i, eng.submit(imgs[i]))
+                for i in range(k, len(imgs), threads)]
+        for i, f in futs:
+            try:
+                out[i] = f.result(timeout=300)
+            except Exception as e:  # noqa: BLE001 — checked by the caller
+                out[i] = e
+
+    t = time.perf_counter()
+    if threads:
+        workers = [threading.Thread(target=client, args=(k,))
+                   for k in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(600)
+    else:
+        for i, img in enumerate(imgs):
+            try:
+                out[i] = eng.submit(img).result(timeout=300)
+            except Exception as e:  # noqa: BLE001
+                out[i] = e
+    return out, time.perf_counter() - t
+
+
+def check_futures(preds, imgs, tag: str) -> None:
+    bad = [(i, p) for i, p in enumerate(preds)
+           if not isinstance(p, np.ndarray)]
+    check(not bad, f"{tag}: {len(bad)} futures hold no class map, e.g. "
+          f"{bad[:3]}")
+    for p, img in zip(preds, imgs):
+        check(p.shape == img.shape[:2] and p.dtype == np.int32,
+              f"{tag}: map {p.shape} {p.dtype} for {img.shape}")
+
+
+@contextlib.contextmanager
+def hold_batches(store: dict):
+    """Inside the block, each of the engine's forwards is followed by
+    each of its requests alone (N=1, the same bucket-padded image and
+    ``valid_hw``); the largest logit difference and the batch sizes go
+    to ``store``."""
+    real = serving.whole_logits
+
+    def wrapped(model, batch, valid_hw=None):
+        logits = real(model, batch, valid_hw=valid_hw)
+        store.setdefault("sizes", []).append(len(batch))
+        for i in range(len(batch)):
+            alone = real(model, batch[i:i + 1], valid_hw=valid_hw[i:i + 1])
+            err = (logits[i] - alone[0]).abs().max().item()
+            store["err"] = max(store.get("err", 0.0), err)
+        return logits
+
+    serving.whole_logits = wrapped
+    try:
+        yield store
+    finally:
+        serving.whole_logits = real
+
+
+def phase_serving(im, gen, smi: str) -> dict:
+    """(serving): the flagship through ``ServingEngine(max_batch=16,
+    bucket=128)``: 64 requests of four ADE-like shapes from 4 threads at
+    once, the same one at a time, and a loop of ``inference_model``."""
+    imgs = serve_images()
+    with ServingEngine(model=im, max_batch=16, bucket=128) as eng:
+        run_engine(eng, imgs[:8], SERVE_THREADS)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with ServingEngine(model=im, max_batch=16, bucket=128) as eng:
+        preds, wall = run_engine(eng, imgs, SERVE_THREADS)
+        st = eng.stats()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_futures(preds, imgs, "serving")
+    forwards = sum(st["batch_sizes"].values())
+    check(launches["k1"] == 6 * forwards,
+          f"serving: {launches['k1']} K1 launches for {forwards} "
+          f"micro-batches, expected 6 each")
+    check(st["requests"] == len(imgs), f"serving: stats {st}")
+    log("serving", f"{len(imgs)} requests from {SERVE_THREADS} threads: "
+        f"{len(imgs) / wall:.3f} img/s, p50 {st['p50_ms']:.3f} ms, p99 "
+        f"{st['p99_ms']:.3f} ms, micro-batches {st['batch_sizes']} "
+        f"(size: count), K1 launches {launches['k1']} ({forwards} "
+        f"micro-batches), peak {peak:.3f} GiB on {smi}")
+
+    # the same traffic held: each request against itself alone, and
+    # every K1 call against its plain version at each N it was handed
+    store, held = {}, {}
+    with ServingEngine(model=im, max_batch=16, bucket=128) as eng, \
+            hold_batches(held), capture_dcn(store):
+        checked, _ = run_engine(eng, imgs, SERVE_THREADS)
+    check_futures(checked, imgs, "serving (held)")
+    sizes = sorted(set(held["sizes"]))
+    k1 = hold_captured(store, "serving", k1=6 * (len(held["sizes"])
+                                                  + len(imgs)))
+    check(held["err"] <= SERVE_TOL, f"serving: a request in its "
+          f"micro-batch vs alone {held['err']:.3g} > {SERVE_TOL}")
+    log("serving", f"each request in its micro-batch vs alone (N=1, same "
+        f"valid_hw): max|diff| {held['err']:.3g} (tol {SERVE_TOL}); K1 "
+        f"held at N in {sizes} (max|diff| {k1['k1']:.3g})")
+
+    zero_launches()
+    with ServingEngine(model=im, max_batch=16, bucket=128) as eng:
+        seq, seq_wall = run_engine(eng, imgs, 0)
+        seq_st = eng.stats()
+    seq_launches = read_launches()
+    check_futures(seq, imgs, "serving (one at a time)")
+    zero_launches()
+    t = time.perf_counter()
+    loop = [api.inference_model(im, img) for img in imgs]
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t
+    loop_launches = read_launches()
+    # the micro-batched maps against the same requests served alone (one
+    # at a time: N=1, the same bucket and valid_hw)
+    agree = min(float((a == b).mean()) for a, b in zip(preds, seq))
+    check(agree >= SERVE_AGREEMENT, f"serving: class maps in micro-batches "
+          f"vs alone agree in {agree:.4f} < {SERVE_AGREEMENT}")
+    # inference_model pads to 32 without valid_hw: another input, and the
+    # random weights' logits are flat, so this share is reported only
+    loop_agree = float(np.mean([(a == b).mean() for a, b in zip(preds,
+                                                                 loop)]))
+    log("serving", f"one at a time: {len(imgs) / seq_wall:.3f} img/s, p50 "
+        f"{seq_st['p50_ms']:.3f} ms, p99 {seq_st['p99_ms']:.3f} ms; "
+        f"inference_model loop {len(imgs) / loop_wall:.3f} img/s; engine "
+        f"(4 threads) / loop {loop_wall / wall:.3f}x; least class "
+        f"agreement micro-batched vs alone {agree:.6f} (tol "
+        f"{SERVE_AGREEMENT}); mean agreement with the loop's pad-32 maps "
+        f"{loop_agree:.4f} on {smi}")
+
+    # K1 at the largest micro-batch on the 512x768 bucket's /16 map
+    n_max, h, w = max(sizes), 32, 48
+    t_k1 = k1_timing(n_max, h, w, gen, tag="serving")
+    return dict(launches=launches, seq_launches=seq_launches,
+                loop_launches=loop_launches, img_s=len(imgs) / wall,
+                seq_img_s=len(imgs) / seq_wall, loop_img_s=len(imgs)
+                / loop_wall, p50=st["p50_ms"], p99=st["p99_ms"],
+                sizes=st["batch_sizes"], peak_gib=peak, agree=agree,
+                err=held["err"], held=k1, k1_max=(n_max, h, w, t_k1))
+
+
+def phase_v3(variant: str, gen, smi: str) -> dict:
+    """(sdtv3) / (sdtv3mae): the preset at full width: 3 requests, 3 train
+    steps at batch 6 of 512x512, the tiny model card vs CPU, a
+    reference-format state dict loaded strictly onto the card."""
+    preset = V3_PRESETS[variant]
+    tag = variant
+    t = time.perf_counter()
+    im = api.init_model(preset, seed=0)
+    check((im.cfg.model.variant, im.cfg.model.T, im.cfg.model.collapse_t)
+          == (variant, 4, True), f"{tag}: {im.cfg.model}")
+    log(tag, f"{preset} built at full width in "
+        f"{time.perf_counter() - t:.1f}s")
+    rng = np.random.default_rng(5)
+    imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for hw in REQUEST_SHAPES]
+    api.inference_model(im, imgs[0])
+    torch.cuda.synchronize()
+    zero_launches()
+    preds = [api.inference_model(im, img) for img in imgs]
+    torch.cuda.synchronize()
+    req_launches = read_launches()
+    check(req_launches["k1"] == 6 * len(imgs),
+          f"{tag}: {req_launches['k1']} K1 launches for 3 requests")
+    for p, img in zip(preds, imgs):
+        check(p.shape == img.shape[:2] and 0 <= p.min()
+              and p.max() < im.num_classes, f"{tag}: bad map {p.shape}")
+    store = {}
+    with capture_dcn(store):
+        for img in imgs:
+            api.inference_model(im, img)
+    held = hold_captured(store, tag, k1=18)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        for img in imgs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            api.inference_model(im, img)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    req_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    padded, _ = api.resize_and_pad(im.cfg, imgs[0])
+    x = torch.from_numpy(padded[None]).cuda()
+    with f32_precision():
+        req_busy = device_busy_ms(lambda: whole_logits(im.model, x))
+    log(tag, f"request: median {statistics.median(times):.3f} ms (max "
+        f"{max(times):.3f}, n={len(times)}), device {req_busy:.3f} ms, "
+        f"peak {req_peak:.3f} GiB, K1 {req_launches['k1']} launches over "
+        f"3 requests on {smi}")
+    del im
+    torch.cuda.empty_cache()
+
+    tr = api.init_trainer(preset, seed=0)
+    b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
+    check((b, hw) == (6, (512, 512)), f"{tag}: trains at {b} x {hw}")
+    batches = [synthetic_batch(np.random.default_rng(7), b, hw)
+               for _ in range(1 + V3_STEPS)]
+    steps = timed_steps(tr, batches, 1, tag)
+    store = {}
+    with capture_dcn(store):
+        api.train_steps(tr, batches[:1])
+    held_train = hold_captured(store, tag, k1=6, k2=6)
+    batch = [torch.as_tensor(a, device="cuda") for a in batches[-1]]
+    with f32_precision():
+        step_busy = device_busy_ms(lambda: tr.step_fn(tr.state, *batch),
+                                   cpu=False)
+    log(tag, f"train: median step {steps['step_ms']:.3f} ms (max "
+        f"{steps['max_ms']:.3f}, n={steps['n']}), device {step_busy:.3f} "
+        f"ms, peak {steps['peak_gib']:.3f} GiB, first total "
+        f"{steps['first']['total']:.6g} on {smi}")
+    del tr
+    torch.cuda.empty_cache()
+
+    tiny = dict(TINY, variant=variant)
+    cpu = randomize_(Spike2Former(T=4, **tiny), seed=1).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    xs = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode(), f32_precision():
+        want = cpu.predict_logits(xs)
+        got = gpu.predict_logits(xs.cuda()).cpu()
+    tiny_err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, atol=MODEL_TOL, rtol=MODEL_TOL),
+          f"{tag}: tiny model card vs CPU {tiny_err:.3g}")
+
+    depths = {k: GOLDEN[k] for k in ("depths_stage3", "depths_stage4",
+                                      "num_encoder_layers",
+                                      "num_decoder_layers")}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "golden.pth")
+        torch.save({"state_dict": golden_state_dict(variant=variant)}, path)
+        sd = load_reference_model(path, variant=variant, **depths)
+    ref_cpu = Spike2Former(T=1, compat=True, variant=variant, **GOLDEN)
+    ref_cpu.load_state_dict(sd, strict=True)
+    ref_gpu = Spike2Former(T=1, compat=True, variant=variant, **GOLDEN)
+    ref_gpu.cuda().load_state_dict(sd, strict=True)
+    with torch.inference_mode(), f32_precision():
+        want = ref_cpu.eval().predict_logits(xs)
+        got = ref_gpu.eval().predict_logits(xs.cuda()).cpu()
+    ref_err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, atol=MODEL_TOL, rtol=MODEL_TOL),
+          f"{tag}: reference state dict card vs CPU {ref_err:.3g}")
+    log(tag, f"tiny model card vs CPU max|diff| {tiny_err:.3g}; "
+        f"reference-format state dict loaded strictly on the card, "
+        f"logits vs CPU {ref_err:.3g} (tol {MODEL_TOL})")
+    return dict(req_launches=req_launches, launches=steps["launches"],
+                req_ms=statistics.median(times), req_busy=req_busy,
+                req_peak=req_peak, step_ms=steps["step_ms"],
+                step_busy=step_busy, step_peak=steps["peak_gib"],
+                held=dict(k1=max(held["k1"], held_train["k1"]),
+                          k2=held_train["k2"]),
+                tiny_err=tiny_err, ref_err=ref_err)
+
+
+def phase_tools(im, smi: str) -> dict:
+    """(tools): the benchmark CLI (inference and train, ``--mfu``), the
+    export of the flagship at batch 1, and ``ServingEngine.close()`` with
+    requests queued."""
+    kind = torch.cuda.get_device_name(0)
+    out = {}
+    for train, argv in ((False, ["--num-iters", "20", "--warmup", "3"]),
+                        (True, ["--train", "--batch-size", "6",
+                                "--num-iters", "5", "--warmup", "2"])):
+        args = benchmark._parser().parse_args(
+            [PRESET, "--dtype", "float32", "--mfu"] + argv)
+        r = benchmark.run(args)
+        line = benchmark.format_line(r)
+        log("tools", f"benchmark: {line}")
+        check(np.isfinite(r["flops"]) and r["flops"] > 0
+              and 0 < r["mfu"] < 1, f"benchmark: {line}")
+        check(r["peak_tflops"] == peak_tflops(kind, "float32")
+              and r["smi"] == smi, f"benchmark: peak {r['peak_tflops']} "
+              f"on {r['smi']}")
+        out["bench_train" if train else "bench_infer"] = r
+
+    x = preprocess(torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (1, 512, 512, 3), dtype=np.uint8)).cuda())
+    t = time.perf_counter()
+    program = export.export_model(im.model, x)
+    export_s = time.perf_counter() - t
+    calls = export.sampler_calls(program)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "flagship.pt2")
+        torch.export.save(program, path)
+        mb = os.path.getsize(path) / 1e6
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = torch.export.load(path).module()
+        load_s = time.perf_counter() - t
+    zero_launches()
+    t = time.perf_counter()
+    with torch.no_grad(), f32_precision():
+        got = loaded(x)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        export_launches = read_launches()
+        want = im.model.predict_logits(x)
+    err = (got - want).abs().max().item()
+    check(calls == 6 and export_launches["k1"] == 6,
+          f"export: {calls} calls of the K1 operator in the graph, "
+          f"{export_launches['k1']} launches in a run")
+    check(err <= EXPORT_TOL, f"export: logits vs eager {err:.3g} > "
+          f"{EXPORT_TOL}")
+    log("tools", f"export: traced in {export_s:.1f}s, saved in "
+        f"{save_s:.1f}s, loaded in {load_s:.1f}s, run in {run_s:.1f}s, "
+        f"{mb:.1f} MB, "
+        f"{calls} calls of spike2former::dcnv3_sample, loaded back: logits "
+        f"vs eager max|diff| {err:.3g} (tol {EXPORT_TOL})")
+
+    imgs = serve_images()[:8]
+    eng = ServingEngine(model=im, max_batch=1, bucket=128)
+    futs = [eng.submit(img) for img in imgs]
+    eng.close()
+    done = [f.exception(timeout=60) for f in futs]
+    failed = sum(isinstance(e, RuntimeError) and "closed" in str(e)
+                 for e in done)
+    check(all(f.done() for f in futs) and failed >= 1
+          and failed + done.count(None) == len(futs),
+          f"close(): {failed} of {len(futs)} queued requests failed, "
+          f"others {done}")
+    log("tools", f"ServingEngine.close() with {len(futs)} requests "
+        f"queued: {failed} failed with 'engine closed', "
+        f"{done.count(None)} served")
+    return dict(out, export_err=err, export_launches=export_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2418,6 +2811,8 @@ def main() -> int:
     ev = phase_eval(im)
     fi = phase_firing(smi)
     tt = phase_tta(im, smi)
+    sv = phase_serving(im, gen, smi)
+    tl_ = phase_tools(im, smi)
     bs = phase_bf16_serve(im)
     log("bf16 serve", f"median request_ms={bs['request_ms']:.3f} (max "
         f"{bs['max_ms']:.3f}, n={bs['n']}) peak_mem_gib={bs['peak_gib']:.3f}"
@@ -2464,6 +2859,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli = phase_train_cli(tr["step_ms"], smi)
     ref = phase_reference()
+    v3 = {}
+    for variant in V3_PRESETS:
+        v3[variant] = phase_v3(variant, gen, smi)
+        torch.cuda.empty_cache()
+        log(variant, f"request {v3[variant]['req_ms']:.3f} ms against the "
+            f"flagship's {s['request_ms']:.3f}; step "
+            f"{v3[variant]['step_ms']:.3f} ms against the flagship's "
+            f"{tr['step_ms']:.3f} on {smi}")
 
     # the main path's launches: serve, the three eval modes, the train
     # steps at the defaults, the overflow step, the host-matcher steps,
@@ -2475,7 +2878,10 @@ def main() -> int:
         tr["launches"], ov["launches"], host["launches"], *cli["launches"],
         fi["launches"], tt["launches"], tt["inf_launches"], pt["launches"],
         pr[CITYSCAPES]["launches"], pr[COCO_STUFF]["launches"],
-        pr["train"]["launches"]]
+        pr["train"]["launches"], sv["launches"], sv["seq_launches"],
+        sv["loop_launches"], tl_["export_launches"],
+        *(v3[v]["req_launches"] for v in V3_PRESETS),
+        *(v3[v]["launches"] for v in V3_PRESETS)]
     k1_launches = s["launches"] + sum(p["k1"] for p in paths)
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
@@ -2500,8 +2906,10 @@ def main() -> int:
 
     # K1 and K3-K6 at the serve shape, K2 and K7 at the train shape
     k1_path_err = max(s["max_abs_err"], fi["held"]["k1"], tt["held"]["k1"],
-                      pt["held"]["k1"], pr["k1_err"])
-    k2_path_err = max(pt["held"]["k2"], pr["k2_err"])
+                      pt["held"]["k1"], pr["k1_err"], sv["held"]["k1"],
+                      *(v3[v]["held"]["k1"] for v in V3_PRESETS))
+    k2_path_err = max(pt["held"]["k2"], pr["k2_err"],
+                      *(v3[v]["held"]["k2"] for v in V3_PRESETS))
     kernels = [
         row("dcnv3_sample", dcnv3.SOURCE, "dcnv3_sample_pallas_t5",
             k1_launches, max(k["max_abs_err"], k1_path_err), k[1]),
@@ -2543,7 +2951,19 @@ def main() -> int:
         f"K1/K2 at the Cityscapes shapes (ms, bound ms) "
         + "; ".join(f"{kn} {sh}: {t['ms']:.5f}, "
                     f"{max(t['bytes_ms'], t['ops_ms']):.5f}"
-                    for (kn, sh), t in pr["times"].items()))
+                    for (kn, sh), t in pr["times"].items())
+        + f"; serving K1 {sv['launches']['k1']} (4 threads), "
+        f"{sv['seq_launches']['k1']} (one at a time), "
+        f"{sv['loop_launches']['k1']} (loop), export run "
+        f"{tl_['export_launches']['k1']}; K1 at the largest micro-batch "
+        f"N={sv['k1_max'][0]} {sv['k1_max'][1]}x{sv['k1_max'][2]}: "
+        f"{sv['k1_max'][3]['ms']:.5f} ms, bound "
+        f"{max(sv['k1_max'][3]['bytes_ms'], sv['k1_max'][3]['ops_ms']):.5f}"
+        f", grid_sample {sv['k1_max'][3]['library_ms']:.5f}, plain "
+        f"{sv['k1_max'][3]['plain_ms']:.5f}; "
+        + "; ".join(f"{v} K1/K2 requests {v3[v]['req_launches']['k1']}, "
+                    f"steps {v3[v]['launches']['k1']}/"
+                    f"{v3[v]['launches']['k2']}" for v in V3_PRESETS))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -234,17 +234,20 @@ def load_torch_state_dict_raw(path: str) -> dict[str, np.ndarray]:
     return out
 
 
-def load_reference_model(path: str, *, depths_stage3: int = 6,
-                         depths_stage4: int = 2, num_encoder_layers: int = 6,
+def load_reference_model(path: str, *, variant: str = "sdtv2",
+                         depths_stage3: int = 6, depths_stage4: int = 2,
+                         num_encoder_layers: int = 6,
                          num_decoder_layers: int = 6
                          ) -> dict[str, torch.Tensor]:
     """A full reference ``EncoderDecoder`` checkpoint (the ``load_from``
-    flow, tools/test.py:104) -> a state dict for the port's SDTv2
-    ``Spike2Former(compat=True)``, to load with ``strict=True``: the
-    reference keys go to the JAX package's variable tree
-    (``convert_reference.py``), then to the port's keys
-    (``from_jax_variables``)."""
+    flow, tools/test.py:104) -> a state dict for the port's
+    ``Spike2Former(compat=True, variant=variant)``, to load with
+    ``strict=True``: the reference keys go to the JAX package's variable
+    tree by the variant's key map (``convert_reference.py``), then to the
+    port's keys (``from_jax_variables``).  A checkpoint of another
+    variant raises ``KeyError``."""
     return from_jax_variables(convert_spike2former(
-        load_torch_state_dict_raw(path), depths_stage3=depths_stage3,
-        depths_stage4=depths_stage4, num_encoder_layers=num_encoder_layers,
+        load_torch_state_dict_raw(path), variant=variant,
+        depths_stage3=depths_stage3, depths_stage4=depths_stage4,
+        num_encoder_layers=num_encoder_layers,
         num_decoder_layers=num_decoder_layers))

@@ -2,11 +2,14 @@
 (port of ``spike2former_tpu/engine/config.py``, without JAX).
 
 Only the fields that inference, evaluation, the semantic train step and the
-train CLI of the SDTv2 MaskFormer read are kept, so an override of
-anything else (``model.variant``, ``model.kind``, ...) is rejected as an
-unknown key.  The presets are the SDTv2 MaskFormer's on ADE20K,
-Cityscapes, VOC 2012 and COCO-Stuff (the same model on other data); the
-SDTv3 and panoptic ones wait for later slices of the port.
+train CLI of the MaskFormer read are kept, so an override of anything else
+(``model.kind``, ``model.masked_attention``, ...) is rejected as an
+unknown key.  ``model.variant`` picks the backbone: ``sdtv2``
+(Spiking_vit_MetaFormer), ``sdtv3`` (E-SpikeFormer) or ``sdtv3mae`` (its
+MAE-pretrain flavour).  The presets are the SDTv2 MaskFormer's on ADE20K,
+Cityscapes, VOC 2012 and COCO-Stuff, and the SDTv3 ones on ADE20K, VOC
+and Cityscapes with the SDTv3-MAE one on ADE20K (T=4, collapsed); the
+FPN, cascade, MS-ResNet and panoptic presets wait for later slices.
 
 ``train.loss_points > 0`` trains with the point-sampled matching costs
 and mask losses (``losses/point_sample.py``; 12544 points, oversample 3.0
@@ -35,6 +38,7 @@ from ..models.segmentor import Spike2Former
 
 @dataclass
 class ModelConfig:
+    variant: str = "sdtv2"            # backbone: sdtv2 | sdtv3 | sdtv3mae
     num_classes: int = 150
     embed_dim: tuple = (64, 128, 256, 360)
     backbone_heads: int = 8
@@ -140,10 +144,12 @@ def compute_dtype(name: str) -> torch.dtype:
 
 def build_model(cfg: ModelConfig, packed_residuals: bool = False
                 ) -> Spike2Former:
-    """The SDTv2 MaskFormer for ``cfg`` (the only kind ported yet), in
-    ``cfg.dtype``; ``packed_residuals`` (``train.packed_residuals``) saves
-    packed spike codes at its Spike->Conv sites."""
+    """The MaskFormer for ``cfg`` (the only kind ported yet) with the
+    ``cfg.variant`` backbone, in ``cfg.dtype``; ``packed_residuals``
+    (``train.packed_residuals``) saves packed spike codes at its
+    Spike->Conv sites."""
     return Spike2Former(
+        variant=cfg.variant,
         num_classes=cfg.num_classes, embed_dim=tuple(cfg.embed_dim),
         backbone_heads=cfg.backbone_heads, T=cfg.T,
         feat_channels=cfg.feat_channels, num_queries=cfg.num_queries,
@@ -170,9 +176,12 @@ def apply_overrides(cfg: Config, options: list[str]) -> Config:
         for p in parents:
             target = getattr(target, p)
         if not hasattr(target, leaf):
+            hint = (" (the port has the MaskFormer only: the FPN, cascade "
+                    "and MS-ResNet kinds are not ported yet)"
+                    if key == "model.kind" else "")
             raise AttributeError(
                 f"unknown config key {key!r} ({type(target).__name__} "
-                f"has no field {leaf!r})")
+                f"has no field {leaf!r}){hint}")
         setattr(target, leaf, value)
     return cfg
 
@@ -214,6 +223,38 @@ def _cocostuff_spike2former_sdtv2(k: str) -> Config:
                                   data_root="data/coco_stuff164k"))
 
 
+def _ade_spike2former_sdtv3() -> Config:
+    """SDTv3_b_Spike2former_ade20k_512x512.py: the E-SpikeFormer
+    backbone."""
+    return Config(name="SDTv3_b_Spike2former_ade20k_512x512",
+                  model=ModelConfig(variant="sdtv3", T=4, num_classes=150),
+                  data=DataConfig(dataset="ade20k"))
+
+
+def _voc_spike2former_sdtv3() -> Config:
+    return Config(name="SDTv3_b_Spike2former_voc_512x512",
+                  model=ModelConfig(variant="sdtv3", T=4, num_classes=21),
+                  data=DataConfig(dataset="voc2012",
+                                  data_root="data/VOCdevkit/VOC2012"))
+
+
+def _cityscapes_spike2former_sdtv3() -> Config:
+    return Config(name="SDTv3_b_Spike2former_Cityscapes_512x1024",
+                  model=ModelConfig(variant="sdtv3", T=4, num_classes=19),
+                  data=DataConfig(dataset="cityscapes", crop_size=(512, 1024),
+                                  data_root="data/cityscapes",
+                                  test_scale=(2048, 1024), batch_size=2))
+
+
+def _ade_spike2former_sdtv3mae() -> Config:
+    """The Spiking_vit_MetaFormerv3 (sdtv3MAE.py) backbone, which the
+    reference registers without a config of its own: CSWin striped
+    attention, multispike8, no stage-4 downsample."""
+    return Config(name="SDTv3MAE_Spike2former_ade20k_512x512",
+                  model=ModelConfig(variant="sdtv3mae", T=4, num_classes=150),
+                  data=DataConfig(dataset="ade20k"))
+
+
 PRESETS = {
     "SDTv2_maskformer_DCNpixelDecoder_ade20k": _ade_spike2former_sdtv2,
     "SDTv2_maskformer_DCNPixelDecoder_CityScapes":
@@ -223,9 +264,18 @@ PRESETS = {
         lambda: _cocostuff_spike2former_sdtv2("10k"),
     "SDTv2_maskformer_cocostuff164k_512x512":
         lambda: _cocostuff_spike2former_sdtv2("164k"),
+    "SDTv3_b_Spike2former_ade20k_512x512": _ade_spike2former_sdtv3,
+    "SDTv3_b_Spike2former_voc_512x512": _voc_spike2former_sdtv3,
+    "SDTv3_b_Spike2former_Cityscapes_512x1024":
+        _cityscapes_spike2former_sdtv3,
+    "SDTv3MAE_Spike2former_ade20k_512x512": _ade_spike2former_sdtv3mae,
 }
 
 
 def get_config(name: str, overrides: list[str] | None = None) -> Config:
+    if name not in PRESETS:
+        raise KeyError(f"no preset {name!r} in the port (it has "
+                       f"{sorted(PRESETS)}; the FPN, cascade, MS-ResNet and "
+                       "panoptic presets are not ported yet)")
     cfg = PRESETS[name]()
     return apply_overrides(cfg, overrides) if overrides else cfg

@@ -1,10 +1,13 @@
 """Reference checkpoint keys -> the JAX-shaped variable tree (a numpy copy
-of ``convert_spike2former`` and the SDTv2 backbone converter of
-``spike2former_tpu/engine/convert.py`` and ``convert_sdtv2.py``).
+of ``convert_spike2former`` and the backbone converters of
+``spike2former_tpu/engine/convert.py``, ``convert_sdtv2.py`` and
+``convert_sdtv3.py``).
 
 The reference's parameter names (mmseg ``EncoderDecoder``: ``backbone.*``
-from Spiking_vit_MetaFormer, sdtv2.py:424-655, and ``decode_head.*`` from
-the MaskFormer head, maskformer_head.py:68-168) map onto the flax module
+from Spiking_vit_MetaFormer, sdtv2.py:424-655, Spiking_vit_MetaFormerv2,
+sdtv3.py:401-616, or Spiking_vit_MetaFormerv3, sdtv3MAE.py:526-750, and
+``decode_head.*`` from the MaskFormer head, maskformer_head.py:68-168)
+map onto the flax module
 tree of the JAX package, whose names the port's modules keep; conv
 kernels turn OIHW -> HWIO there, and ``engine/convert.py:
 from_jax_variables`` turns them back.  The result is for a ``compat=True``
@@ -165,6 +168,61 @@ def convert_sdtv2_backbone(sd, depths_stage3: int = 6,
     return {"params": params, "batch_stats": stats}
 
 
+# ---- the SDTv3 backbones (sdtv3.py:401-616, sdtv3MAE.py:526-750) -----------
+
+def _convblock_v3(sd, pfx, params, stats, path):
+    """MS_ConvBlock_spike_SepConv (sdtv3.py:153-189) or the MAE file's
+    MS_ConvBlock (sdtv3MAE.py:172-209): SepConv_Spike, then conv1/bn1,
+    conv2/bn2."""
+    _sepconv_spike(sd, f"{pfx}.Conv", params, stats, path + ["SepConv_0"])
+    _convbn(sd, f"{pfx}.conv1", f"{pfx}.bn1", params, stats,
+            path + ["ConvBN_0"])
+    _convbn(sd, f"{pfx}.conv2", f"{pfx}.bn2", params, stats,
+            path + ["ConvBN_1"])
+
+
+def _block_v3(sd, pfx, params, stats, path, *, mae: bool):
+    """MS_Block_Spike_SepConv (sdtv3.py:321-360) or MS_Block_cswin
+    (sdtv3MAE.py:439-483, with ``layer_scale{1,2,3}``): a SepConv_Spike,
+    the attention's q/k/v/proj as 1x1 conv + BN (MS_Attention_linear,
+    sdtv3.py:229-313, or its CSWin form, sdtv3MAE.py:349-436) and the
+    MLP of Conv1d(k=1) + BN pairs."""
+    if mae:
+        for g in ("layer_scale1", "layer_scale2", "layer_scale3"):
+            _set(params, path + [g], np.asarray(sd[f"{pfx}.{g}"]))
+    _sepconv_spike(sd, f"{pfx}.conv", params, stats, path + ["SepConv_0"])
+    attn = path + ["CSWinSpikeAttention_0" if mae else "SpikeAttention_0"]
+    for name in ("q", "k", "v", "proj"):
+        _convbn(sd, f"{pfx}.attn.{name}_conv.0", f"{pfx}.attn.{name}_conv.1",
+                params, stats, attn + [f"{name}_conv"])
+    _mlp(sd, f"{pfx}.mlp", params, stats, path + ["MSMLP_0"])
+
+
+def convert_sdtv3_backbone(sd, depths_stage3: int = 6, depths_stage4: int = 2,
+                           *, mae: bool = False) -> dict[str, Any]:
+    """{'params', 'batch_stats'} of the ``variant='sdtv3'`` (or, with
+    ``mae``, ``'sdtv3mae'``) ``SpikingMetaFormer`` from the backbone's
+    keys, ``backbone.`` stripped.  The MAE flavour has no
+    ``downsample4``."""
+    params: dict = {}
+    stats: dict = {}
+    _downsample(sd, "downsample1_1", params, stats, ["down1_1"])
+    _convblock_v3(sd, "ConvBlock1_1.0", params, stats, ["conv1_1"])
+    _downsample(sd, "downsample1_2", params, stats, ["down1_2"])
+    _convblock_v3(sd, "ConvBlock1_2.0", params, stats, ["conv1_2"])
+    _downsample(sd, "downsample2", params, stats, ["down2"])
+    _convblock_v3(sd, "ConvBlock2_1.0", params, stats, ["conv2_1"])
+    _convblock_v3(sd, "ConvBlock2_2.0", params, stats, ["conv2_2"])
+    _downsample(sd, "downsample3", params, stats, ["down3"])
+    for i in range(depths_stage3):
+        _block_v3(sd, f"block3.{i}", params, stats, [f"block3_{i}"], mae=mae)
+    if not mae:
+        _downsample(sd, "downsample4", params, stats, ["down4"])
+    for i in range(depths_stage4):
+        _block_v3(sd, f"block4.{i}", params, stats, [f"block4_{i}"], mae=mae)
+    return {"params": params, "batch_stats": stats}
+
+
 # ---- the MaskFormer head (maskformer_head.py:68-168) ------------------------
 
 def _sepconv_spike(sd, pfx, params, stats, path):
@@ -277,22 +335,35 @@ def convert_maskformer_head(sd, *, num_inputs: int = 4,
     return {"params": params, "batch_stats": stats}
 
 
-def convert_spike2former(sd: Mapping[str, Any], *, depths_stage3: int = 6,
-                         depths_stage4: int = 2, num_inputs: int = 4,
-                         num_encoder_layers: int = 6,
+BACKBONES = ("sdtv2", "sdtv3", "sdtv3mae")
+
+
+def convert_spike2former(sd: Mapping[str, Any], *, variant: str = "sdtv2",
+                         depths_stage3: int = 6, depths_stage4: int = 2,
+                         num_inputs: int = 4, num_encoder_layers: int = 6,
                          num_decoder_layers: int = 6) -> dict[str, Any]:
     """A full reference ``EncoderDecoder`` state dict (``backbone.*`` and
     ``decode_head.*``, numpy arrays) -> the variable tree of a
-    ``compat=True`` SDTv2 Spike2Former.  Raises ``KeyError`` for a key
-    the model does not take (BN ``num_batches_tracked`` counters aside)."""
+    ``compat=True`` Spike2Former with the ``variant`` backbone (``sdtv2``,
+    ``sdtv3`` or ``sdtv3mae``).  Raises ``KeyError`` for a key the
+    variant's map needs and the dict lacks (a state dict of another
+    variant fails so) or a key the model does not take (BN
+    ``num_batches_tracked`` counters aside)."""
+    if variant not in BACKBONES:
+        raise ValueError(f"unknown backbone variant {variant!r}")
     parts = {pfx: Consumed({k[len(pfx):]: v for k, v in sd.items()
                             if k.startswith(pfx)})
              for pfx in ("backbone.", "decode_head.")}
     if not parts["decode_head."]:
         raise KeyError("no 'decode_head.*' keys: this looks like a "
                        "backbone-only checkpoint")
-    backbone = convert_sdtv2_backbone(parts["backbone."], depths_stage3,
-                                      depths_stage4)
+    if variant == "sdtv2":
+        backbone = convert_sdtv2_backbone(parts["backbone."], depths_stage3,
+                                          depths_stage4)
+    else:
+        backbone = convert_sdtv3_backbone(
+            parts["backbone."], depths_stage3, depths_stage4,
+            mae=variant == "sdtv3mae")
     head = convert_maskformer_head(
         parts["decode_head."], num_inputs=num_inputs,
         num_encoder_layers=num_encoder_layers,

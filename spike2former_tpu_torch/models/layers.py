@@ -24,10 +24,15 @@ promotion, which is JAX's for these operands (a bf16 activation plus an
 f32 parameter is f32).
 
 A convolution or dense layer whose input is a spike output is built with
-``spike_input=True``; ``set_packed_residuals`` switches those sites to
-``ops/spike_op.py``, which saves the spike codes packed to 4 bits instead
-of the activation for the backward (bit-identical gradients), as the JAX
-package's ``_packed_cgd`` sites do.
+``spike_input`` set to the spike's kind (``True`` for ``qspike``);
+``set_packed_residuals`` switches those sites to ``ops/spike_op.py``,
+which saves the spike codes (``y * D``, D the kind's level) packed to 4
+bits instead of the activation for the backward (bit-identical
+gradients), as the JAX package's ``_packed_cgd`` sites do.
+
+The spike kinds (``SPIKE_FNS``, with the level D of each) are ``qspike``
+(SDTv2 and the head, D = 8), ``multispike_norm`` (SDTv3, D = 4) and
+``multispike8`` (SDTv3-MAE, round half up, D = 8).
 
 ``remat`` (``checkpoint``) recomputes a block in the backward.  The
 recomputation must not move BN running statistics a second time (flax's
@@ -44,9 +49,21 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import spike_op
-from ..ops.spike import qspike
+from ..ops.spike import multispike8, multispike_norm, qspike
 
-SPIKE_CODE_SCALE = 8.0   # qspike's levels k/8: the packed code is k
+# kind -> (function, level D): a spike is k / D with k in 0..D, the packed
+# code of a spike-input site is k, and a site's firing rate is mean(y) * D
+SPIKE_FNS = {"qspike": (qspike, 8.0),
+             "multispike_norm": (multispike_norm, 4.0),
+             "multispike8": (multispike8, 8.0)}
+
+
+def spike_code_scale(spike_input: bool | str | None) -> float | None:
+    """The code scale D of a site whose input is a ``spike_input`` spike
+    (``True`` is ``qspike``), or None for a site that takes no spike."""
+    if not spike_input:
+        return None
+    return SPIKE_FNS["qspike" if spike_input is True else spike_input][1]
 
 
 def fold_t(x: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -61,13 +78,15 @@ def unfold_t(x: torch.Tensor, t: int) -> torch.Tensor:
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (float32 parameters) that computes in
     ``compute_dtype``; ``spike_input`` marks a conv whose input is a spike
-    output, ``packed`` (``set_packed_residuals``) saves it packed."""
+    output (its kind, or ``True`` for ``qspike``), ``packed``
+    (``set_packed_residuals``) saves it packed."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32,
-                 spike_input: bool = False, **kw):
+                 spike_input: bool | str = False, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = dtype
-        self.spike_input = spike_input
+        self.spike_input = bool(spike_input)
+        self.code_scale = spike_code_scale(spike_input)
         self.packed = False
 
 
@@ -78,10 +97,11 @@ class Linear(nn.Linear):
 
     def __init__(self, cin: int, cout: int, bias: bool = True, *,
                  dtype: torch.dtype = torch.float32,
-                 spike_input: bool = False):
+                 spike_input: bool | str = False):
         super().__init__(cin, cout, bias=bias)
         self.compute_dtype = dtype
-        self.spike_input = spike_input
+        self.spike_input = bool(spike_input)
+        self.code_scale = spike_code_scale(spike_input)
         self.packed = False
 
     def forward(self, x):
@@ -90,7 +110,7 @@ class Linear(nn.Linear):
         if self.packed and torch.is_grad_enabled():
             out = spike_op.spike_linear(x, self.weight,
                                         self.bias if fused else None, dt,
-                                        SPIKE_CODE_SCALE)
+                                        self.code_scale)
         else:
             out = F.linear(x.to(dt), self.weight.to(dt),
                            self.bias.to(dt) if fused and self.bias is not None
@@ -121,7 +141,7 @@ def conv_nhwc(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
     bias = conv.bias if fused else None
     if conv.packed and torch.is_grad_enabled():
         out = spike_op.spike_conv(
-            x, conv.weight, bias, dt, SPIKE_CODE_SCALE, stride=conv.stride,
+            x, conv.weight, bias, dt, conv.code_scale, stride=conv.stride,
             padding=conv.padding, dilation=conv.dilation, groups=conv.groups)
     else:
         out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
@@ -134,7 +154,7 @@ def conv_nhwc(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
 def conv2d(cin: int, cout: int, k: int = 1, stride: int = 1, pad: int = 0,
            groups: int = 1, bias: bool = False,
            dtype: torch.dtype = torch.float32,
-           spike_input: bool = False) -> Conv2d:
+           spike_input: bool | str = False) -> Conv2d:
     return Conv2d(cin, cout, k, stride=stride, padding=pad, groups=groups,
                   bias=bias, dtype=dtype, spike_input=spike_input)
 
@@ -143,16 +163,24 @@ _OBSERVE = threading.local()
 
 
 class Spike(nn.Module):
-    """Quantized spike site (``qspike``, the only kind on the SDTv2 path),
-    in its input's dtype.
+    """Quantized spike site of ``kind`` (``SPIKE_FNS``), in its input's
+    dtype.
 
     Each site of the JAX package's model is one ``Spike`` submodule here,
     named as flax names it (``Spike_0``, ``Spike_1``, ... in call order, or
     the JAX module's explicit name), so ``observe_spikes`` reports the
     same site names as JAX's ``spikes`` collection."""
 
+    def __init__(self, kind: str = "qspike"):
+        super().__init__()
+        self.kind = kind
+        self.fn, self.level = SPIKE_FNS[kind]
+
+    def extra_repr(self) -> str:
+        return self.kind
+
     def forward(self, x):
-        y = qspike(x)
+        y = self.fn(x)
         sink = getattr(_OBSERVE, "sink", None)
         if sink is not None:
             sink(self, y)
@@ -164,7 +192,7 @@ def observe_spikes(model: nn.Module):
     """Record the firing statistics of every ``Spike`` site of ``model``
     that runs inside the block (in this thread), as JAX's ``Spike`` sows
     them (models/layers.py:74-93): ``{path}/rate`` = ``mean(y) * D`` (D
-    = 8, qspike's level) and
+    the site kind's level) and
     ``{path}/nonfire`` = ``mean(y == 0)``, with ``path`` the site's module
     path joined by ``/``.  A site that runs more than once keeps its first
     call's values.  Yields the dict, filled as the forward runs, of 0-dim
@@ -179,7 +207,7 @@ def observe_spikes(model: nn.Module):
         if name is None or f"{name}/rate" in stats:
             return
         yf = y.detach().float()
-        stats[f"{name}/rate"] = yf.mean() * SPIKE_CODE_SCALE
+        stats[f"{name}/rate"] = yf.mean() * mod.level
         stats[f"{name}/nonfire"] = (yf == 0).float().mean()
 
     prev = getattr(_OBSERVE, "sink", None)
@@ -330,24 +358,26 @@ class RepConv(nn.Module):
 
 
 class SepConv(nn.Module):
-    """Inverted separable conv with spikes on [T, B, H, W, C].
+    """Inverted separable conv with spikes of kind ``spike`` on
+    [T, B, H, W, C].
 
     ``dw_bn=False, num_spikes=2`` is sdtv2's SepConv;
     ``dw_bn=True, num_spikes=3`` is SepConv_Spike (SNN_core.py:11-63).
     """
 
     def __init__(self, dim, expansion_ratio=2, kernel_size=7, padding=3,
-                 dw_bn=False, num_spikes=2, dtype=torch.float32):
+                 dw_bn=False, num_spikes=2, dtype=torch.float32,
+                 spike="qspike"):
         super().__init__()
         med = int(expansion_ratio * dim)
-        self.Spike_0, self.Spike_1 = Spike(), Spike()
-        self.Spike_2 = Spike() if num_spikes >= 3 else None
-        self.ConvBN_0 = ConvBN(dim, med, 1, dtype=dtype, spike_input=True)
+        self.Spike_0, self.Spike_1 = Spike(spike), Spike(spike)
+        self.Spike_2 = Spike(spike) if num_spikes >= 3 else None
+        self.ConvBN_0 = ConvBN(dim, med, 1, dtype=dtype, spike_input=spike)
         self.Conv_0 = conv2d(med, med, kernel_size, pad=padding, groups=med,
-                             dtype=dtype, spike_input=True)
+                             dtype=dtype, spike_input=spike)
         self.BatchNorm_0 = BatchNorm(med) if dw_bn else None
         self.ConvBN_1 = ConvBN(med, dim, 1, dtype=dtype,
-                               spike_input=num_spikes >= 3)
+                               spike_input=num_spikes >= 3 and spike)
 
     def forward(self, x):
         xf, t = fold_t(x)
@@ -362,16 +392,21 @@ class SepConv(nn.Module):
 
 class MSConvBlock(nn.Module):
     """x += SepConv(x); then spike->3x3(4x)->BN->spike->3x3->BN residual
-    (sdtv2.py:183-219)."""
+    (sdtv2.py:183-219); SDTv3's with ``sepconv_dw_bn=True``,
+    ``sepconv_num_spikes=3`` (SepConv_Spike) and its spike kind."""
 
-    def __init__(self, dim: int, mlp_ratio: int = 4, dtype=torch.float32):
+    def __init__(self, dim: int, mlp_ratio: int = 4, dtype=torch.float32,
+                 sepconv_dw_bn: bool = False, sepconv_num_spikes: int = 2,
+                 spike: str = "qspike"):
         super().__init__()
-        self.Spike_0, self.Spike_1 = Spike(), Spike()
-        self.SepConv_0 = SepConv(dim, dtype=dtype)
+        self.Spike_0, self.Spike_1 = Spike(spike), Spike(spike)
+        self.SepConv_0 = SepConv(dim, dw_bn=sepconv_dw_bn,
+                                 num_spikes=sepconv_num_spikes, dtype=dtype,
+                                 spike=spike)
         self.ConvBN_0 = ConvBN(dim, dim * mlp_ratio, 3, pad=1, dtype=dtype,
-                               spike_input=True)
+                               spike_input=spike)
         self.ConvBN_1 = ConvBN(dim * mlp_ratio, dim, 3, pad=1, dtype=dtype,
-                               spike_input=True)
+                               spike_input=spike)
 
     def forward(self, x):
         x = x + self.SepConv_0(x)
@@ -384,14 +419,15 @@ class MSConvBlock(nn.Module):
 class MSMLP(nn.Module):
     """Pointwise spiking MLP over [T, B, H, W, C] (sdtv2.py:222-255)."""
 
-    def __init__(self, dim: int, hidden: int, dtype=torch.float32):
+    def __init__(self, dim: int, hidden: int, dtype=torch.float32,
+                 spike: str = "qspike"):
         super().__init__()
-        self.Spike_0, self.Spike_1 = Spike(), Spike()
+        self.Spike_0, self.Spike_1 = Spike(spike), Spike(spike)
         self.Conv_0 = conv2d(dim, hidden, 1, bias=True, dtype=dtype,
-                             spike_input=True)
+                             spike_input=spike)
         self.BatchNorm_0 = BatchNorm(hidden)
         self.Conv_1 = conv2d(hidden, dim, 1, bias=True, dtype=dtype,
-                             spike_input=True)
+                             spike_input=spike)
         self.BatchNorm_1 = BatchNorm(dim)
 
     def forward(self, x):
@@ -405,11 +441,13 @@ class DownSampling(nn.Module):
     """(spike->)conv(k, s, p)->BN stage transition (sdtv2.py:386-421)."""
 
     def __init__(self, cin, cout, kernel=3, stride=2, padding=1,
-                 first_layer=False, dtype=torch.float32):
+                 first_layer=False, dtype=torch.float32,
+                 spike: str = "qspike"):
         super().__init__()
-        self.Spike_0 = None if first_layer else Spike()
+        self.Spike_0 = None if first_layer else Spike(spike)
         self.Conv_0 = conv2d(cin, cout, kernel, stride, padding, bias=True,
-                             dtype=dtype, spike_input=not first_layer)
+                             dtype=dtype,
+                             spike_input=not first_layer and spike)
         self.BatchNorm_0 = BatchNorm(cout)
 
     def forward(self, x):

@@ -26,7 +26,8 @@ def preprocess(images_u8: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
 
 
 class Spike2Former(nn.Module):
-    """Spiking MaskFormer segmentor: SDTv2 backbone + DCN MaskFormer head."""
+    """Spiking MaskFormer segmentor: an SDTv2, SDTv3 or SDTv3-MAE backbone
+    (``variant``) + the DCN MaskFormer head."""
 
     def __init__(self, num_classes: int = 150,
                  embed_dim: Sequence[int] = (64, 128, 256, 360),
@@ -38,16 +39,18 @@ class Spike2Former(nn.Module):
                  norm_eval: bool = True, collapse_t: bool = True,
                  eval_last_only: bool = True, lazy_masks: bool = False,
                  remat: bool = False, dtype: torch.dtype = torch.float32,
-                 packed_residuals: bool = False):
+                 packed_residuals: bool = False, variant: str = "sdtv2"):
         super().__init__()
         e = tuple(embed_dim)
         self.dtype = dtype
         self.backbone = SpikingMetaFormer(
             e, num_heads=backbone_heads, T=T, depths_stage3=depths_stage3,
             depths_stage4=depths_stage4, collapse_t=collapse_t,
-            norm_eval=norm_eval, remat=remat, dtype=dtype)
+            norm_eval=norm_eval, remat=remat, dtype=dtype, variant=variant)
+        # the MAE flavour's deepest level stays at embed_dim[2]
+        last_c = e[2] if variant == "sdtv3mae" else e[3]
         self.head = MaskFormerHead(
-            in_channels=(e[0] // 2, e[0], e[1], e[3]),
+            in_channels=(e[0] // 2, e[0], e[1], last_c),
             feat_channels=feat_channels, out_channels=feat_channels,
             num_classes=num_classes, num_queries=num_queries,
             num_decoder_layers=num_decoder_layers,

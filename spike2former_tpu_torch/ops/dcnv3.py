@@ -6,13 +6,15 @@ unpadded half-pixel space) and hands ``(value, py, px, mask)`` to
 ``dcnv3_sample``.  The sampler takes ``[N, HoWo, G, P]`` coordinates and
 returns ``[N, HoWo, G*Cg]``, so the JAX path's layout transposes disappear.
 
-``dcnv3_sample`` is differentiable.  For a CUDA tensor it is a
-``torch.autograd.Function`` whose forward launches ``csrc/dcnv3_sample.cu``
+``dcnv3_sample`` is differentiable.  For a CUDA tensor it calls the
+operator ``torch.ops.spike2former.dcnv3_sample`` (``dcnv3_sample_op``, a
+``torch.library.custom_op``), which launches ``csrc/dcnv3_sample.cu``
 (which replaces the TPU kernel ``dcnv3_sample_pallas_t5``) and whose
-backward launches ``csrc/dcnv3_sample_bwd.cu`` (which replaces
-``dcnv3_sample_pallas_t5_bwd``) through ``dcnv3_sample_backward``.  For a
-tensor on the CPU it is the plain version ``dcnv3_sample_reference``, with
-PyTorch's autograd of it.  Launches are counted in
+gradient launches ``csrc/dcnv3_sample_bwd.cu`` (which replaces
+``dcnv3_sample_pallas_t5_bwd``) through ``dcnv3_sample_backward``; as an
+operator it is what ``torch.export`` records.  For a tensor on the CPU it
+is the plain version ``dcnv3_sample_reference``, with PyTorch's autograd
+of it.  Launches are counted in
 ``dcnv3_sample.launches`` (forward) and ``dcnv3_sample_backward.launches``,
 and those of the bf16 forms also in ``.bf16_launches``.
 
@@ -361,30 +363,46 @@ def _check_kernel_args(value: torch.Tensor, py: torch.Tensor,
     return n, h, w, c, howo, g, p
 
 
-class _SampleFunction(torch.autograd.Function):
-    """K1 forward, K2 backward, on CUDA tensors; the gradient of
-    ``value`` comes back in ``value.dtype``, those of the coordinates and
-    mask in float32."""
+@torch.library.custom_op("spike2former::dcnv3_sample", mutates_args=(),
+                         device_types="cuda")
+def dcnv3_sample_op(value: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """K1 as a PyTorch operator (``torch.ops.spike2former.dcnv3_sample``)
+    on CUDA tensors: the ctypes launch is opaque to ``torch.export`` and
+    ``torch.compile``, so they see this operator, whose fake form gives
+    the output's shape, and an exported program holds one call of it
+    per DCN layer.  Its gradient is K2's (``dcnv3_sample_backward``):
+    ``value``'s in ``value.dtype``, the coordinates' and mask's in
+    float32."""
+    return _K1.launch(value, py, px, mask)
 
-    @staticmethod
-    def forward(ctx, sampler, value, py, px, mask):
-        ctx.save_for_backward(value, py, px, mask)
-        return sampler.launch(value, py, px, mask)
 
-    @staticmethod
-    def backward(ctx, dout):
-        # read once: under torch.utils.checkpoint a saved tensor unpacks once
-        saved = ctx.saved_tensors
-        dout = dout.to(saved[0].dtype).contiguous()
-        if dout.data_ptr() % 16:  # a contiguous view at an odd offset
-            dout = dout.clone()
-        return (None, *dcnv3_sample_backward(*saved, dout))
+@dcnv3_sample_op.register_fake
+def _(value, py, px, mask):
+    return value.new_empty((value.shape[0], py.shape[1], value.shape[3]))
+
+
+def _op_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _op_backward(ctx, dout):
+    # read once: under torch.utils.checkpoint a saved tensor unpacks once
+    saved = ctx.saved_tensors
+    dout = dout.to(saved[0].dtype).contiguous()
+    if dout.data_ptr() % 16:  # a contiguous view at an odd offset
+        dout = dout.clone()
+    return tuple(dcnv3_sample_backward(*saved, dout))
+
+
+dcnv3_sample_op.register_autograd(_op_backward,
+                                  setup_context=_op_setup_context)
 
 
 class _DCNv3Sample:
-    """Deformable bilinear sample: the CUDA kernel (differentiable through
-    the backward kernel) for a CUDA tensor, the plain version for a CPU
-    tensor.  Shapes as ``dcnv3_sample_reference``.
+    """Deformable bilinear sample: K1 through ``dcnv3_sample_op``
+    (differentiable through K2) for a CUDA tensor, the plain version for
+    a CPU tensor.  Shapes as ``dcnv3_sample_reference``.
 
     ``launches`` counts the forward kernel's launches (a plain int, on the
     wrapper object so that it survives the name being rebound, as a test
@@ -399,7 +417,7 @@ class _DCNv3Sample:
                  px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if not value.is_cuda:
             return dcnv3_sample_reference(value, py, px, mask)
-        return _SampleFunction.apply(self, value, py, px, mask)
+        return dcnv3_sample_op(value, py, px, mask)
 
     def launch(self, value: torch.Tensor, py: torch.Tensor,
                px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -458,7 +476,9 @@ class _DCNv3SampleBackward:
         return dvalue, dpy, dpx, dmask
 
 
-dcnv3_sample = _DCNv3Sample()
+# ``_K1`` is the wrapper that ``dcnv3_sample_op`` launches through,
+# whatever ``dcnv3_sample`` is rebound to
+dcnv3_sample = _K1 = _DCNv3Sample()
 dcnv3_sample_backward = _DCNv3SampleBackward()
 
 

@@ -3,7 +3,11 @@
 ``quant_ste(x, d, lo)`` is ``round(clamp(x, lo, d))`` with a straight-through
 gradient kept on the CLOSED interval ``lo <= x <= d``.  ``torch.round`` rounds
 half to even, as ``jnp.round`` does.  ``qspike`` is the Q_IFNode fast path
-``round(clamp(x, 0, 8)) / 8`` used throughout the SDTv2 flagship.
+``round(clamp(x, 0, 8)) / 8`` used throughout the SDTv2 flagship;
+``multispike_norm`` (``round(clamp(x, 0, 4)) / 4``) and ``multispike4``
+(unnormalized) are SDTv3's, and ``multispike8`` is the MAE flavour's:
+``floor(clamp(x, 0, 8) + 0.5) / 8``, rounding half UP, with its gradient
+gated to the OPEN interval ``0 < x < 8``.
 """
 from __future__ import annotations
 
@@ -34,3 +38,32 @@ def quant_ste(x: torch.Tensor, d: float = 8.0, lo: float = 0.0) -> torch.Tensor:
 def qspike(x: torch.Tensor) -> torch.Tensor:
     """Q_IFNode with the Quant surrogate: values in {0, 1/8, ..., 1}."""
     return quant_ste(x, 8.0) * 0.125
+
+
+def multispike_norm(x: torch.Tensor) -> torch.Tensor:
+    """SDTv3's stateless neuron: values in {0, 1/4, ..., 1}."""
+    return quant_ste(x, 4.0) * 0.25
+
+
+def multispike4(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalized 4-level quantization ``round(clamp(x, 0, 4))``."""
+    return quant_ste(x, 4.0)
+
+
+class _MultiSpike8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.floor(torch.clamp(x, 0.0, 8.0) + 0.5) * 0.125
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        keep = (x > 0.0) & (x < 8.0)
+        return torch.where(keep, g, torch.zeros_like(g))
+
+
+def multispike8(x: torch.Tensor) -> torch.Tensor:
+    """sdtv3MAE's ``Multispike``: ``floor(clamp(x, 0, 8) + 0.5) / 8``
+    (round half up), gradient on the open interval ``0 < x < 8``."""
+    return _MultiSpike8.apply(x)

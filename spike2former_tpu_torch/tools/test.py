@@ -99,8 +99,9 @@ def main(argv: list[str] | None = None) -> int:
                       help="a checkpoint of the train CLI, or a state dict "
                            "of the port saved by torch.save")
     ckpt.add_argument("--torch-checkpoint", default=None,
-                      help="reference .pth EncoderDecoder checkpoint; "
-                           "implies model.compat=True")
+                      help="reference .pth EncoderDecoder checkpoint, "
+                           "read with model.variant's key map; implies "
+                           "model.compat=True")
     ap.add_argument("--max-images", type=int, default=None)
     ap.add_argument("--show-dir", default=None,
                     help="write prediction overlays (SegVisualizationHook)")
@@ -117,7 +118,8 @@ def main(argv: list[str] | None = None) -> int:
         cfg.model.compat = True
         m = cfg.model
         state_dict = load_reference_model(
-            args.torch_checkpoint, depths_stage3=m.depths_stage3,
+            args.torch_checkpoint, variant=m.variant,
+            depths_stage3=m.depths_stage3,
             depths_stage4=m.depths_stage4,
             num_encoder_layers=m.num_encoder_layers,
             num_decoder_layers=m.num_decoder_layers)

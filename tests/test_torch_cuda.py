@@ -771,3 +771,85 @@ def test_cityscapes_shapes_kernels_match_plain(cuda):
             *(t.to(cuda) for t in (value, py, px, mask, dout)))
         for a, b in zip(gots, wants):
             torch.testing.assert_close(a.cpu(), b, atol=3e-4, rtol=1e-3)
+
+
+# --- the ServingEngine, K1's operator, export, the SDTv3 family ------------
+
+def test_k1_operator_is_the_kernel_with_k2_as_its_gradient(cuda):
+    """``torch.ops.spike2former.dcnv3_sample`` launches K1 (counted) and
+    differentiates through K2, against autograd of the plain version."""
+    gen = torch.Generator().manual_seed(7)
+    n, h, w, g, cg, p = 3, 8, 12, 4, 8, 9
+    value = torch.randn((n, h, w, g * cg), generator=gen).cuda()
+    py = (torch.rand((n, h * w, g, p), generator=gen) * (h + 2) - 1).cuda()
+    px = (torch.rand((n, h * w, g, p), generator=gen) * (w + 2) - 1).cuda()
+    mask = torch.rand((n, h * w, g, p), generator=gen).cuda()
+    dout = torch.randn((n, h * w, g * cg), generator=gen).cuda()
+    leaves = [t.clone().requires_grad_(True) for t in (value, py, px, mask)]
+    before = (dcnv3.dcnv3_sample.launches,
+              dcnv3.dcnv3_sample_backward.launches)
+    out = torch.ops.spike2former.dcnv3_sample(*leaves)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (dcnv3.dcnv3_sample.launches - before[0],
+            dcnv3.dcnv3_sample_backward.launches - before[1]) == (1, 1)
+    ref = [t.clone().requires_grad_(True) for t in (value, py, px, mask)]
+    want_out = dcnv3.dcnv3_sample_reference(*ref)
+    want = torch.autograd.grad(want_out, ref, dout)
+    torch.testing.assert_close(out, want_out, atol=2e-5, rtol=0)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=3e-4, rtol=1e-3)
+
+
+def test_export_holds_one_k1_call_per_dcn_layer(cuda, tmp_path):
+    from spike2former_tpu_torch.tools import export
+
+    im = api.init_model(PRESET, overrides=TINY_OPTS + [
+        "model.num_encoder_layers=2"])
+    x = torch.randn((2, 64, 96, 3), device="cuda")
+    program = export.export_model(im.model, x)
+    assert export.sampler_calls(program) == 2
+    torch.export.save(program, str(tmp_path / "m.pt2"))
+    loaded = torch.export.load(str(tmp_path / "m.pt2")).module()
+    with torch.no_grad():
+        torch.testing.assert_close(loaded(x), im.model.predict_logits(x),
+                                   atol=1e-6, rtol=0)
+
+
+def test_serving_engine_on_the_card_matches_cpu(card):
+    """The tiny model's engine on the card: K1 launches 6 a micro-batch
+    (here 1 DCN layer: 1), class maps equal to the CPU engine's."""
+    from spike2former_tpu_torch.serving import ServingEngine
+
+    opts = TINY_OPTS + ["data.test_scale=(128,96)"]
+    rng = np.random.default_rng(3)
+    imgs = [rng.integers(0, 255, hw + (3,), dtype=np.uint8)
+            for hw in ((96, 128), (60, 45), (150, 70)) * 3]
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        before = dcnv3.dcnv3_sample.launches
+        with ServingEngine(PRESET, overrides=opts, device=dev, max_batch=4,
+                           bucket=64, wait_ms=50.0) as eng:
+            maps[dev] = [f.result(timeout=120)
+                         for f in [eng.submit(i) for i in imgs]]
+            st = eng.stats()
+        launched = dcnv3.dcnv3_sample.launches - before
+        assert launched == (sum(st["batch_sizes"].values())
+                            if dev == "cuda" else 0)
+    for a, b in zip(maps["cpu"], maps["cuda"]):
+        assert (a == b).mean() >= 0.99
+
+
+@pytest.mark.parametrize("variant", ["sdtv3", "sdtv3mae"])
+def test_sdtv3_tiny_model_card_matches_cpu(cuda, variant):
+    cpu = randomize_(Spike2Former(T=4, variant=variant, num_classes=5,
+                                  embed_dim=(8, 16, 24, 32),
+                                  backbone_heads=4, feat_channels=16,
+                                  num_queries=4, num_decoder_layers=1,
+                                  num_encoder_layers=1, depths_stage3=1,
+                                  depths_stage4=1, dcn_group=4), seed=2)
+    gpu = copy.deepcopy(cpu).cuda()
+    x = torch.randn((1, 64, 96, 3), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = cpu.eval().predict_logits(x)
+        got = gpu.eval().predict_logits(x.cuda()).cpu()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)

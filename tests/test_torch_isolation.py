@@ -39,7 +39,11 @@ def test_port_and_chip_smoke_import_without_jax():
                  "tools.test", "utils.firing", "tools.cal_firing_num",
                  "evaluation.tta", "losses.point_sample",
                  "evaluation.cityscapes_metric", "tools.dataset_converters",
-                 "data.label_constants"):
+                 "data.label_constants", "serving", "tools.benchmark",
+                 "tools.export", "tools.confusion_matrix",
+                 "tools.analyze_logs", "tools.print_config",
+                 "tools.publish_model", "tools.browse_dataset",
+                 "utils.flops", "utils.profiling"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
@@ -92,6 +96,26 @@ def test_inferencer_and_firing_cli_raise_without_cuda(monkeypatch, tmp_path):
         cal_firing_num.main([PRESET, "--data-root", str(tmp_path),
                              "--out", str(tmp_path / "rates"),
                              "--cfg-options", "model.num_encoder_layers=1"])
+
+
+def test_serving_and_tools_raise_without_cuda(monkeypatch, tmp_path):
+    """The ServingEngine, the benchmark, export and confusion-matrix CLIs
+    run on the card unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from spike2former_tpu_torch.serving import ServingEngine
+    from spike2former_tpu_torch.tools import (benchmark, confusion_matrix,
+                                              export)
+
+    opts = ["--cfg-options", "model.num_encoder_layers=1"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(PRESET, overrides=["model.num_encoder_layers=1"])
+    for main, argv in (
+            (benchmark.main, [PRESET, "--num-iters", "1"]),
+            (export.main, [PRESET, "--out", str(tmp_path / "m.pt2")]),
+            (confusion_matrix.main, [PRESET, "--data-root",
+                                     str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv + opts)
 
 
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):

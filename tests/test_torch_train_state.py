@@ -303,6 +303,10 @@ def test_new_config_keys_have_the_jax_defaults():
             assert getattr(getattr(got, part), k) == getattr(
                 getattr(want, part), k), (part, k)
     assert got.work_dir == want.work_dir
-    for key in ("model.kind='fpn'", "model.variant='sdtv3'"):
-        with pytest.raises(AttributeError, match="unknown config key"):
-            get_config(PRESET, [key])
+    with pytest.raises(AttributeError, match="unknown config key"):
+        get_config(PRESET, ["model.kind='fpn'"])
+    # the backbone variants are ported; an unknown one is refused
+    assert get_config(PRESET, ["model.variant='sdtv3'"]).model.variant == \
+        "sdtv3"
+    with pytest.raises(ValueError, match="unknown backbone variant"):
+        Spike2Former(variant="msresnet18", **TINY)
