@@ -177,6 +177,31 @@ between the phases above (f32, full width, seeded images and weights):
       the tiny model card vs CPU (1e-3); a reference-format state dict of
       the variant loaded strictly onto the card (logits vs CPU, 1e-3).
 
+COCO panoptic, the Mask2Former head and the DAB-DETR decoder, run after
+them (f32, full width, seeded data and weights):
+
+  (panoptic) a seeded COCO-panoptic tree (3 val images of 480x640,
+      640x480 and 427x640, 4 train images; things, stuff, a crowd and
+      VOID in each): the eval CLI's ``evaluate_panoptic`` on
+      ``SDTv2_maskformer_coco_panoptic`` (ms an image, K1 6 launches an
+      image, maps at the original shapes) and its ``main`` (the PQ line);
+      ``whole_panoptic`` of a tiny confident model on the card against the
+      CPU (sem and inst equal on >= 0.99 of the pixels, some kept) and
+      the merge on confident inputs equal to its CPU run;
+      ``whole_panoptic`` alone on the padded images (ms, device ms); a
+      host batch's time, the H2D copies of its masks in f32 and uint8, and
+      the step on it from memory; the train CLI for 3 iterations at batch
+      6 of 512x512 (s/iter, peak memory,
+      K1 and K2 6 launches an iteration, finite losses, no val, the final
+      checkpoint);
+  (m2f), (dab) the flagship with ``model.masked_attention=True`` and with
+      ``model.decoder='dab'``, each taking turns with a fresh flagship:
+      9 requests each (3 passes over the 3 of (d)) and 3 train steps each
+      at batch 6 of 512x512, a warm-up and 2 timed (K1 6 a request, K1
+      and K2 6 a step, every captured call of one more request and one
+      more step of the variant held to its plain version): request and
+      step ms and peak memory of both, the variant step's device ms.
+
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero and prints no result; it also
@@ -204,21 +229,28 @@ import torch.nn.functional as F
 from spike2former_tpu_torch import api
 from spike2former_tpu_torch.data.dataset import make_dataset
 from spike2former_tpu_torch.data.loader import TrainLoader
+from spike2former_tpu_torch.data.panoptic import PanopticDataset
+from spike2former_tpu_torch.data.transforms import test_pipeline
 from spike2former_tpu_torch.data.synthetic import (ADE_LIKE_SHAPES,
+                                                    COCO_LIKE_SHAPES,
+                                                    confident_merge_inputs,
                                                     synthetic_batch,
                                                     write_ade_tree,
                                                     write_cityscapes_tree,
+                                                    write_coco_panoptic_tree,
                                                     write_coco_stuff_tree)
 from spike2former_tpu_torch.device import f32_precision
 from spike2former_tpu_torch.engine import checkpoint
 from spike2former_tpu_torch.engine.checkpoint import load_reference_model
-from spike2former_tpu_torch.engine.config import TestConfig
+from spike2former_tpu_torch.engine.config import TestConfig, get_config
 from spike2former_tpu_torch.engine.logging import read_scalars
 from spike2former_tpu_torch.engine.inference import (postprocess_pred,
+                                                      whole_panoptic,
                                                       slide_origins,
                                                       whole_logits)
 from spike2former_tpu_torch.engine.weights import randomize_
-from spike2former_tpu_torch.evaluation.tta import tta_logits
+from spike2former_tpu_torch.evaluation.tta import (panoptic_inference,
+                                                   tta_logits)
 from spike2former_tpu_torch.losses import criterion
 from spike2former_tpu_torch.losses import matcher
 from spike2former_tpu_torch.losses.matcher import BIG_COST, auction_match
@@ -1148,7 +1180,8 @@ def timed_steps(tr, batches, warmup: int, tag: str,
         metrics.append(m)
         log("train", f"{tag} step {i}{' (warm-up)' if i < warmup else ''}: "
             f"{times[-1]:.1f} ms total={m['total']:.6g} "
-            f"grad_norm={m['grad_norm']:.6g} dropped_gt={m['dropped_gt']:g} "
+            f"grad_norm={m['grad_norm']:.6g} "
+            f"dropped_gt={m.get('dropped_gt', 0):g} "
             f"repaired_gt={m['repaired_gt']:g}")
     launches = read_launches()
     steps = len(batches)
@@ -2759,6 +2792,328 @@ def phase_tools(im, smi: str) -> dict:
     return dict(out, export_err=err, export_launches=export_launches)
 
 
+# --- COCO panoptic, the Mask2Former head, the DAB-DETR decoder --------------
+
+PANOPTIC = "SDTv2_maskformer_coco_panoptic"
+PAN_TRAIN_SHAPES = COCO_LIKE_SHAPES + ((480, 640),)
+PAN_ITERS = 3                 # the panoptic train CLI's iterations
+PAN_TINY_THR = 0.5            # object_mask_thr of the tiny card-vs-CPU run
+PAN_AGREEMENT = 0.99          # share of equal sem / inst pixels, card-CPU
+VARIANTS = {"m2f": ["model.masked_attention=True"],
+            "dab": ["model.decoder='dab'"]}
+VARIANT_STEPS = 3             # a warm-up and two timed steps, each
+VARIANT_PASSES = 3            # timed passes over the 3 requests
+
+
+def confident_tiny_model() -> Spike2Former:
+    """The tiny panoptic model of tests/test_torch_panoptic.py on weights
+    drawn by ``engine/weights.py`` with its three changes (query features
+    at std 2, the class kernel x8, the last mask-embedding kernel x32), so
+    that the merge keeps queries; on the CPU, in eval mode."""
+    m = randomize_(Spike2Former(T=1, **dict(TINY, num_classes=4,
+                                            num_queries=8,
+                                            num_decoder_layers=2)), seed=14)
+    with torch.no_grad():
+        m.head.query_feat.normal_(0.0, 2.0,
+                                  generator=torch.Generator().manual_seed(114))
+        m.head.cls_embed.weight.mul_(8.0)
+        m.head.mask_embed.Dense_2.weight.mul_(32.0)
+    return m.eval()
+
+
+def phase_panoptic(smi: str) -> dict:
+    """(panoptic): the eval CLI's panoptic branch and the panoptic train
+    CLI on the preset at full width, on a seeded COCO-panoptic tree;
+    ``whole_panoptic`` and the merge on the card against the CPU."""
+    tag = "panoptic"
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_coco_panoptic_tree(root, COCO_LIKE_SHAPES, seed=0, split="val")
+        write_coco_panoptic_tree(root, PAN_TRAIN_SHAPES, seed=1,
+                                 split="train")
+        for split in ("val", "train"):
+            ds = PanopticDataset(root, split)
+            segs = [ds.load(i)["segments"] for i in range(len(ds))]
+            crowd = sum(c for sg in segs for _, _, c in sg)
+            things = sum(lab < ds.num_things for sg in segs
+                         for _, lab, c in sg if not c)
+            stuff = sum(lab >= ds.num_things for sg in segs
+                        for _, lab, _ in sg)
+            void = [float((ds.load(i)["pan_ids"] == 0).mean())
+                    for i in range(len(ds))]
+            check(things and stuff and crowd and min(void) > 0,
+                  f"{tag}: {split} tree has {things} things, {stuff} stuff, "
+                  f"{crowd} crowds, void shares {void}")
+            log(tag, f"{split}: {len(ds)} images "
+                f"{[ds.load(i)['image'].shape[:2] for i in range(len(ds))]},"
+                f" {things} thing, {stuff} stuff and {crowd} crowd segments,"
+                f" {ds.num_things}+{ds.num_stuff} classes")
+
+        t = time.perf_counter()
+        im = api.init_model(PANOPTIC, seed=0)
+        m = im.cfg.model
+        check((m.num_classes, m.num_things, im.cfg.data.dataset)
+              == (133, 80, "coco_panoptic"), f"{tag}: preset {m}")
+        log(tag, f"{PANOPTIC} built at full width in "
+            f"{time.perf_counter() - t:.1f}s")
+        val = PanopticDataset(root, "val")
+        eval_cli.evaluate_panoptic(im, val, max_images=1)   # warm-up
+        times = []
+        for _ in range(EVAL_PASSES):
+            torch.cuda.synchronize()
+            zero_launches()
+            t = time.perf_counter()
+            res = eval_cli.evaluate_panoptic(im, val)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3 / res["images"])
+            launches = read_launches()
+        check(res["images"] == 3 and launches["k1"] == 6 * 3
+              and launches["grouped"] == (0, 0),
+              f"{tag}: eval {res['images']} images, launches {launches}")
+        for (sem, inst), i in zip(res["maps"], range(3)):
+            shape = val.load(i)["image"].shape[:2]
+            check(sem.shape == inst.shape == shape and sem.min() >= -1
+                  and sem.max() < 133, f"{tag}: map {sem.shape} vs {shape}")
+        # the device's share: whole_panoptic alone on the padded images
+        xs = [torch.from_numpy(test_pipeline(
+            {"image": val.load(i)["image"], "meta": {}},
+            im.cfg.data.test_scale, size_divisor=im.cfg.data.size_divisor,
+            bucket=im.cfg.test.bucket)["image"][None]).cuda()
+            for i in range(3)]
+        fwd = []
+        for _ in range(EVAL_PASSES):
+            for x in xs:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                whole_panoptic(im.model, x, num_things=80)
+                torch.cuda.synchronize()
+                fwd.append((time.perf_counter() - t) * 1e3)
+        busy = device_busy_ms(lambda: whole_panoptic(im.model, xs[0],
+                                                     num_things=80))
+        out.update(eval_launches=launches, eval_ms=statistics.median(times),
+                   fwd_ms=statistics.median(fwd), fwd_busy=busy)
+        log(tag, f"evaluate_panoptic: {statistics.median(times):.3f} ms an "
+            f"image (median of {EVAL_PASSES} passes over 3, "
+            f"{[round(x, 3) for x in times]}), of which whole_panoptic "
+            f"{statistics.median(fwd):.3f} ms (n={len(fwd)}; device "
+            f"{busy:.3f} ms on {tuple(xs[0].shape[1:3])}), K1 "
+            f"{launches['k1']} launches for 3 images, PQ {res['PQ']:.2f} on "
+            f"{smi}")
+        lines = run_cli(eval_cli.main, [PANOPTIC, "--data-root", root],
+                        "eval CLI", phase=tag)
+        check(lines[0] == "images: 3" and lines[1].startswith("PQ ")
+              and "PQ_th" in lines[1] and "PQ_st" in lines[1],
+              f"{tag}: eval CLI printed {lines}")
+        del im
+        torch.cuda.empty_cache()
+
+        # whole_panoptic and the merge, card against CPU
+        cpu = confident_tiny_model()
+        gpu = copy.deepcopy(cpu).cuda()
+        x = torch.from_numpy(np.random.default_rng(6).integers(
+            0, 256, (2, 96, 128, 3), dtype=np.uint8))
+        want = whole_panoptic(cpu, x, num_things=2,
+                              object_mask_thr=PAN_TINY_THR)
+        got = [t.cpu() for t in whole_panoptic(
+            gpu, x.cuda(), num_things=2, object_mask_thr=PAN_TINY_THR)]
+        agree = [(g == w).float().mean().item() for g, w in zip(got, want)]
+        kept = (want[0] >= 0).float().mean().item()
+        check(min(agree) >= PAN_AGREEMENT and kept > 0,
+              f"{tag}: whole_panoptic card vs CPU agreement {agree}, "
+              f"kept share {kept}")
+        cls, masks = (torch.from_numpy(a) for a in confident_merge_inputs(
+            hw=(96, 128)))
+        want_m = panoptic_inference(cls, masks, num_things=2)
+        got_m = [t.cpu() for t in panoptic_inference(
+            cls.cuda(), masks.cuda(), num_things=2)]
+        sem = want_m[0]
+        check(all(torch.equal(g, w) for g, w in zip(got_m, want_m))
+              and (sem == -1).any() and (sem >= 2).any()
+              and (want_m[1] > 0).any(),
+              f"{tag}: the merge on the card differs from its plain CPU run"
+              f" or is trivial")
+        out.update(agree=agree, kept=kept)
+        log(tag, f"whole_panoptic (tiny, object_mask_thr {PAN_TINY_THR}) "
+            f"card vs CPU: sem equal on {agree[0]:.6f}, inst on "
+            f"{agree[1]:.6f} of pixels (>= {PAN_AGREEMENT}), kept share "
+            f"{kept:.4f}, classes {sorted(set(want[0].unique().tolist()))}; "
+            f"the merge on confident inputs equals its plain CPU run "
+            f"(void {(sem == -1).float().mean().item():.3f}, "
+            f"{len(want_m[1].unique()) - 1} instance ids)")
+
+        # the train CLI at full width
+        tr_cfg = get_config(PANOPTIC)
+        batches = iter(train_cli.panoptic_train_batches(
+            PanopticDataset(root, "train"), tr_cfg.data.batch_size,
+            tr_cfg.data.crop_size, tr_cfg.train.max_gt,
+            seed=tr_cfg.train.seed))
+        t = time.perf_counter()
+        batch = next(batches)
+        host_s = time.perf_counter() - t
+        copies = {}
+        for name, arr in (("masks f32", batch[2]),
+                          ("masks u8", batch[2].astype(np.uint8)),
+                          ("images f32", batch[0])):
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                train_cli._to_device(arr, torch.device("cuda"))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            copies[name] = (min(ms), arr.nbytes / 1e6)
+        log(tag, f"a host batch of {tuple(batch[2].shape)} masks in "
+            f"{host_s:.3f} s; H2D (pinned, ms, MB): "
+            + ", ".join(f"{k} {v[0]:.2f} ({v[1]:.1f})"
+                        for k, v in copies.items()))
+        # the step alone on that batch (masks as the CLI sends them)
+        tr = api.init_trainer(PANOPTIC, seed=0)
+        u8 = (batch[0], batch[1], batch[2].astype(np.uint8), batch[3])
+        steps = timed_steps(tr, [u8] * 3, 1, tag)
+        out.update(step_ms=steps["step_ms"], step_peak=steps["peak_gib"],
+                   step_launches=steps["launches"])
+        log(tag, f"step from memory: {steps['step_ms']:.3f} ms (n="
+            f"{steps['n']}), peak {steps['peak_gib']:.3f} GiB on {smi}")
+        del tr
+        torch.cuda.empty_cache()
+        wd = os.path.join(root, "wd")
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t = time.perf_counter()
+        lines = run_cli(train_cli.main, [
+            PANOPTIC, "--data-root", root, "--work-dir", wd,
+            "--log-interval", "1", "--cfg-options",
+            f"train.total_iters={PAN_ITERS}", "train.checkpoint_interval=0"],
+            "train CLI", phase=tag)
+        cli_s = time.perf_counter() - t
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs = read_scalars(os.path.join(wd, "scalars.jsonl"))
+        check(launches["k1"] == 6 * PAN_ITERS
+              and launches["k2"] == 6 * PAN_ITERS
+              and len(recs) == PAN_ITERS
+              and all(np.isfinite(r["total"]) for r in recs)
+              and sorted(os.listdir(wd)) == [f"ckpt_{PAN_ITERS}",
+                                             "scalars.jsonl"]
+              and not any("val" in ln for ln in lines),
+              f"{tag}: train CLI launches {launches}, records {recs}, "
+              f"files {sorted(os.listdir(wd))}")
+        out.update(cli_launches=launches, cli_peak=peak, cli_s=cli_s,
+                   sec_per_iter=[r["sec_per_iter"] for r in recs],
+                   copies=copies, host_s=host_s)
+        log(tag, f"train CLI: {PAN_ITERS} iterations in {cli_s:.1f} s, "
+            f"s/iter {[round(r['sec_per_iter'], 3) for r in recs]}, "
+            f"totals {[round(r['total'], 4) for r in recs]}, K1/K2 "
+            f"{launches['k1']}/{launches['k2']} launches, peak {peak:.3f} "
+            f"GiB on {smi}")
+    return out
+
+
+def phase_variant(name: str, smi: str) -> dict:
+    """(m2f) / (dab): the flagship with ``VARIANTS[name]`` at full width
+    beside the flagship itself, the two taking turns: ``VARIANT_PASSES``
+    passes over three requests (K1 held at each DCN call of one more
+    request of the variant) and ``VARIANT_STEPS`` train steps each at
+    batch 6 of 512x512, the first a warm-up (K1 and K2 held at one more
+    step of the variant)."""
+    opts = VARIANTS[name]
+    t = time.perf_counter()
+    ims = {"flagship": api.init_model(PRESET, seed=0),
+           name: api.init_model(PRESET, overrides=opts, seed=0)}
+    head = ims[name].model.head
+    check(head.masked_attention if name == "m2f" else head.decoder == "dab",
+          f"{name}: head {head.masked_attention}, {head.decoder}")
+    log(name, f"{PRESET} {opts} and the flagship built at full width in "
+        f"{time.perf_counter() - t:.1f}s")
+    rng = np.random.default_rng(5)
+    imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for hw in REQUEST_SHAPES]
+    for im in ims.values():
+        for img in imgs:
+            api.inference_model(im, img)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    api.inference_model(ims[name], imgs[0])
+    req_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    zero_launches()
+    times = {k: [] for k in ims}
+    for _ in range(VARIANT_PASSES):
+        for img in imgs:
+            for k, im in ims.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                p = api.inference_model(im, img)
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t) * 1e3)
+                check(p.shape == img.shape[:2] and 0 <= p.min()
+                      and p.max() < im.num_classes,
+                      f"{name}: bad map {p.shape}")
+    req_launches = read_launches()
+    n_req = sum(len(v) for v in times.values())
+    check(req_launches["k1"] == 6 * n_req,
+          f"{name}: {req_launches['k1']} K1 launches for {n_req} requests")
+    store = {}
+    with capture_dcn(store):
+        api.inference_model(ims[name], imgs[0])
+    held = hold_captured(store, name, k1=6)
+    req = {k: statistics.median(v) for k, v in times.items()}
+    log(name, f"request, taking turns with the flagship (n="
+        f"{len(times[name])} each): median {req[name]:.3f} ms "
+        f"({[round(x, 1) for x in times[name]]}) against the flagship's "
+        f"{req['flagship']:.3f} ({[round(x, 1) for x in times['flagship']]})"
+        f", peak {req_peak:.3f} GiB, K1 {req_launches['k1']} launches over "
+        f"{n_req} requests on {smi}")
+    del ims
+    torch.cuda.empty_cache()
+
+    trs = {"flagship": api.init_trainer(PRESET, seed=0),
+           name: api.init_trainer(PRESET, opts, seed=0)}
+    b, hw = trs[name].cfg.data.batch_size, tuple(trs[name].cfg.data.crop_size)
+    batches = [synthetic_batch(np.random.default_rng(7), b, hw)
+               for _ in range(VARIANT_STEPS)]
+    zero_launches()
+    steps, peaks = {k: [] for k in trs}, {}
+    for i, batch in enumerate(batches):
+        for k, tr in trs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            m = api.train_steps(tr, [batch])[0]
+            torch.cuda.synchronize()
+            steps[k].append((time.perf_counter() - t) * 1e3)
+            peaks[k] = torch.cuda.max_memory_allocated() / 2 ** 30
+            bad = [key for key, v in m.items() if not np.isfinite(v)]
+            check(not bad, f"{name}: {k} step {i} non-finite {bad}")
+    launches = read_launches()
+    n_steps = sum(len(v) for v in steps.values())
+    check(launches["k1"] == 6 * n_steps and launches["k2"] == 6 * n_steps,
+          f"{name}: K1/K2 launches {launches} over {n_steps} steps")
+    step = {k: statistics.median(v[1:]) for k, v in steps.items()}
+    batch = [torch.as_tensor(a, device="cuda") for a in batches[-1]]
+    with f32_precision():
+        busy = device_busy_ms(lambda: trs[name].step_fn(trs[name].state,
+                                                        *batch), cpu=False)
+    store = {}
+    with capture_dcn(store):
+        api.train_steps(trs[name], batches[-1:])
+    held_train = hold_captured(store, name, k1=6, k2=6)
+    log(name, f"train, taking turns with the flagship: step "
+        f"{step[name]:.3f} ms ({[round(x, 1) for x in steps[name]]}, the "
+        f"first a warm-up; device {busy:.3f} ms) against the flagship's "
+        f"{step['flagship']:.3f} ({[round(x, 1) for x in steps['flagship']]}"
+        f"), peak {peaks[name]:.3f} GiB against {peaks['flagship']:.3f} on "
+        f"{smi}")
+    del trs
+    torch.cuda.empty_cache()
+    return dict(req_launches=req_launches, launches=launches,
+                req_ms=req[name], flag_req_ms=req["flagship"],
+                req_peak=req_peak, step_ms=step[name],
+                flag_step_ms=step["flagship"], step_peak=peaks[name],
+                flag_step_peak=peaks["flagship"], step_busy=busy,
+                held=dict(k1=max(held["k1"], held_train["k1"]),
+                          k2=held_train["k2"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2867,6 +3222,12 @@ def main() -> int:
             f"flagship's {s['request_ms']:.3f}; step "
             f"{v3[variant]['step_ms']:.3f} ms against the flagship's "
             f"{tr['step_ms']:.3f} on {smi}")
+    pan = phase_panoptic(smi)
+    torch.cuda.empty_cache()
+    var = {}
+    for name in VARIANTS:
+        var[name] = phase_variant(name, smi)
+        torch.cuda.empty_cache()
 
     # the main path's launches: serve, the three eval modes, the train
     # steps at the defaults, the overflow step, the host-matcher steps,
@@ -2881,7 +3242,10 @@ def main() -> int:
         pr["train"]["launches"], sv["launches"], sv["seq_launches"],
         sv["loop_launches"], tl_["export_launches"],
         *(v3[v]["req_launches"] for v in V3_PRESETS),
-        *(v3[v]["launches"] for v in V3_PRESETS)]
+        *(v3[v]["launches"] for v in V3_PRESETS),
+        pan["eval_launches"], pan["cli_launches"],
+        *(var[n]["req_launches"] for n in VARIANTS),
+        *(var[n]["launches"] for n in VARIANTS)]
     k1_launches = s["launches"] + sum(p["k1"] for p in paths)
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
@@ -2907,9 +3271,11 @@ def main() -> int:
     # K1 and K3-K6 at the serve shape, K2 and K7 at the train shape
     k1_path_err = max(s["max_abs_err"], fi["held"]["k1"], tt["held"]["k1"],
                       pt["held"]["k1"], pr["k1_err"], sv["held"]["k1"],
-                      *(v3[v]["held"]["k1"] for v in V3_PRESETS))
+                      *(v3[v]["held"]["k1"] for v in V3_PRESETS),
+                      *(var[n]["held"]["k1"] for n in VARIANTS))
     k2_path_err = max(pt["held"]["k2"], pr["k2_err"],
-                      *(v3[v]["held"]["k2"] for v in V3_PRESETS))
+                      *(v3[v]["held"]["k2"] for v in V3_PRESETS),
+                      *(var[n]["held"]["k2"] for n in VARIANTS))
     kernels = [
         row("dcnv3_sample", dcnv3.SOURCE, "dcnv3_sample_pallas_t5",
             k1_launches, max(k["max_abs_err"], k1_path_err), k[1]),
@@ -2963,7 +3329,13 @@ def main() -> int:
         f"{sv['k1_max'][3]['plain_ms']:.5f}; "
         + "; ".join(f"{v} K1/K2 requests {v3[v]['req_launches']['k1']}, "
                     f"steps {v3[v]['launches']['k1']}/"
-                    f"{v3[v]['launches']['k2']}" for v in V3_PRESETS))
+                    f"{v3[v]['launches']['k2']}" for v in V3_PRESETS)
+        + f"; panoptic eval K1 {pan['eval_launches']['k1']} (3 images), "
+        f"train CLI K1/K2 {pan['cli_launches']['k1']}/"
+        f"{pan['cli_launches']['k2']} ({PAN_ITERS} iterations); "
+        + "; ".join(f"{n} K1 requests {var[n]['req_launches']['k1']}, "
+                    f"K1/K2 steps {var[n]['launches']['k1']}/"
+                    f"{var[n]['launches']['k2']}" for n in VARIANTS))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

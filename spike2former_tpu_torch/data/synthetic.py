@@ -2,9 +2,11 @@
 RGB noise images and piecewise-constant semantic maps, so that matching and
 the losses see realistic slot counts, and trees of such images in the
 ADE20K, Cityscapes and COCO-Stuff 164k layouts (the latter two with the raw
-label ids that ``tools/dataset_converters.py`` turns into train ids)."""
+label ids that ``tools/dataset_converters.py`` turns into train ids) and
+in the COCO panoptic layout."""
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -123,3 +125,97 @@ def write_coco_stuff_tree(root: str, shapes=((480, 640), (640, 480)),
         lambda i: os.path.join(root, "annotations", f"{split}2017",
                                f"{i:04d}.png"),
         lambda sem: ids[np.where(sem == 255, 171, sem)])
+
+
+# COCO-like image shapes (H, W)
+COCO_LIKE_SHAPES = ((480, 640), (640, 480), (427, 640))
+
+
+def write_coco_panoptic_tree(root: str, shapes=COCO_LIKE_SHAPES,
+                             seed: int = 0, split: str = "val",
+                             num_things: int = 80, num_stuff: int = 53,
+                             instances: tuple[int, int] = (3, 8)) -> str:
+    """A seeded COCO-panoptic-layout split under ``root``
+    (``{split}2017/*.jpg``, ``annotations/panoptic_{split}2017/*.png`` and
+    ``annotations/panoptic_{split}2017.json``) with one image of each
+    (H, W) of ``shapes``.  Category ids are COCO-like, with gaps: things
+    ``1 + i + i // 10``, stuff ``200 + 2 * j``.  Each image holds 2-4
+    stuff segments (nearest-seed regions), ``instances`` thing boxes
+    (classes drawn with repeats, so a class may have several instances),
+    one of them a crowd, and a box of VOID (id 0); segment ids are drawn
+    from the whole 24-bit range."""
+    from PIL import Image
+
+    from .panoptic import VOID, encode_pan_png
+
+    rng = np.random.default_rng(seed)
+    thing_ids = [1 + i + i // 10 for i in range(num_things)]
+    stuff_ids = [200 + 2 * j for j in range(num_stuff)]
+    cats = ([{"id": c, "name": f"thing_{c}", "isthing": 1}
+             for c in thing_ids]
+            + [{"id": c, "name": f"stuff_{c}", "isthing": 0}
+               for c in stuff_ids])
+    img_dir = os.path.join(root, f"{split}2017")
+    pan_dir = os.path.join(root, "annotations", f"panoptic_{split}2017")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(pan_dir, exist_ok=True)
+    images, annotations = [], []
+    for i, (h, w) in enumerate(shapes):
+        k = int(rng.integers(2, min(4, num_stuff) + 1))
+        n = int(rng.integers(instances[0], instances[1] + 1))
+        seg_ids = rng.choice(np.arange(1, 2 ** 24), k + n, replace=False)
+        stuff = rng.choice(stuff_ids, k, replace=False)
+        yy, xx = np.mgrid[0:h, 0:w]
+        seeds = rng.uniform(0, 1, (k, 2)) * (h, w)
+        owner = ((yy[..., None] - seeds[:, 0]) ** 2
+                 + (xx[..., None] - seeds[:, 1]) ** 2).argmin(-1)
+        pan = seg_ids[owner].astype(np.int64)
+        segs = [(int(seg_ids[j]), int(stuff[j]), 0) for j in range(k)]
+        for j in range(n):
+            bh, bw = (int(rng.integers(h // 10, h // 3)),
+                      int(rng.integers(w // 10, w // 3)))
+            y0, x0 = int(rng.integers(0, h - bh)), int(rng.integers(0, w - bw))
+            pan[y0:y0 + bh, x0:x0 + bw] = seg_ids[k + j]
+            segs.append((int(seg_ids[k + j]),
+                         int(rng.choice(thing_ids[:max(1, num_things // 4)])),
+                         int(j == n - 1)))
+        vh, vw = h // 8, w // 8
+        y0, x0 = int(rng.integers(0, h - vh)), int(rng.integers(0, w - vw))
+        pan[y0:y0 + vh, x0:x0 + vw] = VOID
+        name = f"{split}_{i:04d}"
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+            os.path.join(img_dir, f"{name}.jpg"))
+        Image.fromarray(encode_pan_png(pan)).save(
+            os.path.join(pan_dir, f"{name}.png"))
+        images.append({"id": i, "file_name": f"{name}.jpg", "width": w,
+                       "height": h})
+        annotations.append({
+            "image_id": i, "file_name": f"{name}.png",
+            "segments_info": [
+                {"id": sid, "category_id": cat, "iscrowd": crowd,
+                 "area": int((pan == sid).sum())}
+                for sid, cat, crowd in segs if (pan == sid).any()]})
+    with open(os.path.join(root, "annotations",
+                           f"panoptic_{split}2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": cats}, f)
+    return root
+
+
+def confident_merge_inputs(seed: int = 0, b: int = 2, nq: int = 10,
+                           k: int = 5, hw: tuple[int, int] = (24, 32)):
+    """Inputs of the panoptic merge that a trained model would give and
+    random weights do not: (class scores [b, nq, k+1], mask logits
+    [b, nq, H, W]) float32, most queries confident in one class and each
+    mask a noisy blob, so that the merge keeps some queries, drops
+    others, and yields thing instances, stuff and void."""
+    rng = np.random.default_rng(seed)
+    cls = rng.normal(0, 1, (b, nq, k + 1))
+    top = rng.integers(0, k, (b, nq))
+    np.put_along_axis(cls, top[..., None], rng.uniform(2, 8, (b, nq, 1)), -1)
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]]
+    centres = rng.uniform(0, 1, (b, nq, 2)) * hw
+    dist = np.hypot(yy - centres[..., 0, None, None],
+                    xx - centres[..., 1, None, None])
+    masks = 6.0 - dist / (min(hw) / 16) + rng.normal(0, 0.5, dist.shape)
+    return cls.astype(np.float32), masks.astype(np.float32)

@@ -1,15 +1,19 @@
 """Config dataclasses, the SDTv2 MaskFormer presets and dot-key overrides
 (port of ``spike2former_tpu/engine/config.py``, without JAX).
 
-Only the fields that inference, evaluation, the semantic train step and the
-train CLI of the MaskFormer read are kept, so an override of anything else
-(``model.kind``, ``model.masked_attention``, ...) is rejected as an
-unknown key.  ``model.variant`` picks the backbone: ``sdtv2``
-(Spiking_vit_MetaFormer), ``sdtv3`` (E-SpikeFormer) or ``sdtv3mae`` (its
-MAE-pretrain flavour).  The presets are the SDTv2 MaskFormer's on ADE20K,
-Cityscapes, VOC 2012 and COCO-Stuff, and the SDTv3 ones on ADE20K, VOC
-and Cityscapes with the SDTv3-MAE one on ADE20K (T=4, collapsed); the
-FPN, cascade, MS-ResNet and panoptic presets wait for later slices.
+Only the fields that the MaskFormer's inference, evaluation, train steps
+and CLIs read are kept, so an override of anything else (``model.kind``,
+``model.neuron``, ...) is rejected as an unknown key.  ``model.variant``
+picks the backbone: ``sdtv2`` (Spiking_vit_MetaFormer), ``sdtv3``
+(E-SpikeFormer) or ``sdtv3mae`` (its MAE-pretrain flavour).
+``model.masked_attention`` runs the head in Mask2Former mode and
+``model.decoder='dab'`` swaps its decoder for the spiking DAB-DETR one
+(not both).  The presets are the SDTv2 MaskFormer's on ADE20K,
+Cityscapes, VOC 2012, COCO-Stuff and COCO panoptic (133 classes, 80 of
+them things: ``data.dataset='coco_panoptic'`` selects the panoptic train
+step and PQ eval in both CLIs), and the SDTv3 ones on ADE20K, VOC and
+Cityscapes with the SDTv3-MAE one on ADE20K (T=4, collapsed); the FPN,
+cascade and MS-ResNet presets wait for later slices.
 
 ``train.loss_points > 0`` trains with the point-sampled matching costs
 and mask losses (``losses/point_sample.py``; 12544 points, oversample 3.0
@@ -40,6 +44,7 @@ from ..models.segmentor import Spike2Former
 class ModelConfig:
     variant: str = "sdtv2"            # backbone: sdtv2 | sdtv3 | sdtv3mae
     num_classes: int = 150
+    num_things: int = 0               # panoptic: thing classes (rest stuff)
     embed_dim: tuple = (64, 128, 256, 360)
     backbone_heads: int = 8
     T: int = 1
@@ -53,6 +58,8 @@ class ModelConfig:
     compat: bool = False              # reference-exact layout quirks
     norm_eval: bool = True            # freeze backbone BN in training
     collapse_t: bool = True           # skip provably-identical time steps
+    masked_attention: bool = False    # Mask2Former masked cross-attention
+    decoder: str = "detr"             # 'detr' | 'dab' (DAB-DETR anchors)
     eval_last_only: bool = True
     remat: bool = False               # recompute blocks in the backward
     lazy_masks: bool = True           # factored train-time mask logits
@@ -145,7 +152,8 @@ def compute_dtype(name: str) -> torch.dtype:
 def build_model(cfg: ModelConfig, packed_residuals: bool = False
                 ) -> Spike2Former:
     """The MaskFormer for ``cfg`` (the only kind ported yet) with the
-    ``cfg.variant`` backbone, in ``cfg.dtype``; ``packed_residuals``
+    ``cfg.variant`` backbone and ``cfg.decoder`` (masked or not), in
+    ``cfg.dtype``; ``packed_residuals``
     (``train.packed_residuals``) saves packed spike codes at its
     Spike->Conv sites."""
     return Spike2Former(
@@ -158,6 +166,7 @@ def build_model(cfg: ModelConfig, packed_residuals: bool = False
         depths_stage3=cfg.depths_stage3, depths_stage4=cfg.depths_stage4,
         dcn_group=cfg.dcn_group, compat=cfg.compat,
         norm_eval=cfg.norm_eval, collapse_t=cfg.collapse_t,
+        masked_attention=cfg.masked_attention, decoder=cfg.decoder,
         eval_last_only=cfg.eval_last_only, lazy_masks=cfg.lazy_masks,
         remat=cfg.remat, dtype=compute_dtype(cfg.dtype),
         packed_residuals=packed_residuals)
@@ -255,6 +264,16 @@ def _ade_spike2former_sdtv3mae() -> Config:
                   data=DataConfig(dataset="ade20k"))
 
 
+def _coco_panoptic_spike2former() -> Config:
+    """COCO panoptic through the mask-classification head: 133 classes,
+    the 80 things first; trained on the panoptic JSON and id PNGs
+    (``data/panoptic.py``), scored by PQ (``evaluation/panoptic.py``)."""
+    return Config(name="SDTv2_maskformer_coco_panoptic",
+                  model=ModelConfig(T=1, num_classes=133, num_things=80),
+                  data=DataConfig(dataset="coco_panoptic",
+                                  data_root="data/coco"))
+
+
 PRESETS = {
     "SDTv2_maskformer_DCNpixelDecoder_ade20k": _ade_spike2former_sdtv2,
     "SDTv2_maskformer_DCNPixelDecoder_CityScapes":
@@ -268,6 +287,7 @@ PRESETS = {
     "SDTv3_b_Spike2former_voc_512x512": _voc_spike2former_sdtv3,
     "SDTv3_b_Spike2former_Cityscapes_512x1024":
         _cityscapes_spike2former_sdtv3,
+    "SDTv2_maskformer_coco_panoptic": _coco_panoptic_spike2former,
     "SDTv3MAE_Spike2former_ade20k_512x512": _ade_spike2former_sdtv3mae,
 }
 
@@ -275,7 +295,7 @@ PRESETS = {
 def get_config(name: str, overrides: list[str] | None = None) -> Config:
     if name not in PRESETS:
         raise KeyError(f"no preset {name!r} in the port (it has "
-                       f"{sorted(PRESETS)}; the FPN, cascade, MS-ResNet and "
-                       "panoptic presets are not ported yet)")
+                       f"{sorted(PRESETS)}; the FPN, cascade and MS-ResNet "
+                       "presets are not ported yet)")
     cfg = PRESETS[name]()
     return apply_overrides(cfg, overrides) if overrides else cfg

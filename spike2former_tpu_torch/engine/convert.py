@@ -11,6 +11,9 @@ is mechanical:
   ``BatchNorm_0``; its ``scale``/``bias``/``mean``/``var`` fold into the
   port's one ``BatchNorm`` module.
 
+The same holds for every head variant: the Mask2Former mode adds no
+parameter, and the DAB-DETR head's ``dab_decoder/...`` (its Dense layers
+and width-1 ``out_proj`` convs) and ``query_anchors`` map as above.
 Load the result with ``model.load_state_dict(sd, strict=True)``.
 """
 from __future__ import annotations

@@ -1,6 +1,8 @@
-"""Whole-image and sliding-window inference and the post-processing (port
-of ``spike2former_tpu/engine/inference.py``: ``whole_logits``,
-``bucket_hw``, ``slide_logits``, ``postprocess_pred``).
+"""Whole-image and sliding-window inference, the panoptic merge of a
+whole image, and the post-processing (port of
+``spike2former_tpu/engine/inference.py``: ``whole_logits``,
+``whole_panoptic``, ``bucket_hw``, ``slide_logits``,
+``postprocess_pred``).
 
 Reference: mmseg/models/segmentors/encoder_decoder.py ``whole_inference``
 (:299-319) and ``slide_inference`` (:246-297), and
@@ -10,8 +12,10 @@ from __future__ import annotations
 
 import torch
 
+from ..device import f32_precision
+from ..evaluation.tta import panoptic_inference
 from ..models.segmentor import Spike2Former, preprocess
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize_bilinear, resize_bilinear_hw
 
 
 @torch.inference_mode()
@@ -26,6 +30,26 @@ def whole_logits(model: Spike2Former, images_u8: torch.Tensor,
         valid_hw = torch.as_tensor(valid_hw, dtype=torch.long,
                                    device=images_u8.device)
     return model.predict_logits(preprocess(images_u8), valid_hw)
+
+
+@torch.inference_mode()
+def whole_panoptic(model: Spike2Former, images_u8: torch.Tensor,
+                   num_things: int = 80, object_mask_thr: float = 0.8
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, H, W, 3] RGB (uint8 or float) on the model's device -> (sem
+    [B, H, W] int32 with -1 void, inst [B, H, W] int32) by
+    ``panoptic_inference`` on the last layer's class scores and its mask
+    logits resized bilinearly to the input, all in full float32
+    (``f32_precision``).  As in the JAX package no ``valid_hw`` is passed:
+    the padding of a bucketed input takes part in the forward as image
+    content."""
+    with f32_precision():
+        cls_scores, mask_preds = model(preprocess(images_u8))
+        mask = resize_bilinear_hw(mask_preds[-1].float(),
+                                  tuple(images_u8.shape[1:3]))
+        return panoptic_inference(cls_scores[-1], mask,
+                                  object_mask_thr=object_mask_thr,
+                                  num_things=num_things)
 
 
 def bucket_hw(h: int, w: int, multiple: int = 128) -> tuple[int, int]:

@@ -1,10 +1,11 @@
-"""Semantic train step (port of ``make_train_step`` of
-``spike2former_tpu/engine/train.py``) and its library entry points
-``init_trainer`` / ``train_steps``, the loop of ``tools/train.py`` without
-the data layer.
+"""The semantic and the panoptic train steps (port of ``make_train_step``
+and ``make_train_step_panoptic`` of ``spike2former_tpu/engine/train.py``)
+and their library entry points ``init_trainer`` / ``train_steps``, the
+loop of ``tools/train.py`` without the data layer.
 
 One step: forward in training mode (decoder-layer BNs on batch statistics,
-backbone BNs frozen under ``norm_eval``), GT slots from the semantic map,
+backbone BNs frozen under ``norm_eval``), GT slots from the semantic map
+(or from the panoptic segments),
 matching of all supervised layers in one call (the on-device auction with
 the ``compact_gt`` fast path, the preset's default, or the exact host
 matcher), CE + focal + dice, backward (through the DCNv3 backward kernel
@@ -22,7 +23,8 @@ import torch
 from torch.profiler import record_function
 
 from ..device import f32_precision, resolve_device
-from ..losses.criterion import maskformer_loss, semantic_to_instances
+from ..losses.criterion import (GroundTruth, maskformer_loss,
+                                semantic_to_instances, slot_map_from_masks)
 from ..losses.point_sample import Draw, uniform_draw
 from ..models.segmentor import Spike2Former, preprocess
 from .config import (Config, TrainConfig, build_model, compute_dtype,
@@ -81,6 +83,72 @@ def point_generator(seed: int, step: int, microbatch: int,
     return g
 
 
+def _step_fn(gt_of: Callable[..., GroundTruth], loss_kw: dict,
+             accum_steps: int, num_points: int, seed: int,
+             point_draw: Callable[[int, int], Draw] | None,
+             report_dropped: bool) -> Callable:
+    """``train_step(state, images, *targets) -> (state, metrics)``: the
+    targets of each microbatch become its ``GroundTruth`` by ``gt_of``;
+    the loss is ``maskformer_loss`` with ``loss_kw``."""
+
+    def microbatch(model, images, targets, draw) -> dict[str, torch.Tensor]:
+        with record_function("forward"):
+            cls_scores, mask_preds = model(preprocess(images))
+        with record_function("match_and_loss"):
+            gt = gt_of(*targets)
+            losses = maskformer_loss(cls_scores, mask_preds, gt, draw=draw,
+                                     **loss_kw)
+        with record_function("backward"):
+            (losses["total"] / accum_steps).backward()
+        losses = {k: v.detach() for k, v in losses.items()}
+        if report_dropped:
+            losses["dropped_gt"] = gt.dropped.sum().float()
+        return losses
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   *targets: torch.Tensor):
+        model = state.model.train()
+        b = images.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{accum_steps} microbatches")
+        for p in model.parameters():
+            p.grad = None
+        per_mb = []
+        chunks = [t.chunk(accum_steps) for t in targets]
+        for m, im in enumerate(images.chunk(accum_steps)):
+            draw = None
+            if num_points:
+                draw = (point_draw(state.step, m) if point_draw else
+                        uniform_draw(point_generator(seed, state.step, m,
+                                                     im.device)))
+            per_mb.append(microbatch(model, im, [c[m] for c in chunks],
+                                     draw))
+        metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
+                   for k in per_mb[0]}
+        with record_function("optimizer"):
+            metrics["grad_norm"] = state.optimizer.step()
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def _loss_kw(num_classes, matcher, loss_at, compact_gt, num_points,
+             oversample_ratio, importance_sample_ratio, points_dtype):
+    """``maskformer_loss``'s keywords for a train step, checked."""
+    if matcher not in ("auction", "host"):
+        raise ValueError(
+            f"matcher must be 'auction' or 'host', got {matcher!r}")
+    if loss_at not in ("gt", "pred"):
+        raise ValueError(f"loss_at must be 'gt' or 'pred', got {loss_at!r}")
+    return dict(num_classes=num_classes, matcher=matcher, loss_at=loss_at,
+                compact_gt=compact_gt or None, num_points=num_points,
+                oversample_ratio=oversample_ratio,
+                importance_sample_ratio=importance_sample_ratio,
+                points_dtype=compute_dtype(points_dtype))
+
+
 def make_train_step(num_classes: int, max_gt: int = 64,
                     matcher: str = "auction", loss_at: str = "gt",
                     accum_steps: int = 1, compact_gt: int = 32,
@@ -114,59 +182,50 @@ def make_train_step(num_classes: int, max_gt: int = 64,
     The stages run inside ``torch.profiler.record_function`` ranges
     (``forward``, ``match_and_loss``, ``backward``, ``optimizer``), which
     ``profile_train.py`` reads."""
-    if matcher not in ("auction", "host"):
-        raise ValueError(
-            f"matcher must be 'auction' or 'host', got {matcher!r}")
-    if loss_at not in ("gt", "pred"):
-        raise ValueError(f"loss_at must be 'gt' or 'pred', got {loss_at!r}")
-    pdt = compute_dtype(points_dtype)
+    return _step_fn(
+        lambda sem_seg: semantic_to_instances(sem_seg, num_classes, max_gt),
+        _loss_kw(num_classes, matcher, loss_at, compact_gt, num_points,
+                 oversample_ratio, importance_sample_ratio, points_dtype),
+        accum_steps, num_points, seed, point_draw, report_dropped=True)
 
-    def microbatch(model, images, sem_seg, draw) -> dict[str, torch.Tensor]:
-        with record_function("forward"):
-            cls_scores, mask_preds = model(preprocess(images))
-        with record_function("match_and_loss"):
-            gt = semantic_to_instances(sem_seg, num_classes, max_gt)
-            losses = maskformer_loss(cls_scores, mask_preds, gt,
-                                     num_classes=num_classes,
-                                     matcher=matcher, loss_at=loss_at,
-                                     compact_gt=compact_gt or None,
-                                     num_points=num_points,
-                                     oversample_ratio=oversample_ratio,
-                                     importance_sample_ratio=(
-                                         importance_sample_ratio),
-                                     points_dtype=pdt, draw=draw)
-        with record_function("backward"):
-            (losses["total"] / accum_steps).backward()
-        losses = {k: v.detach() for k, v in losses.items()}
-        losses["dropped_gt"] = gt.dropped.sum().float()
-        return losses
 
-    def train_step(state: TrainState, images_u8: torch.Tensor,
-                   sem_seg: torch.Tensor):
-        model = state.model.train()
-        b = images_u8.shape[0]
-        if b % accum_steps:
-            raise ValueError(f"batch {b} does not split into "
-                             f"{accum_steps} microbatches")
-        for p in model.parameters():
-            p.grad = None
-        per_mb = []
-        for m, (im, seg) in enumerate(zip(images_u8.chunk(accum_steps),
-                                          sem_seg.chunk(accum_steps))):
-            draw = None
-            if num_points:
-                draw = (point_draw(state.step, m) if point_draw else
-                        uniform_draw(point_generator(seed, state.step, m,
-                                                     im.device)))
-            per_mb.append(microbatch(model, im, seg, draw))
-        metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
-                   for k in per_mb[0]}
-        with record_function("optimizer"):
-            metrics["grad_norm"] = state.optimizer.step()
-        state.step += 1
-        return state, metrics
+def make_train_step_panoptic(
+        num_classes: int, matcher: str = "auction", loss_at: str = "gt",
+        compact_gt: int = 32, num_points: int = 0,
+        oversample_ratio: float = 3.0, importance_sample_ratio: float = 0.75,
+        points_dtype: str = "float32", seed: int = 0,
+        point_draw: Callable[[int, int], Draw] | None = None) -> Callable:
+    """The panoptic step (JAX ``make_train_step_panoptic``): ``train_step(
+    state, images, labels, masks, valid) -> (state, metrics)`` with images
+    [B, H, W, 3] RGB (float or uint8) and the padded segments of
+    ``data.panoptic.panoptic_train_batches``: labels [B, G] int, masks
+    [B, G, H, W] {0, 1} (any dtype; uint8 is the cheapest to copy) and
+    valid [B, G] bool, on the model's device.  Things keep their instance
+    identity, stuff is one segment per class; the segments are disjoint,
+    so they travel as a slot map (``slot_map_from_masks``) into the
+    semantic step's loss, matcher, ``compact_gt`` path, point branch and
+    optimizer.  ``metrics`` as ``make_train_step``'s without
+    ``dropped_gt``."""
 
-    return train_step
+    def gt_of(labels, masks, valid):
+        valid = valid.bool()
+        return GroundTruth(
+            labels=labels.long(), valid=valid,
+            dropped=torch.zeros(labels.shape[0], dtype=torch.long,
+                                device=labels.device),
+            slot_map=slot_map_from_masks(masks, valid))
+
+    return _step_fn(
+        gt_of, _loss_kw(num_classes, matcher, loss_at, compact_gt,
+                        num_points, oversample_ratio,
+                        importance_sample_ratio, points_dtype),
+        1, num_points, seed, point_draw, report_dropped=False)
+
+
+def is_panoptic(cfg: Config) -> bool:
+    """Whether ``cfg`` trains and evaluates panoptic segmentation (the
+    JAX CLIs' test: the dataset is COCO panoptic)."""
+    return cfg.data.dataset == "coco_panoptic"
 
 
 @dataclass
@@ -182,8 +241,9 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
                  seed: int | None = None,
                  state_dict: dict[str, torch.Tensor] | None = None
                  ) -> Trainer:
-    """Build a model and its train step from a preset (or Config) on
-    ``device`` (the card unless ``device="cpu"``), in ``model.dtype``, with
+    """Build a model and its train step (the panoptic one where
+    ``is_panoptic(cfg)``) from a preset (or Config) on ``device`` (the
+    card unless ``device="cpu"``), in ``model.dtype``, with
     ``model.remat`` and ``train.packed_residuals`` as the config says (the
     parameters, gradients and AdamW moments stay float32).  Weights come from
     ``state_dict``, loaded strictly, or are drawn from ``seed``
@@ -192,13 +252,16 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
     dev = resolve_device(device)
     cfg = get_config(config, overrides) if isinstance(config, str) else config
     t = cfg.train
-    step_fn = make_train_step(
-        cfg.model.num_classes, max_gt=t.max_gt, matcher=t.matcher,
-        loss_at=t.loss_at, accum_steps=t.accum_steps,
-        compact_gt=t.compact_gt, num_points=t.loss_points,
-        oversample_ratio=t.loss_points_oversample,
-        importance_sample_ratio=t.loss_points_importance,
-        points_dtype=t.loss_points_dtype, seed=t.seed)
+    kw = dict(matcher=t.matcher, loss_at=t.loss_at, compact_gt=t.compact_gt,
+              num_points=t.loss_points,
+              oversample_ratio=t.loss_points_oversample,
+              importance_sample_ratio=t.loss_points_importance,
+              points_dtype=t.loss_points_dtype, seed=t.seed)
+    if is_panoptic(cfg):
+        step_fn = make_train_step_panoptic(cfg.model.num_classes, **kw)
+    else:
+        step_fn = make_train_step(cfg.model.num_classes, max_gt=t.max_gt,
+                                  accum_steps=t.accum_steps, **kw)
     model = build_model(cfg.model, packed_residuals=t.packed_residuals)
     if state_dict is None:
         randomize_(model, t.seed if seed is None else seed)
@@ -210,16 +273,17 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
 
 
 def train_steps(trainer: Trainer, batches: Iterable) -> list[dict]:
-    """Take one step per ``(images_u8 [B, H, W, 3], sem_seg [B, H, W])``
-    batch (numpy arrays or tensors); returns each step's metrics as
-    floats.  The steps run in full float32 whatever the caller's TF32
-    flags (``device.f32_precision``)."""
+    """Take one step per batch (numpy arrays or tensors): ``(images_u8
+    [B, H, W, 3], sem_seg [B, H, W])``, or for a panoptic trainer
+    ``(images, labels, masks, valid)`` as ``panoptic_train_batches``
+    yields them; returns each step's metrics as floats.  The steps run in
+    full float32 whatever the caller's TF32 flags
+    (``device.f32_precision``)."""
     out = []
     with f32_precision():
-        for images, sem_seg in batches:
+        for batch in batches:
             _, metrics = trainer.step_fn(
                 trainer.state,
-                torch.as_tensor(images, device=trainer.device),
-                torch.as_tensor(sem_seg, device=trainer.device))
+                *(torch.as_tensor(a, device=trainer.device) for a in batch))
             out.append({k: float(v) for k, v in metrics.items()})
     return out

@@ -107,6 +107,18 @@ def slot_masks(slot_map: torch.Tensor, g: int) -> torch.Tensor:
     return slot_map[:, None] == slots[None, :, None, None]
 
 
+def slot_map_from_masks(masks: torch.Tensor, valid: torch.Tensor
+                        ) -> torch.Tensor:
+    """[B, G, H, W] disjoint {0,1} masks and [B, G] validity -> [B, H, W]
+    slot map (G where no valid slot covers the pixel; the first slot wins
+    where masks overlap), as JAX's ``slot_map_from_masks``."""
+    g = masks.shape[1]
+    m = masks.bool() & valid[:, :, None, None].bool()
+    # torch.argmax takes no bool; on 0/1 it returns the first maximum
+    first = m.to(torch.uint8).argmax(1)
+    return torch.where(m.any(1), first, g)
+
+
 def semantic_to_instances(sem_seg: torch.Tensor, num_classes: int,
                           max_gt: int) -> GroundTruth:
     """Per-class targets from a semantic map [B, H, W] (the mmseg shim's

@@ -1,5 +1,4 @@
-"""MaskFormer head, DETR decoder path (port of
-``spike2former_tpu/models/maskformer_head.py``).
+"""MaskFormer head (port of ``spike2former_tpu/models/maskformer_head.py``).
 
 pixel decoder -> 3 scale levels (+ sine PE + level embed) -> decoder layers
 round-robin over the levels -> SDME output block (sigmoid -> Q-IF spike ->
@@ -9,7 +8,15 @@ features averaged over T).  In training mode (``model.train()``) every
 decoder layer's output is returned, the initial queries' too, and the
 query-axis BN uses batch statistics; with ``lazy_masks`` the mask logits
 come in the factored ``LazyMasks`` form.  ``valid_hw`` masks the padding
-of bucket-padded eval inputs.  Masked attention is not ported yet.
+of bucket-padded eval inputs.
+
+``masked_attention`` is the Mask2Former mode: the SDME runs after every
+layer (and on the initial queries), and its mask logits gate the next
+layer's cross-attention keys (``mask2former_attn_mask``); in training mode
+the query-axis BN takes each layer's batch statistics apart.
+``decoder='dab'`` replaces the decoder layers with the spiking DAB-DETR
+decoder (``dab_detr.py``) over the first level, with learned anchors
+``query_anchors``.
 
 Mixed precision follows the JAX head: the queries, query embeddings,
 level embeddings and positional encodings are float32 parameters or
@@ -27,11 +34,29 @@ import torch
 from torch import nn
 
 from ..losses.criterion import LazyMasks
+from ..ops.resize import resize_bilinear_hw
 from .attention import SpikeMLP3
+from .dab_detr import DABDetrDecoder
 from .layers import BatchNorm, Linear, Spike
 from .pixel_decoder import DCNPixelDecoder
 from .positional import sine_pe_for_shape, sine_positional_encoding
 from .transformer_decoder import DetrDecoderLayer
+
+
+def mask2former_attn_mask(mask_pred: torch.Tensor, hw: tuple[int, int],
+                          pad_mask: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """The Mask2Former rule: the previous layer's mask logits [B, nq, h, w],
+    resized bilinearly to the attention level ``hw``, mask the keys where
+    the logit is below 0 (sigmoid < 0.5), except in a query's row that
+    would mask every key, which stays open; ``pad_mask`` ([B, 1, 1, hw],
+    True = padding) is ORed in.  Returns [B, 1, nq, h*w] bool, True =
+    masked."""
+    b, nq = mask_pred.shape[:2]
+    m = resize_bilinear_hw(mask_pred.float(), tuple(hw))
+    am = (m < 0.0).reshape(b, nq, -1)
+    am = (am & ~am.all(-1, keepdim=True))[:, None]
+    return am if pad_mask is None else am | pad_mask
 
 
 class MaskFormerHead(nn.Module):
@@ -43,14 +68,22 @@ class MaskFormerHead(nn.Module):
                  encoder_ffn_channels: int = 1024,
                  num_encoder_layers: int = 6, dcn_group: int = 32,
                  dw_kernel_size: int = 5, alpha: float = 4.0,
+                 masked_attention: bool = False, decoder: str = "detr",
                  eval_last_only: bool = True, lazy_masks: bool = False,
                  compat: bool = False, remat: bool = False,
                  dtype=torch.float32):
         super().__init__()
+        if decoder not in ("detr", "dab"):
+            raise ValueError(f"unknown decoder {decoder!r}")
+        if decoder == "dab" and masked_attention:
+            raise ValueError(
+                "decoder='dab' does not support masked_attention "
+                "(the DAB decoder has no per-layer mask gating); pick one")
         c, nq = feat_channels, num_queries
         self.c, self.alpha = c, alpha
         self.num_decoder_layers = num_decoder_layers
         self.num_feat_levels = num_feat_levels
+        self.masked_attention, self.decoder = masked_attention, decoder
         self.eval_last_only = eval_last_only
         self.lazy_masks = lazy_masks
         self.pixel_decoder = DCNPixelDecoder(
@@ -60,10 +93,16 @@ class MaskFormerHead(nn.Module):
         self.query_feat = nn.Parameter(torch.zeros(nq, c))
         self.query_embed = nn.Parameter(torch.zeros(nq, c))
         self.level_embed = nn.Parameter(torch.zeros(num_feat_levels, c))
-        for i in range(num_decoder_layers):
-            setattr(self, f"decoder_{i}", DetrDecoderLayer(
-                c, num_heads, decoder_ffn_channels, compat=compat,
-                dtype=dtype))
+        if decoder == "dab":
+            self.query_anchors = nn.Parameter(torch.zeros(nq, 4))
+            self.dab_decoder = DABDetrDecoder(
+                c, num_heads, num_decoder_layers, decoder_ffn_channels,
+                dtype=dtype)
+        else:
+            for i in range(num_decoder_layers):
+                setattr(self, f"decoder_{i}", DetrDecoderLayer(
+                    c, num_heads, decoder_ffn_channels, compat=compat,
+                    dtype=dtype))
         self.decoder_out_spike = Spike()
         self.shortcut_spike = Spike()
         self.mask_embed_spike = Spike()
@@ -93,14 +132,27 @@ class MaskFormerHead(nn.Module):
         mask_embed = a * self.mask_embed_spike(mask_embed + self.w * sc)
         return cls_scores.float(), mask_embed
 
+    @staticmethod
+    def mask_logits(mask_embed: torch.Tensor, mask_features: torch.Tensor
+                    ) -> torch.Tensor:
+        """Embeddings [L, T, B, nq, C] x mask features [T, B, h, w, C] ->
+        float32 logits [L, B, nq, h, w], averaged over T."""
+        return torch.einsum("ltbqc,tbhwc->lbqhw", mask_embed.float(),
+                            mask_features.float()) / mask_features.shape[0]
+
     def sdme(self, out: torch.Tensor, mask_features: torch.Tensor):
         """out [L, T, B, nq, C] -> class scores [L, B, nq, ncls+1] and mask
         logits [L, B, nq, h, w]."""
         cls_scores, mask_embed = self.sdme_embed(out)
-        t = mask_features.shape[0]
-        mask_preds = torch.einsum("ltbqc,tbhwc->lbqhw", mask_embed.float(),
-                                  mask_features.float()) / t
-        return cls_scores, mask_preds
+        return cls_scores, self.mask_logits(mask_embed, mask_features)
+
+    def sdme_out(self, out: torch.Tensor, mask_features: torch.Tensor):
+        """The head's output for the query stack ``out`` [L, T, B, nq, C]:
+        ``LazyMasks`` in training mode with ``lazy_masks``, else dense."""
+        if self.training and self.lazy_masks:
+            cls_scores, mask_embed = self.sdme_embed(out)
+            return cls_scores, LazyMasks(mask_embed, mask_features)
+        return self.sdme(out, mask_features)
 
     def forward(self, feats: Sequence[torch.Tensor],
                 valid_hw: torch.Tensor | None = None):
@@ -143,7 +195,21 @@ class MaskFormerHead(nn.Module):
             key_masks.append(pad.reshape(b, 1, 1, h * w))
 
         query = self.query_feat.expand(t, b, nq, c)
+        last_only = not self.training and self.eval_last_only
+        if self.decoder == "dab":
+            outputs, _ = self.dab_decoder(
+                query, inputs[0], pes[0],
+                self.query_anchors.float().expand(b, nq, 4),
+                cross_attn_mask=key_masks[0])
+            out = torch.cat([query[None], outputs])
+            return self.sdme_out(out[-1:] if last_only else out,
+                                 mask_features)
         qpos = self.query_embed.expand(b, nq, c)
+        if self.masked_attention:
+            return self._mask2former(
+                query, qpos, inputs, pes, key_masks,
+                [tuple(m.shape[2:4]) for m in multi_scale], mask_features,
+                last_only)
         out_dec = [query]  # the initial queries are supervised too
         for i in range(self.num_decoder_layers):
             lvl = i % self.num_feat_levels
@@ -151,14 +217,44 @@ class MaskFormerHead(nn.Module):
                 query, inputs[lvl], inputs[lvl], qpos, pes[lvl],
                 cross_attn_mask=key_masks[lvl])
             out_dec.append(query)
-        if self.training or not self.eval_last_only:
-            out = torch.stack(out_dec)
-        else:  # the reference discards all but the last layer at inference
-            out = query[None]
-        if self.training and self.lazy_masks:
-            cls_scores, mask_embed = self.sdme_embed(out)
-            return cls_scores, LazyMasks(mask_embed, mask_features)
-        return self.sdme(out, mask_features)
+        # the reference discards all but the last layer at inference
+        out = query[None] if last_only else torch.stack(out_dec)
+        return self.sdme_out(out, mask_features)
+
+    def _mask2former(self, query, qpos, inputs, pes, key_masks, level_hw,
+                     mask_features, last_only: bool):
+        """Mask2Former mode: the SDME after every layer, each layer's mask
+        logits gating the next layer's cross-attention keys; the initial
+        queries' and every layer's outputs are returned (the last only at
+        inference under ``eval_last_only``)."""
+        lazy = self.training and self.lazy_masks
+        cls_list, mask_list, embed_list = [], [], []
+
+        def step_sdme(q):
+            cls_i, me_i = self.sdme_embed(q[None])
+            # when lazy, the dense logits only gate the next layer
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not lazy):
+                mask_i = self.mask_logits(me_i, mask_features)
+            cls_list.append(cls_i[0])
+            mask_list.append(mask_i[0])
+            embed_list.append(me_i[0])
+
+        step_sdme(query)
+        for i in range(self.num_decoder_layers):
+            lvl = i % self.num_feat_levels
+            am = mask2former_attn_mask(mask_list[-1].detach(),
+                                       level_hw[lvl], key_masks[lvl])
+            query = getattr(self, f"decoder_{i}")(
+                query, inputs[lvl], inputs[lvl], qpos, pes[lvl],
+                cross_attn_mask=am)
+            step_sdme(query)
+        if last_only:
+            return cls_list[-1][None], mask_list[-1][None]
+        if lazy:
+            return torch.stack(cls_list), LazyMasks(torch.stack(embed_list),
+                                                    mask_features)
+        return torch.stack(cls_list), torch.stack(mask_list)
 
 
 def semantic_inference(cls_scores: torch.Tensor, mask_preds: torch.Tensor,

@@ -27,7 +27,8 @@ def preprocess(images_u8: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
 
 class Spike2Former(nn.Module):
     """Spiking MaskFormer segmentor: an SDTv2, SDTv3 or SDTv3-MAE backbone
-    (``variant``) + the DCN MaskFormer head."""
+    (``variant``) + the DCN MaskFormer head (DETR decoder, masked or not,
+    or DAB-DETR: ``masked_attention``, ``decoder``)."""
 
     def __init__(self, num_classes: int = 150,
                  embed_dim: Sequence[int] = (64, 128, 256, 360),
@@ -37,6 +38,7 @@ class Spike2Former(nn.Module):
                  depths_stage3: int = 6, depths_stage4: int = 2,
                  dcn_group: int = 32, compat: bool = False,
                  norm_eval: bool = True, collapse_t: bool = True,
+                 masked_attention: bool = False, decoder: str = "detr",
                  eval_last_only: bool = True, lazy_masks: bool = False,
                  remat: bool = False, dtype: torch.dtype = torch.float32,
                  packed_residuals: bool = False, variant: str = "sdtv2"):
@@ -56,6 +58,7 @@ class Spike2Former(nn.Module):
             num_decoder_layers=num_decoder_layers,
             num_encoder_layers=num_encoder_layers,
             dcn_group=min(dcn_group, feat_channels),
+            masked_attention=masked_attention, decoder=decoder,
             eval_last_only=eval_last_only, lazy_masks=lazy_masks,
             compat=compat, remat=remat, dtype=dtype)
         set_packed_residuals(self, packed_residuals)

@@ -5,8 +5,8 @@
 
 Serves the same seeded requests as ``chip_smoke.py`` (flagship preset at full
 width, seeded random weights, uint8 images of 512x683, 683x512, 512x512,
-with TF32 off; the config overrides given, e.g. ``model.dtype='bfloat16'``)
-and prints:
+with TF32 off; the config overrides given, e.g. ``model.dtype='bfloat16'``,
+``model.masked_attention=True`` or ``model.decoder='dab'``) and prints:
 
 * host stages per request (resize/pad, upload, forward, post-process,
   download), median ms over the timed rounds;
@@ -73,8 +73,11 @@ def _part_hooks(model):
         parts[f"encoder_{i}"] = layer
         parts[f"encoder_{i}.dcn"] = layer.dcn
     parts["pixel_decoder"] = dec
+    # the DAB head's decoder layers are its ``dab_decoder.layer_{i}``
+    layers, name = ((head.dab_decoder, "layer") if head.decoder == "dab"
+                    else (head, "decoder"))
     for i in range(head.num_decoder_layers):
-        parts[f"decoder_{i}"] = getattr(head, f"decoder_{i}")
+        parts[f"decoder_{i}"] = getattr(layers, f"{name}_{i}")
     parts["head"] = head
     events = defaultdict(list)
     handles = []

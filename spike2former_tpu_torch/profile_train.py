@@ -1,6 +1,6 @@
 """Where a flagship train step's time goes, on one NVIDIA GPU.
 
-    python -m spike2former_tpu_torch.profile_train [--loader] \
+    python -m spike2former_tpu_torch.profile_train [--loader | --panoptic] \
         [--cfg-options] [KEY=VALUE ...]
 
 Builds the flagship preset at full width with seeded random weights, with
@@ -13,11 +13,15 @@ size and crop (6 at 512x512), with TF32 off (a bf16 model's float32 parts
 stay float32), as ``chip_smoke.py`` does.  With ``--loader`` the batches are the train CLI's instead: the
 ``TrainLoader`` crops of a seeded ADE20K-layout tree of 12 images
 (``data/synthetic.py:ADE_LIKE_SHAPES``), written to a temporary
-directory.
+directory.  With ``--panoptic`` the preset is
+``SDTv2_maskformer_coco_panoptic`` and the batches are the panoptic train
+CLI's: ``panoptic_train_batches`` of a seeded COCO-panoptic tree of four
+COCO-sized images, the masks sent as uint8.
 Prints:
 
 * the step's wall ms (median of the timed steps), peak memory, the
-  auction's iterations in each step and the classes of each crop;
+  auction's iterations in each step and the classes (panoptic: the GT
+  segments) of each crop;
 * the host synchronizations of one step, as
   ``torch.cuda.set_sync_debug_mode`` reports them, by the line of the
   port that issued them;
@@ -55,11 +59,15 @@ from torch.profiler import ProfilerActivity, profile
 from . import api
 from .data.dataset import make_dataset
 from .data.loader import TrainLoader
-from .data.synthetic import ADE_LIKE_SHAPES, synthetic_batch, write_ade_tree
+from .data.panoptic import PanopticDataset, panoptic_train_batches
+from .data.synthetic import (ADE_LIKE_SHAPES, COCO_LIKE_SHAPES,
+                             synthetic_batch, write_ade_tree,
+                             write_coco_panoptic_tree)
 from .losses import criterion
 from .losses.matcher import auction_match
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
+PANOPTIC = "SDTv2_maskformer_coco_panoptic"
 WARMUP, TIMED = 2, 3
 
 
@@ -130,6 +138,19 @@ def loader_batches(b: int, hw: tuple[int, int], n: int) -> list:
             return [next(it) for _ in range(n)]
 
 
+def panoptic_batches(cfg, n: int) -> list:
+    """``n`` batches of the panoptic train CLI on a seeded tree, the masks
+    as uint8 (as the CLI sends them)."""
+    with tempfile.TemporaryDirectory() as root:
+        write_coco_panoptic_tree(root, COCO_LIKE_SHAPES + ((480, 640),),
+                                 seed=1, split="train")
+        it = panoptic_train_batches(
+            PanopticDataset(root, "train"), cfg.data.batch_size,
+            cfg.data.crop_size, cfg.train.max_gt, seed=cfg.train.seed)
+        return [(im, lab, masks.astype(np.uint8), valid)
+                for im, lab, masks, valid in (next(it) for _ in range(n))]
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device available", file=sys.stderr)
@@ -138,16 +159,21 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__}",
           flush=True)
-    loader = "--loader" in argv
-    overrides = [a for a in argv if a not in ("--loader", "--cfg-options")]
-    tr = api.init_trainer(PRESET, overrides, seed=0)
+    loader, panoptic = "--loader" in argv, "--panoptic" in argv
+    overrides = [a for a in argv
+                 if a not in ("--loader", "--panoptic", "--cfg-options")]
+    tr = api.init_trainer(PANOPTIC if panoptic else PRESET, overrides,
+                          seed=0)
     print(f"matcher={tr.cfg.train.matcher} compact_gt="
           f"{tr.cfg.train.compact_gt} dtype={tr.cfg.model.dtype} remat="
           f"{tr.cfg.model.remat} packed_residuals="
           f"{tr.cfg.train.packed_residuals} batches="
-          f"{'loader' if loader else 'synthetic'}", flush=True)
+          f"{'panoptic' if panoptic else 'loader' if loader else 'synthetic'}",
+          flush=True)
     b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
-    if loader:
+    if panoptic:
+        host = panoptic_batches(tr.cfg, WARMUP + TIMED)
+    elif loader:
         host = loader_batches(b, hw, WARMUP + TIMED)
     else:
         rng = np.random.default_rng(0)
@@ -178,8 +204,13 @@ def main(argv: list[str]) -> int:
           flush=True)
     iterations = [int(auction_match(c, with_stats=True)[1].iterations)
                   for c in costs]
-    classes = [len(np.unique(s[s != 255])) for _, sem in host for s in sem]
-    print(f"auction iterations per step {iterations}; classes per crop "
+    if panoptic:
+        what, classes = "GT segments", [int(v.sum()) for b in host
+                                        for v in b[3]]
+    else:
+        what, classes = "classes", [len(np.unique(s[s != 255]))
+                                    for _, sem in host for s in sem]
+    print(f"auction iterations per step {iterations}; {what} per crop "
           f"{classes}", flush=True)
 
     sites = sync_sites(lambda: tr.step_fn(tr.state, *batches[-1]))

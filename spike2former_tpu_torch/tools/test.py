@@ -1,6 +1,8 @@
 """The eval CLI (the port's counterpart of the JAX package's
 ``tools/test.py``): whole-image or sliding-window inference over the val
-split of a dataset in the mmseg layout, scored by mIoU, mAcc and aAcc.
+split of a dataset in the mmseg layout, scored by mIoU, mAcc and aAcc;
+or, for ``data.dataset='coco_panoptic'``, the panoptic merge over a COCO
+panoptic val split, scored by PQ (``PQ SQ RQ PQ_th PQ_st``).
 
     python -m spike2former_tpu_torch.tools.test CONFIG --data-root DIR \\
         [--checkpoint CKPT | --torch-checkpoint REF.pth] \\
@@ -17,8 +19,8 @@ annotation at that shape; images without one are skipped.
 the port saved by ``torch.save``; ``--torch-checkpoint`` loads a
 reference ``EncoderDecoder`` checkpoint and implies ``model.compat=True``;
 with neither, the weights are drawn from seed 0.  ``--show-dir`` writes
-each prediction's palette overlay at the network's input resolution.
-Runs on the card unless ``--device cpu``.
+each prediction's palette overlay at the network's input resolution
+(semantic eval only).  Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -33,11 +35,16 @@ from PIL import Image
 from ..api import InferenceModel, init_model
 from ..data.dataset import SegDataset, make_dataset
 from ..data.loader import eval_batches
+from ..data.panoptic import PanopticDataset, panoptic_maps
+from ..data.transforms import test_pipeline
 from ..device import f32_precision
 from ..engine.checkpoint import load_reference_model
 from ..engine.config import get_config
-from ..engine.inference import postprocess_pred, slide_logits, whole_logits
+from ..engine.inference import (postprocess_pred, slide_logits,
+                                whole_logits, whole_panoptic)
+from ..engine.train import is_panoptic
 from ..evaluation.iou_metric import compute_iou, init_iou, update_iou_np
+from ..evaluation.panoptic import PQStat, compute_pq, pq_update
 from ..evaluation.visualize import draw_sem_seg
 
 
@@ -90,6 +97,46 @@ def evaluate(im: InferenceModel, dataset: SegDataset,
     return dict(compute_iou(iou), images=len(preds), preds=preds)
 
 
+def evaluate_panoptic(im: InferenceModel, dataset: PanopticDataset,
+                      max_images: int | None = None) -> dict:
+    """PQ over the panoptic val split (JAX ``tools/test.py:
+    evaluate_panoptic``): each image resized keeping its ratio to
+    ``data.test_scale`` and padded to ``test.bucket`` (or
+    ``data.size_divisor``), merged on the device by ``whole_panoptic``
+    (``model.num_things``, 80 when 0), cut to the image, resized back to
+    the original shape (nearest, PIL mode ``I``) and scored on the host.
+    Returns ``compute_pq``'s result with ``images`` and ``maps`` (each
+    image's (sem, inst) at its original shape, int32)."""
+    cfg = im.cfg
+    num_things = cfg.model.num_things or 80
+    stat, maps = PQStat(cfg.model.num_classes), []
+    for i in range(len(dataset)):
+        raw = dataset.load(i)
+        oh, ow = raw["meta"]["ori_shape"]
+        s = test_pipeline({"image": raw["image"], "meta": {}},
+                          cfg.data.test_scale,
+                          size_divisor=cfg.data.size_divisor,
+                          bucket=cfg.test.bucket)
+        sem, inst = whole_panoptic(
+            im.model, torch.from_numpy(s["image"][None]).to(im.device),
+            num_things=num_things)
+        vh, vw = s["meta"]["img_shape"]
+
+        def back(m: torch.Tensor) -> np.ndarray:
+            arr = Image.fromarray(
+                np.ascontiguousarray(m[0, :vh, :vw].cpu().numpy()), "I")
+            return np.asarray(arr.resize((ow, oh), Image.NEAREST), np.int32)
+
+        pred = back(sem), back(inst)
+        stat = pq_update(stat, *pred, *panoptic_maps(raw["pan_ids"],
+                                                      raw["segments"]))
+        maps.append(pred)
+        if max_images and len(maps) >= max_images:
+            break
+    return dict(compute_pq(stat, num_things=num_things), images=len(maps),
+                maps=maps)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config")
@@ -125,6 +172,13 @@ def main(argv: list[str] | None = None) -> int:
             num_decoder_layers=m.num_decoder_layers)
     im = init_model(cfg, args.checkpoint, device=args.device,
                     state_dict=state_dict)
+    if is_panoptic(cfg):
+        res = evaluate_panoptic(
+            im, PanopticDataset(cfg.data.data_root, "val"), args.max_images)
+        print(f"images: {res['images']}")
+        print(f"PQ {res['PQ']:.2f}  SQ {res['SQ']:.2f}  RQ {res['RQ']:.2f}  "
+              f"PQ_th {res['PQ_th']:.2f}  PQ_st {res['PQ_st']:.2f}")
+        return 0
     res = evaluate(im, make_dataset(cfg.data.dataset, cfg.data.data_root,
                                     "val"), args.max_images,
                    show_dir=args.show_dir)

@@ -1,6 +1,8 @@
 """The train CLI (the port's counterpart of the JAX package's
 ``tools/train.py``): the flagship's semantic training on a dataset in the
-mmseg layout, with checkpoints, resume, a scalar log and periodic val.
+mmseg layout, or panoptic training on a COCO panoptic split
+(``data.dataset='coco_panoptic'``), with checkpoints, resume, a scalar
+log and periodic val.
 
     python -m spike2former_tpu_torch.tools.train CONFIG --data-root DIR \\
         [--work-dir DIR] [--resume] [--cfg-options KEY=VALUE ...] \\
@@ -17,12 +19,15 @@ seeded by ``train.seed``); weights are drawn from ``train.seed``.  Every
 ``test.bucket``), a new best mIoU is saved to ``work_dir/best/`` and, with
 ``--vis-interval``, overlays go to ``work_dir/vis/iter_i/``.  ``--resume``
 continues from the newest checkpoint; as in the JAX package, the loader
-restarts from its seed and the best mIoU from -1.  Runs on the card unless
-``--device cpu``.
+restarts from its seed and the best mIoU from -1.  The panoptic run takes
+its batches from ``data.panoptic.panoptic_train_batches`` (seeded by
+``train.seed``, ``train.max_gt`` segments an image) and, as in the JAX
+package, has no periodic val.  Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import os
 import sys
@@ -34,11 +39,13 @@ import torch
 from ..api import InferenceModel
 from ..data.dataset import make_dataset
 from ..data.loader import TrainLoader
+from ..data.panoptic import PanopticDataset, panoptic_train_batches
 from ..device import f32_precision
 from ..engine.checkpoint import latest_checkpoint, restore_state, save_state
 from ..engine.config import Config, get_config
 from ..engine.logging import ScalarLogger
-from ..engine.train import TrainState, init_trainer, scaled_base_lr
+from ..engine.train import (TrainState, init_trainer, is_panoptic,
+                            scaled_base_lr)
 from . import test as eval_cli
 
 
@@ -75,6 +82,22 @@ def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def _batch_source(cfg: Config):
+    """A context manager over the run's endless batches: the panoptic
+    batches of ``panoptic_train_batches``, or a ``TrainLoader`` (its
+    threads stop on exit)."""
+    t = cfg.train
+    if is_panoptic(cfg):
+        return contextlib.nullcontext(panoptic_train_batches(
+            PanopticDataset(cfg.data.data_root, "train"),
+            cfg.data.batch_size, cfg.data.crop_size, t.max_gt, seed=t.seed))
+    return TrainLoader(
+        make_dataset(cfg.data.dataset, cfg.data.data_root, "train",
+                     cache=cfg.data.cache),
+        cfg.data.batch_size, cfg.data.crop_size, seed=t.seed,
+        num_workers=cfg.data.num_workers, mosaic_prob=cfg.data.mosaic_prob)
+
+
 def train(cfg: Config, work_dir: str, *, resume: bool = False,
           log_interval: int = 50, eval_images: int = 100,
           vis_interval: int = 0, device: str | torch.device | None = None,
@@ -98,21 +121,20 @@ def train(cfg: Config, work_dir: str, *, resume: bool = False,
             print(f"resumed from {ckpt} at step {state.step}", flush=True)
     start = state.step
     keep = t.max_keep_ckpts or None
-    ds = make_dataset(cfg.data.dataset, cfg.data.data_root, "train",
-                      cache=cfg.data.cache)
+    panoptic = is_panoptic(cfg)
     slog = ScalarLogger(work_dir)
     logs, vals, best_miou = [], [], -1.0
     try:
-        with TrainLoader(ds, cfg.data.batch_size, cfg.data.crop_size,
-                         seed=t.seed, num_workers=cfg.data.num_workers,
-                         mosaic_prob=cfg.data.mosaic_prob) as loader, \
-                f32_precision():
+        with _batch_source(cfg) as loader, f32_precision():
             batches = iter(loader)
             t0 = time.time()
             for i in range(start, t.total_iters):
-                images, sem = next(batches)
-                _, metrics = tr.step_fn(state, _to_device(images, tr.device),
-                                        _to_device(sem, tr.device))
+                batch = next(batches)
+                if panoptic:  # 0/1 masks: a quarter of the bytes to copy
+                    images, labels, masks, valid = batch
+                    batch = images, labels, masks.astype(np.uint8), valid
+                _, metrics = tr.step_fn(
+                    state, *(_to_device(a, tr.device) for a in batch))
                 if (i + 1) % log_interval == 0:
                     # one read of the device for all the metrics
                     m = dict(zip(metrics, torch.stack(
@@ -130,7 +152,7 @@ def train(cfg: Config, work_dir: str, *, resume: bool = False,
                 if t.checkpoint_interval and (i + 1) % t.checkpoint_interval \
                         == 0:
                     save_state(work_dir, state, i + 1, keep=keep)
-                if eval_images and t.val_interval \
+                if eval_images and t.val_interval and not panoptic \
                         and (i + 1) % t.val_interval == 0:
                     miou = evaluate(cfg, state, tr.device, eval_images,
                                     vis_interval, os.path.join(

@@ -853,3 +853,78 @@ def test_sdtv3_tiny_model_card_matches_cpu(cuda, variant):
         want = cpu.eval().predict_logits(x)
         got = gpu.eval().predict_logits(x.cuda()).cpu()
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+# --- panoptic, Mask2Former and DAB-DETR ------------------------------------
+
+def test_panoptic_merge_and_whole_panoptic_card_match_cpu(cuda):
+    from spike2former_tpu_torch.data.synthetic import confident_merge_inputs
+    from spike2former_tpu_torch.evaluation.tta import panoptic_inference
+
+    cls, masks = (torch.from_numpy(a) for a in confident_merge_inputs())
+    want = panoptic_inference(cls, masks, num_things=2)
+    got = panoptic_inference(cls.to(cuda), masks.to(cuda), num_things=2)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert (want[0] >= 0).any() and (want[1] > 0).any()
+    cpu = randomize_(Spike2Former(T=1, **dict(
+        TINY_KW, num_classes=4)), seed=1).eval()
+    gpu = copy.deepcopy(cpu).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (1, 96, 128, 3), dtype=np.uint8))
+    k1 = dcnv3.dcnv3_sample.launches
+    sem_w, inst_w = inference.whole_panoptic(cpu, x, num_things=2,
+                                             object_mask_thr=0.3)
+    sem_g, inst_g = inference.whole_panoptic(gpu, x.to(cuda), num_things=2,
+                                             object_mask_thr=0.3)
+    assert dcnv3.dcnv3_sample.launches == k1 + 1
+    assert (sem_g.cpu() == sem_w).float().mean() >= 0.99
+    assert (inst_g.cpu() == inst_w).float().mean() >= 0.99
+
+
+TINY_KW = dict(num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
+               feat_channels=16, num_queries=4, num_decoder_layers=1,
+               num_encoder_layers=1, depths_stage3=1, depths_stage4=1,
+               dcn_group=4)
+
+
+@pytest.mark.parametrize("variant", ["panoptic", "m2f", "dab"])
+def test_variant_train_step_card_matches_cpu(cuda, variant):
+    """One tiny train step of the panoptic preset, the Mask2Former head
+    and the DAB head on the card against the CPU (the host matcher):
+    ``total`` within 1e-3 relative, K1 and K2 one launch each."""
+    preset, extra = {
+        "panoptic": ("SDTv2_maskformer_coco_panoptic",
+                     ["model.num_things=2"]),
+        "m2f": (PRESET, ["model.masked_attention=True",
+                         "model.num_decoder_layers=2"]),
+        "dab": (PRESET, ["model.decoder='dab'",
+                         "model.num_decoder_layers=2"])}[variant]
+    opts = TINY_OPTS + extra + ["train.matcher='host'",
+                                "train.warmup_iters=1"]
+    rng = np.random.default_rng(0)
+    if variant == "panoptic":
+        images = rng.uniform(0, 255, (2, 64, 64, 3)).astype(np.float32)
+        masks = np.zeros((2, 6, 64, 64), np.uint8)
+        for i in range(2):
+            masks[i, 0] = 1
+            masks[i, 1, 8:30, 10:40] = 1
+            masks[i, 2, 40:60, 5:25] = 1
+            masks[i, 0] -= masks[i, 1] | masks[i, 2]
+        batch = (images, np.asarray([[3, 0, 1, 0, 0, 0]] * 2, np.int32),
+                 masks, np.asarray([[1, 1, 1, 0, 0, 0]] * 2, bool))
+    else:
+        batch = synthetic_batch(rng, 2, (64, 64), num_classes=4,
+                                classes=(2, 4))
+    totals = []
+    for dev in ("cpu", "cuda"):
+        tr = api.init_trainer(preset, opts, device=dev, seed=1)
+        k1, k2 = (dcnv3.dcnv3_sample.launches,
+                  dcnv3.dcnv3_sample_backward.launches)
+        (m,) = api.train_steps(tr, [batch])
+        totals.append(m["total"])
+        if dev == "cuda":
+            assert (dcnv3.dcnv3_sample.launches == k1 + 1
+                    and dcnv3.dcnv3_sample_backward.launches == k2 + 1)
+    assert np.isfinite(totals).all()
+    assert abs(totals[1] - totals[0]) <= 1e-3 * abs(totals[0])

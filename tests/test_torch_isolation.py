@@ -43,7 +43,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "tools.export", "tools.confusion_matrix",
                  "tools.analyze_logs", "tools.print_config",
                  "tools.publish_model", "tools.browse_dataset",
-                 "utils.flops", "utils.profiling"):
+                 "utils.flops", "utils.profiling", "data.panoptic",
+                 "evaluation.panoptic", "models.dab_detr"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys

@@ -47,7 +47,8 @@ def _jax_converters():
 
 
 @pytest.mark.parametrize("name", ("SDTv2_maskformer_DCNpixelDecoder_ade20k",)
-                         + NEW_PRESETS)
+                         + NEW_PRESETS
+                         + ("SDTv2_maskformer_coco_panoptic",))
 def test_preset_equals_jax_field_by_field(name):
     """Every field the port's config has, in every section, as JAX's
     preset of the same name sets it."""

@@ -252,7 +252,7 @@ def test_confusion_matrix_equals_jax(tmp_path):
 def test_print_config_json_equals_jax(name):
     """Every key the port's config has is JAX's, with JAX's value; the
     keys the port lacks are those of parts not ported (``kind``,
-    ``masked_attention``, ...)."""
+    ``neuron``, ...)."""
     got = json.loads(_port_tool(print_config, [name, "--json"]))
     want = json.loads(_jax_tool("print_config", [name, "--json"]))
     for section, values in got.items():
