@@ -202,6 +202,30 @@ them (f32, full width, seeded data and weights):
       more step of the variant held to its plain version): request and
       step ms and peak memory of both, the variant step's device ms.
 
+The FPN family (no DCN: K1 and K2 must read 0 launches on each of its
+paths, each counted from 0 just before it), run last (f32, full width,
+seeded data and weights):
+
+  (fpn) ``fpn_sdtv3_512x512_19M_ade20k`` (SDTv3 backbone at embed (48,
+      96, 192, 256), neck 256, head 128, 150 classes, T=4 over every
+      step) serves the three images of (d) through
+      ``api.inference_model``: median and max ms over 10 requests, peak
+      memory; the tiny model (the same preset at tiny widths, T=2) on the
+      card against the CPU: class agreement >= 0.99 and the largest logit
+      gap, and 3 train steps' ``total`` within ``TRAIN_RTOL`` (the same
+      dropout masks on both, from a CPU generator);
+  (fpn train) the same preset at its own defaults (batch 6 of 512x512,
+      the backbone's BN trained): 2 warm-up and 3 timed steps, step ms,
+      peak memory, finite losses, non-zero neck and head gradients (a
+      batch that does not fit is halved, and the peak that failed
+      printed);
+  (fpn family) ``fpn_msresnet104_512x512_ade20k`` and
+      ``cascade_fpn_sdtv2_512x512_ade20k``: a request and a step each at
+      full width (the cascade's per-stage losses printed); the eval CLI
+      (``tools.test.main``) in whole and slide mode on (eval)'s three
+      images and the train CLI for 2 iterations with a checkpoint and a
+      val, then ``--resume`` to 3, with the 19M preset.
+
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero and prints no result; it also
@@ -243,6 +267,7 @@ from spike2former_tpu_torch.device import f32_precision
 from spike2former_tpu_torch.engine import checkpoint
 from spike2former_tpu_torch.engine.checkpoint import load_reference_model
 from spike2former_tpu_torch.engine.config import TestConfig, get_config
+from spike2former_tpu_torch.engine.train import make_train_step_fpn
 from spike2former_tpu_torch.engine.logging import read_scalars
 from spike2former_tpu_torch.engine.inference import (postprocess_pred,
                                                       whole_panoptic,
@@ -3009,6 +3034,13 @@ def phase_panoptic(smi: str) -> dict:
     return out
 
 
+def request_images(seed: int = 5) -> list:
+    """Seeded uint8 images of the three request shapes."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for hw in REQUEST_SHAPES]
+
+
 def phase_variant(name: str, smi: str) -> dict:
     """(m2f) / (dab): the flagship with ``VARIANTS[name]`` at full width
     beside the flagship itself, the two taking turns: ``VARIANT_PASSES``
@@ -3025,9 +3057,7 @@ def phase_variant(name: str, smi: str) -> dict:
           f"{name}: head {head.masked_attention}, {head.decoder}")
     log(name, f"{PRESET} {opts} and the flagship built at full width in "
         f"{time.perf_counter() - t:.1f}s")
-    rng = np.random.default_rng(5)
-    imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
-            for hw in REQUEST_SHAPES]
+    imgs = request_images()
     for im in ims.values():
         for img in imgs:
             api.inference_model(im, img)
@@ -3112,6 +3142,246 @@ def phase_variant(name: str, smi: str) -> dict:
                 flag_step_peak=peaks["flagship"], step_busy=busy,
                 held=dict(k1=max(held["k1"], held_train["k1"]),
                           k2=held_train["k2"]))
+
+
+# --- the FPN family (FPN and cascade segmentors, MS-ResNet) -----------------
+
+FPN_PRESET = "fpn_sdtv3_512x512_19M_ade20k"
+FPN_FAMILY = ("fpn_msresnet104_512x512_ade20k",
+              "cascade_fpn_sdtv2_512x512_ade20k")
+FPN_REQUESTS = 10             # timed requests after a warm-up pass
+FPN_WARMUP, FPN_TIMED = 2, 3  # the 19M preset's steps
+FPN_AGREEMENT = 0.99          # tiny model, card against CPU: class share
+FPN_CLI_ITERS = (2, 3)        # the train CLI's run, then its --resume
+# the FPN family at tiny widths, for the card-against-CPU checks
+TINY_FPN = ["model.num_classes=5", "model.embed_dim=(8,16,24,32)",
+            "model.backbone_heads=4", "model.depths_stage3=1",
+            "model.depths_stage4=1", "model.neck_channels=16",
+            "model.head_channels=8", "model.T=2"]
+
+
+def timed_requests(im, imgs, n: int) -> list:
+    """Wall ms of ``n`` requests over ``imgs`` in turn, each a class map
+    of its image's shape."""
+    times = []
+    for i in range(n):
+        img = imgs[i % len(imgs)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p = api.inference_model(im, img)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(p.shape == img.shape[:2] and 0 <= p.min()
+              and p.max() < im.num_classes, f"bad map {p.shape}")
+    return times
+
+
+def fpn_steps(name: str, warmup: int, timed: int, tag: str) -> dict:
+    """``warmup`` + ``timed`` steps of preset ``name`` at full width at its
+    batch (halved while a step runs out of device memory) of seeded
+    512x512 batches: median step ms, peak GiB, the last metrics, the
+    neck's and the head's largest gradients."""
+    b = get_config(name).data.batch_size
+    while True:
+        tr = api.init_trainer(name, [f"data.batch_size={b}"], seed=0)
+        rng = np.random.default_rng(7)
+        batches = [synthetic_batch(rng, b, (512, 512))
+                   for _ in range(warmup + timed)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        try:
+            for batch in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                metrics.append(api.train_steps(tr, [batch])[0])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            break
+        except torch.cuda.OutOfMemoryError:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(tag, f"{name} at batch {b} ran out of device memory (peak "
+                f"{peak:.3f} GiB before the failing allocation); halving")
+            check(b > 1, f"{name}: batch 1 does not fit")
+            del tr, batches
+            torch.cuda.empty_cache()
+            b //= 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for m in metrics:
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        check(not bad, f"{name}: non-finite {bad}")
+    model = tr.state.model
+    heads = ([model.head.Conv_0] if hasattr(model, "head") else
+             [getattr(model, f"stage{i}") for i in range(model.num_stages)])
+    grads = dict(neck=max(float(p.grad.abs().max())
+                          for p in model.neck.parameters()),
+                 head=min(max(float(p.grad.abs().max())
+                              for p in h.parameters()) for h in heads))
+    check(grads["neck"] > 0 and grads["head"] > 0,
+          f"{name}: silent gradients {grads}")
+    out = dict(batch=b, step_ms=statistics.median(times[warmup:]),
+               times=times, peak_gib=peak, metrics=metrics[-1], grads=grads)
+    del tr, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tiny_fpn_card_vs_cpu() -> dict:
+    """The 19M preset at tiny widths, the same seeded weights on the CPU
+    and the card: logits of two 64x64 images (class agreement, largest
+    gap) and 3 train steps' ``total`` with the same dropout masks (a CPU
+    generator's, seeded by the step)."""
+    ims = {dev: api.init_model(FPN_PRESET, overrides=TINY_FPN, device=dev,
+                               seed=1) for dev in ("cpu", "cuda")}
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    logits = {}
+    for dev, im in ims.items():
+        with torch.inference_mode(), f32_precision():
+            logits[dev] = im.model.predict_logits(x.to(dev)).cpu()
+    agree, gap = compare_logits(logits["cuda"], logits["cpu"])
+
+    def cpu_draw(step):
+        gen = torch.Generator().manual_seed(100 + step)
+        return lambda shape, dev: torch.rand(shape, generator=gen).to(dev)
+
+    rng = np.random.default_rng(3)
+    batches = [synthetic_batch(rng, 2, (64, 64), num_classes=5)
+               for _ in range(3)]
+    totals = {}
+    for dev in ("cpu", "cuda"):
+        tr = api.init_trainer(FPN_PRESET, TINY_FPN + [
+            "train.warmup_iters=1"], device=dev, seed=1)
+        tr.step_fn = make_train_step_fpn(tr.cfg.train.loss_decode,
+                                         dropout_draw=cpu_draw)
+        totals[dev] = [m["total"] for m in api.train_steps(tr, batches)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(totals["cuda"],
+                                                  totals["cpu"]))
+    check(agree >= FPN_AGREEMENT, f"tiny FPN class agreement {agree}")
+    check(rel <= TRAIN_RTOL, f"tiny FPN train card vs CPU rel {rel:.3g}")
+    return dict(agree=agree, gap=gap, totals=totals, rel=rel)
+
+
+def phase_fpn(smi: str) -> dict:
+    """(fpn): the 19M FPN preset at full width serves the three request
+    images through ``api.inference_model``: a warm-up pass, then
+    ``FPN_REQUESTS`` timed requests with the launch counts set to 0 just
+    before them (K1 and K2 must read 0: the FPN family runs no DCN), peak
+    memory; the tiny model card against CPU."""
+    t = time.perf_counter()
+    im = api.init_model(FPN_PRESET, seed=0)
+    log("fpn", f"{FPN_PRESET} built at full width in "
+        f"{time.perf_counter() - t:.1f}s")
+    imgs = request_images()
+    timed_requests(im, imgs, len(imgs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    times = timed_requests(im, imgs, FPN_REQUESTS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches["k1"] == launches["k2"] == 0,
+          f"fpn: K1/K2 launched on the FPN path: {launches}")
+    log("fpn", f"request median {statistics.median(times):.3f} ms, max "
+        f"{max(times):.3f} (n={len(times)}: {[round(x, 1) for x in times]})"
+        f", peak {peak:.3f} GiB, K1/K2 launches {launches['k1']}/"
+        f"{launches['k2']} on {smi}")
+    del im
+    torch.cuda.empty_cache()
+    tiny = tiny_fpn_card_vs_cpu()
+    log("fpn", f"tiny model card vs CPU: class agreement "
+        f"{tiny['agree']:.6f}, largest logit gap {tiny['gap']:.3g}; 3 train "
+        f"steps' total CPU {tiny['totals']['cpu']} card "
+        f"{tiny['totals']['cuda']} (max rel {tiny['rel']:.3g}, tol "
+        f"{TRAIN_RTOL})")
+    return dict(req_ms=statistics.median(times), req_max=max(times),
+                req_peak=peak, launches=launches, tiny=tiny)
+
+
+def phase_fpn_train(smi: str) -> dict:
+    """(fpn train): the 19M preset at its own defaults (batch 6 of 512x512,
+    T=4 over every step, the backbone's BN trained) takes ``FPN_WARMUP``
+    + ``FPN_TIMED`` steps, the launch counts set to 0 just before them."""
+    zero_launches()
+    r = fpn_steps(FPN_PRESET, FPN_WARMUP, FPN_TIMED, "fpn train")
+    r["launches"] = read_launches()
+    check(r["launches"]["k1"] == r["launches"]["k2"] == 0,
+          f"fpn train: K1/K2 launched: {r['launches']}")
+    log("fpn train", f"batch {r['batch']} of 512x512: step median "
+        f"{r['step_ms']:.3f} ms ({[round(x, 1) for x in r['times']]}, the "
+        f"first {FPN_WARMUP} warm-ups), peak {r['peak_gib']:.3f} GiB; "
+        f"losses {r['metrics']}; largest gradient neck "
+        f"{r['grads']['neck']:.3g}, head {r['grads']['head']:.3g}; K1/K2 "
+        f"launches {r['launches']['k1']}/{r['launches']['k2']} on {smi}")
+    return r
+
+
+def phase_fpn_family(smi: str) -> dict:
+    """(fpn family): one request (after a warm-up one) and one step (after
+    a warm-up step) at full width for MS-ResNet-104 and the cascade, the
+    cascade's per-stage losses printed; the eval CLI in whole and slide
+    mode on (eval)'s seeded tree and 3 train CLI iterations, a checkpoint
+    and a ``--resume``, with the 19M preset.  Every path's launch counts
+    are set to 0 just before it and must read 0."""
+    out = {"launches": []}
+    imgs = request_images()
+    for name in FPN_FAMILY:
+        im = api.init_model(name, seed=0)
+        timed_requests(im, imgs[:1], 1)
+        zero_launches()
+        req = timed_requests(im, imgs[1:2], 1)[0]
+        out["launches"].append(read_launches())
+        del im
+        torch.cuda.empty_cache()
+        zero_launches()
+        r = fpn_steps(name, 1, 1, "fpn family")
+        out["launches"].append(read_launches())
+        stages = {k: round(v, 4) for k, v in r["metrics"].items()
+                  if k.startswith("decode_")}
+        log("fpn family", f"{name}: request {req:.3f} ms; batch "
+            f"{r['batch']} step {r['step_ms']:.3f} ms, peak "
+            f"{r['peak_gib']:.3f} GiB, total {r['metrics']['total']:.4f}"
+            + (f", per stage {stages}" if stages else "") + f" on {smi}")
+        out[name] = dict(req_ms=req, **r)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ade")
+        write_ade_tree(root, REQUEST_SHAPES, seed=0)
+        write_ade_tree(root, ADE_LIKE_SHAPES[:6], seed=3, split="training")
+        for mode in ("whole", "slide"):
+            opts = (["test.mode='slide'"] if mode == "slide" else [])
+            torch.cuda.synchronize()
+            zero_launches()
+            t = time.perf_counter()
+            run_cli(eval_cli.main, [FPN_PRESET, "--data-root", root,
+                                    "--cfg-options", *opts],
+                    f"eval {mode}", "fpn family")
+            torch.cuda.synchronize()
+            out["launches"].append(read_launches())
+            log("fpn family", f"eval CLI {mode}: "
+                f"{(time.perf_counter() - t) * 1e3 / len(REQUEST_SHAPES):.1f}"
+                f" ms an image (the build included)")
+        wd = os.path.join(tmp, "wd")
+        for iters, extra in zip(FPN_CLI_ITERS, ([], ["--resume"])):
+            zero_launches()
+            t = time.perf_counter()
+            lines = run_cli(train_cli.main, [
+                FPN_PRESET, "--data-root", root, "--work-dir", wd,
+                "--log-interval", "1", "--eval-images", "1", *extra,
+                "--cfg-options", "train.checkpoint_interval=2",
+                "train.val_interval=2", "data.num_workers=4",
+                f"train.total_iters={iters}"], f"train {iters}", "fpn family")
+            out["launches"].append(read_launches())
+            check(any(f"iter {iters}/{iters} loss" in ln for ln in lines),
+                  f"train CLI: no log of iteration {iters}")
+            log("fpn family", f"train CLI to {iters}: "
+                f"{time.perf_counter() - t:.1f} s (the build included)")
+        check(any("resumed from" in ln for ln in lines), "no --resume")
+        files = sorted(os.listdir(wd))
+        check(files == ["best", "ckpt_2", "ckpt_3", "scalars.jsonl"],
+              f"train CLI files {files}")
+    for n in out["launches"]:
+        check(n["k1"] == n["k2"] == 0, f"fpn family: K1/K2 launched: {n}")
+    return out
 
 
 def main() -> int:
@@ -3228,6 +3498,15 @@ def main() -> int:
     for name in VARIANTS:
         var[name] = phase_variant(name, smi)
         torch.cuda.empty_cache()
+    t_fpn = time.perf_counter()
+    fpn = phase_fpn(smi)
+    fpn_train = phase_fpn_train(smi)
+    fam = phase_fpn_family(smi)
+    log("fpn family", f"the FPN phases took {time.perf_counter() - t_fpn:.1f}"
+        f"s; {FPN_PRESET} request {fpn['req_ms']:.3f} ms against the "
+        f"flagship's {s['request_ms']:.3f}, step {fpn_train['step_ms']:.3f} "
+        f"ms at batch {fpn_train['batch']} against the flagship's "
+        f"{tr['step_ms']:.3f} on {smi}")
 
     # the main path's launches: serve, the three eval modes, the train
     # steps at the defaults, the overflow step, the host-matcher steps,
@@ -3245,7 +3524,8 @@ def main() -> int:
         *(v3[v]["launches"] for v in V3_PRESETS),
         pan["eval_launches"], pan["cli_launches"],
         *(var[n]["req_launches"] for n in VARIANTS),
-        *(var[n]["launches"] for n in VARIANTS)]
+        *(var[n]["launches"] for n in VARIANTS),
+        fpn["launches"], fpn_train["launches"], *fam["launches"]]
     k1_launches = s["launches"] + sum(p["k1"] for p in paths)
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
@@ -3335,7 +3615,11 @@ def main() -> int:
         f"{pan['cli_launches']['k2']} ({PAN_ITERS} iterations); "
         + "; ".join(f"{n} K1 requests {var[n]['req_launches']['k1']}, "
                     f"K1/K2 steps {var[n]['launches']['k1']}/"
-                    f"{var[n]['launches']['k2']}" for n in VARIANTS))
+                    f"{var[n]['launches']['k2']}" for n in VARIANTS)
+        + f"; FPN family K1/K2: requests {fpn['launches']['k1']}/"
+        f"{fpn['launches']['k2']}, steps {fpn_train['launches']['k1']}/"
+        f"{fpn_train['launches']['k2']}, MS-ResNet-104, cascade, eval and "
+        f"train CLIs {[(n['k1'], n['k2']) for n in fam['launches']]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,13 +27,12 @@ from .engine.inference import postprocess_pred, whole_logits
 from .engine.train import init_trainer, train_steps  # noqa: F401
 from .engine.weights import randomize_
 from .evaluation.visualize import draw_sem_seg
-from .models.segmentor import Spike2Former
 
 
 @dataclass
 class InferenceModel:
     cfg: Config
-    model: Spike2Former
+    model: torch.nn.Module
     device: torch.device
 
     @property

@@ -1,34 +1,53 @@
-"""Config dataclasses, the SDTv2 MaskFormer presets and dot-key overrides
-(port of ``spike2former_tpu/engine/config.py``, without JAX).
+"""Config dataclasses, the presets and dot-key overrides (port of
+``spike2former_tpu/engine/config.py``, without JAX).
 
-Only the fields that the MaskFormer's inference, evaluation, train steps
-and CLIs read are kept, so an override of anything else (``model.kind``,
-``model.neuron``, ...) is rejected as an unknown key.  ``model.variant``
-picks the backbone: ``sdtv2`` (Spiking_vit_MetaFormer), ``sdtv3``
-(E-SpikeFormer) or ``sdtv3mae`` (its MAE-pretrain flavour).
-``model.masked_attention`` runs the head in Mask2Former mode and
-``model.decoder='dab'`` swaps its decoder for the spiking DAB-DETR one
-(not both).  The presets are the SDTv2 MaskFormer's on ADE20K,
-Cityscapes, VOC 2012, COCO-Stuff and COCO panoptic (133 classes, 80 of
-them things: ``data.dataset='coco_panoptic'`` selects the panoptic train
-step and PQ eval in both CLIs), and the SDTv3 ones on ADE20K, VOC and
-Cityscapes with the SDTv3-MAE one on ADE20K (T=4, collapsed); the FPN,
-cascade and MS-ResNet presets wait for later slices.
+Only the fields that the models, train steps and CLIs of the port read
+are kept, so an override of anything else is rejected as an unknown key.
+``model.kind`` picks the model: ``maskformer`` (the Spike2Former,
+``models/segmentor.py``), ``fpn`` (``models/fpn.py``: a backbone, the
+FPN_SNN neck with ``model.neck_channels`` and the per-pixel FPN head with
+``model.head_channels``, their neurons of kind ``model.neuron``: 'lif',
+'if', 'eif', 'plif', or any other name for the stateless multispike
+quantizer) or ``cascade`` (``models/cascade.py``: the FPN head then
+``model.num_stages - 1`` refinement heads).  ``model.variant`` picks the
+backbone: ``sdtv2`` (Spiking_vit_MetaFormer), ``sdtv3`` (E-SpikeFormer),
+``sdtv3mae`` (its MAE-pretrain flavour) or, under ``fpn``,
+``msresnet18``/``34``/``104`` (MS-ResNet, width ``embed_dim[0]``).  The
+FPN kinds train on ``train.loss_decode``, a sequence of ``(name, weight[,
+kwargs])`` over ``losses/pixel.py``'s ``PIXEL_LOSSES`` (``ce``,
+``lovasz``, ``tversky``, ``ohem``, ``hausdorff``), and build their
+backbone over all T steps with its BN trained, as the JAX package does:
+``collapse_t``, ``norm_eval``, ``compat`` and the MaskFormer head's keys
+do not apply to them, nor do ``model.remat`` and
+``train.packed_residuals`` (accepted, no effect, as in JAX); they run in
+float32 only.
+``model.masked_attention`` runs the MaskFormer head in Mask2Former mode
+and ``model.decoder='dab'`` swaps its decoder for the spiking DAB-DETR
+one (not both).
 
-``train.loss_points > 0`` trains with the point-sampled matching costs
-and mask losses (``losses/point_sample.py``; 12544 points, oversample 3.0
-and importance 0.75 upstream); the presets keep 0, the reference's
-active recipe.
+The presets are the SDTv2 MaskFormer's on ADE20K, Cityscapes, VOC 2012,
+COCO-Stuff and COCO panoptic (133 classes, 80 of them things:
+``data.dataset='coco_panoptic'`` selects the panoptic train step and PQ
+eval in both CLIs), the SDTv3 ones on ADE20K, VOC and Cityscapes with the
+SDTv3-MAE one on ADE20K (T=4, collapsed), and the FPN family's six on
+ADE20K: ``fpn_sdtv3_512x512_{10M,19M}_ade20k`` (SDTv3, T=4, multispike
+neurons), ``fpn_msresnet{18,34,104}_512x512_ade20k`` (T=1, LIF) and
+``cascade_fpn_sdtv2_512x512_ade20k`` (2 stages, T=4, LIF).
+
+``train.loss_points > 0`` trains the MaskFormer with the point-sampled
+matching costs and mask losses (``losses/point_sample.py``; 12544 points,
+oversample 3.0 and importance 0.75 upstream); the presets keep 0, the
+reference's active recipe.
 
 ``model.dtype`` ('float32' or 'bfloat16') is the compute dtype of the
-convolutions and dense layers, as flax's ``dtype=``; parameters, BN
-statistics and the optimizer stay float32.  ``model.remat`` recomputes
-each backbone block and DCN encoder layer in the backward, and
-``train.packed_residuals`` saves the spike codes at Spike->Conv sites as
-packed 4-bit ``uint8`` (``ops/spike_op.py``): neither changes a number.
-``train.unroll_loss`` is accepted and changes nothing: in the JAX package
-it unrolls the loss's layer scans for the TPU compiler, and the port's
-loss is a Python loop already.
+MaskFormer's convolutions and dense layers, as flax's ``dtype=``;
+parameters, BN statistics and the optimizer stay float32.
+``model.remat`` recomputes each backbone block and DCN encoder layer in
+the backward, and ``train.packed_residuals`` saves the spike codes at
+Spike->Conv sites as packed 4-bit ``uint8`` (``ops/spike_op.py``):
+neither changes a number.  ``train.unroll_loss`` is accepted and changes
+nothing: in the JAX package it unrolls the loss's layer scans for the TPU
+compiler, and the port's loss is a Python loop already.
 """
 from __future__ import annotations
 
@@ -36,13 +55,18 @@ import ast
 from dataclasses import dataclass, field
 
 import torch
+from torch import nn
 
 from ..models.segmentor import Spike2Former
+
+KINDS = ("maskformer", "fpn", "cascade")
 
 
 @dataclass
 class ModelConfig:
-    variant: str = "sdtv2"            # backbone: sdtv2 | sdtv3 | sdtv3mae
+    kind: str = "maskformer"          # 'maskformer' | 'fpn' | 'cascade'
+    num_stages: int = 2               # cascade only
+    variant: str = "sdtv2"            # sdtv2 | sdtv3 | sdtv3mae | msresnet*
     num_classes: int = 150
     num_things: int = 0               # panoptic: thing classes (rest stuff)
     embed_dim: tuple = (64, 128, 256, 360)
@@ -55,6 +79,9 @@ class ModelConfig:
     depths_stage3: int = 6
     depths_stage4: int = 2
     dcn_group: int = 32
+    neck_channels: int = 256          # fpn only
+    head_channels: int = 128          # fpn only
+    neuron: str = "lif"               # fpn only
     compat: bool = False              # reference-exact layout quirks
     norm_eval: bool = True            # freeze backbone BN in training
     collapse_t: bool = True           # skip provably-identical time steps
@@ -111,6 +138,7 @@ class TrainConfig:
     # (ops/spike_op.py): bit-identical gradients, less activation memory
     packed_residuals: bool = False
     layer_decay_rate: float = 0.0     # >0: layer-wise lr decay (optim.py)
+    loss_decode: tuple = (("ce", 1.0),)  # fpn family: pixel-loss spec
     # point-sampled matching and mask losses (the Mask2Former recipe):
     # 0 = off (the loss_at path); 12544 upstream
     loss_points: int = 0
@@ -150,12 +178,33 @@ def compute_dtype(name: str) -> torch.dtype:
 
 
 def build_model(cfg: ModelConfig, packed_residuals: bool = False
-                ) -> Spike2Former:
-    """The MaskFormer for ``cfg`` (the only kind ported yet) with the
-    ``cfg.variant`` backbone and ``cfg.decoder`` (masked or not), in
-    ``cfg.dtype``; ``packed_residuals``
-    (``train.packed_residuals``) saves packed spike codes at its
-    Spike->Conv sites."""
+                ) -> nn.Module:
+    """The model of ``cfg.kind``: the MaskFormer with the ``cfg.variant``
+    backbone and ``cfg.decoder`` (masked or not), in ``cfg.dtype``
+    (``packed_residuals``, ``train.packed_residuals``, saves packed spike
+    codes at its Spike->Conv sites); or the FPN or cascade segmentor,
+    float32 only."""
+    if cfg.kind not in KINDS:
+        raise ValueError(f"model.kind must be one of {KINDS}, got "
+                         f"{cfg.kind!r}")
+    dtype = compute_dtype(cfg.dtype)
+    if cfg.kind != "maskformer":
+        if dtype != torch.float32:
+            raise ValueError(f"model.kind={cfg.kind!r} runs in float32 "
+                             "only in the port")
+        from ..models.cascade import CascadeSegmentor
+        from ..models.fpn import FPNSegmentor
+
+        kw = dict(num_classes=cfg.num_classes,
+                  embed_dim=tuple(cfg.embed_dim),
+                  backbone_heads=cfg.backbone_heads, T=cfg.T,
+                  variant=cfg.variant, neck_channels=cfg.neck_channels,
+                  head_channels=cfg.head_channels, neuron=cfg.neuron,
+                  depths_stage3=cfg.depths_stage3,
+                  depths_stage4=cfg.depths_stage4, dtype=dtype)
+        if cfg.kind == "cascade":
+            return CascadeSegmentor(num_stages=cfg.num_stages, **kw)
+        return FPNSegmentor(**kw)
     return Spike2Former(
         variant=cfg.variant,
         num_classes=cfg.num_classes, embed_dim=tuple(cfg.embed_dim),
@@ -168,7 +217,7 @@ def build_model(cfg: ModelConfig, packed_residuals: bool = False
         norm_eval=cfg.norm_eval, collapse_t=cfg.collapse_t,
         masked_attention=cfg.masked_attention, decoder=cfg.decoder,
         eval_last_only=cfg.eval_last_only, lazy_masks=cfg.lazy_masks,
-        remat=cfg.remat, dtype=compute_dtype(cfg.dtype),
+        remat=cfg.remat, dtype=dtype,
         packed_residuals=packed_residuals)
 
 
@@ -185,12 +234,9 @@ def apply_overrides(cfg: Config, options: list[str]) -> Config:
         for p in parents:
             target = getattr(target, p)
         if not hasattr(target, leaf):
-            hint = (" (the port has the MaskFormer only: the FPN, cascade "
-                    "and MS-ResNet kinds are not ported yet)"
-                    if key == "model.kind" else "")
             raise AttributeError(
                 f"unknown config key {key!r} ({type(target).__name__} "
-                f"has no field {leaf!r}){hint}")
+                f"has no field {leaf!r})")
         setattr(target, leaf, value)
     return cfg
 
@@ -274,6 +320,38 @@ def _coco_panoptic_spike2former() -> Config:
                                   data_root="data/coco"))
 
 
+def _fpn_sdtv3(size: str) -> Config:
+    """fpn_sdtv3_512x512_{10M,19M}_ade20k.py: the FPN family on the
+    SDTv3 backbone, multispike neurons."""
+    dims = (32, 64, 128, 192) if size == "10M" else (48, 96, 192, 256)
+    return Config(name=f"fpn_sdtv3_512x512_{size}_ade20k",
+                  model=ModelConfig(kind="fpn", variant="sdtv3", T=4,
+                                    num_classes=150, embed_dim=dims,
+                                    neuron="multispike"),
+                  data=DataConfig(dataset="ade20k"))
+
+
+def _fpn_msresnet(depth: str) -> Config:
+    """The MS-ResNet backbone (mmseg/models/backbones/MSResnet.py) under
+    the FPN family: strides 4/8/16/32, width ``embed_dim[0]``."""
+    return Config(name=f"fpn_msresnet{depth}_512x512_ade20k",
+                  model=ModelConfig(kind="fpn", variant=f"msresnet{depth}",
+                                    T=1, num_classes=150,
+                                    embed_dim=(64, 128, 256, 512),
+                                    neuron="lif"),
+                  data=DataConfig(dataset="ade20k"))
+
+
+def _cascade_fpn_sdtv2() -> Config:
+    """CascadeEncoderDecoder over the FPN family (the reference registers
+    the segmentor without a config): the FPN head and one refinement
+    stage."""
+    return Config(name="cascade_fpn_sdtv2_512x512_ade20k",
+                  model=ModelConfig(kind="cascade", num_stages=2, T=4,
+                                    num_classes=150, neuron="lif"),
+                  data=DataConfig(dataset="ade20k"))
+
+
 PRESETS = {
     "SDTv2_maskformer_DCNpixelDecoder_ade20k": _ade_spike2former_sdtv2,
     "SDTv2_maskformer_DCNPixelDecoder_CityScapes":
@@ -289,13 +367,18 @@ PRESETS = {
         _cityscapes_spike2former_sdtv3,
     "SDTv2_maskformer_coco_panoptic": _coco_panoptic_spike2former,
     "SDTv3MAE_Spike2former_ade20k_512x512": _ade_spike2former_sdtv3mae,
+    "fpn_sdtv3_512x512_10M_ade20k": lambda: _fpn_sdtv3("10M"),
+    "fpn_sdtv3_512x512_19M_ade20k": lambda: _fpn_sdtv3("19M"),
+    "fpn_msresnet18_512x512_ade20k": lambda: _fpn_msresnet("18"),
+    "fpn_msresnet34_512x512_ade20k": lambda: _fpn_msresnet("34"),
+    "fpn_msresnet104_512x512_ade20k": lambda: _fpn_msresnet("104"),
+    "cascade_fpn_sdtv2_512x512_ade20k": _cascade_fpn_sdtv2,
 }
 
 
 def get_config(name: str, overrides: list[str] | None = None) -> Config:
     if name not in PRESETS:
-        raise KeyError(f"no preset {name!r} in the port (it has "
-                       f"{sorted(PRESETS)}; the FPN, cascade and MS-ResNet "
-                       "presets are not ported yet)")
+        raise KeyError(f"no preset {name!r} (the port has "
+                       f"{sorted(PRESETS)})")
     cfg = PRESETS[name]()
     return apply_overrides(cfg, overrides) if overrides else cfg

@@ -13,7 +13,11 @@ is mechanical:
 
 The same holds for every head variant: the Mask2Former mode adds no
 parameter, and the DAB-DETR head's ``dab_decoder/...`` (its Dense layers
-and width-1 ``out_proj`` convs) and ``query_anchors`` map as above.
+and width-1 ``out_proj`` convs) and ``query_anchors`` map as above.  So
+does the FPN family: PLIF's scalar ``w``, TEBN's ``temporal_scale``,
+MS-ResNet's named ``stem_bn`` (flax's own ``nn.BatchNorm``, no wrapper)
+and its ``ConvBNF/BatchNorm_0`` (flax's ``nn.BatchNorm`` directly in the
+module, whose leaves fold into the port's ``ConvBNF``, itself the BN).
 Load the result with ``model.load_state_dict(sd, strict=True)``.
 """
 from __future__ import annotations

@@ -11,21 +11,23 @@ Reference: mmseg/models/segmentors/encoder_decoder.py ``whole_inference``
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ..device import f32_precision
 from ..evaluation.tta import panoptic_inference
-from ..models.segmentor import Spike2Former, preprocess
+from ..models.segmentor import preprocess
 from ..ops.resize import resize_bilinear, resize_bilinear_hw
 
 
 @torch.inference_mode()
-def whole_logits(model: Spike2Former, images_u8: torch.Tensor,
+def whole_logits(model: nn.Module, images_u8: torch.Tensor,
                  valid_hw=None) -> torch.Tensor:
-    """[B, H, W, 3] uint8 RGB on the model's device -> [B, H, W, ncls].
+    """[B, H, W, 3] uint8 RGB on the model's device -> [B, H, W, ncls]
+    by the model's ``predict_logits`` (any kind).
 
     ``valid_hw`` ([B, 2] ints) marks the valid region of bucket-padded
-    inputs: the padded tokens are masked in the decoder (see
-    ``MaskFormerHead``)."""
+    inputs: the MaskFormer masks the padded tokens in its decoder (see
+    ``MaskFormerHead``); the FPN family ignores it."""
     if valid_hw is not None:
         valid_hw = torch.as_tensor(valid_hw, dtype=torch.long,
                                    device=images_u8.device)
@@ -33,7 +35,7 @@ def whole_logits(model: Spike2Former, images_u8: torch.Tensor,
 
 
 @torch.inference_mode()
-def whole_panoptic(model: Spike2Former, images_u8: torch.Tensor,
+def whole_panoptic(model: nn.Module, images_u8: torch.Tensor,
                    num_things: int = 80, object_mask_thr: float = 0.8
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, H, W, 3] RGB (uint8 or float) on the model's device -> (sem
@@ -72,7 +74,7 @@ def slide_origins(h: int, w: int, crop: tuple[int, int],
 
 
 @torch.inference_mode()
-def slide_logits(model: Spike2Former, images_u8: torch.Tensor,
+def slide_logits(model: nn.Module, images_u8: torch.Tensor,
                  crop_size: tuple[int, int], stride: tuple[int, int],
                  num_classes: int, window_batch: int | None = None
                  ) -> torch.Tensor:

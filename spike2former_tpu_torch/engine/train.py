@@ -1,7 +1,8 @@
-"""The semantic and the panoptic train steps (port of ``make_train_step``
-and ``make_train_step_panoptic`` of ``spike2former_tpu/engine/train.py``)
-and their library entry points ``init_trainer`` / ``train_steps``, the
-loop of ``tools/train.py`` without the data layer.
+"""The semantic, panoptic and FPN-family train steps (port of
+``make_train_step``, ``make_train_step_panoptic`` and
+``make_train_step_fpn`` of ``spike2former_tpu/engine/train.py``) and
+their library entry points ``init_trainer`` / ``train_steps``, the loop
+of ``tools/train.py`` without the data layer.
 
 One step: forward in training mode (decoder-layer BNs on batch statistics,
 backbone BNs frozen under ``norm_eval``), GT slots from the semantic map
@@ -20,13 +21,16 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+from torch import nn
 from torch.profiler import record_function
 
 from ..device import f32_precision, resolve_device
 from ..losses.criterion import (GroundTruth, maskformer_loss,
                                 semantic_to_instances, slot_map_from_masks)
+from ..losses.pixel import build_pixel_loss, pixel_accuracy
 from ..losses.point_sample import Draw, uniform_draw
-from ..models.segmentor import Spike2Former, preprocess
+from ..models.fpn import Dropout
+from ..models.segmentor import preprocess
 from .config import (Config, TrainConfig, build_model, compute_dtype,
                      get_config)
 from .optim import AdamW
@@ -38,7 +42,7 @@ class TrainState:
     """The model (its parameters and BN statistics), the optimizer state
     and the number of steps taken."""
 
-    model: Spike2Former
+    model: nn.Module
     optimizer: AdamW
     step: int = 0
 
@@ -55,7 +59,7 @@ def scaled_base_lr(cfg: Config) -> float:
                         / t.auto_scale_lr_base_batch)
 
 
-def init_state(model: Spike2Former, train_cfg: TrainConfig,
+def init_state(model: nn.Module, train_cfg: TrainConfig,
                base_lr: float | None = None) -> TrainState:
     """Wrap ``model`` with a fresh AdamW of ``train_cfg``'s recipe, at
     ``base_lr`` when given (``scaled_base_lr``), with the layer-wise decay
@@ -222,6 +226,79 @@ def make_train_step_panoptic(
         1, num_points, seed, point_draw, report_dropped=False)
 
 
+def make_train_step_fpn(loss_decode=(("ce", 1.0),), seed: int = 0,
+                        dropout_draw: Callable | None = None) -> Callable:
+    """The FPN family's step (JAX ``make_train_step_fpn``): ``train_step(
+    state, images_u8, sem_seg) -> (state, metrics)`` with images [B, H, W,
+    3] RGB and sem_seg [B, H, W] int (255 = ignore) on the model's device.
+
+    The loss is ``build_pixel_loss(loss_decode)`` on the logits (the
+    reference's configurable decode loss, decode_head.py:115-128), with
+    ``acc_seg``; a cascade's stages each take it, their terms summed into
+    ``total`` and reported as ``decode_<i>.loss_<name>``, ``acc_seg`` of
+    the last.  ``metrics`` adds ``total`` and ``grad_norm``.
+
+    The head's dropout keeps by the uniforms of ``dropout_draw(step)``, a
+    ``draw(shape, device)``; by default those of a ``torch.Generator``
+    seeded from (``seed``, step) (``point_generator``).  The JAX step
+    keys its dropout by ``fold_in(PRNGKey(0), step)``, whose bits the
+    port does not reproduce.  The stages run in ``record_function``
+    ranges ``forward``, ``pixel_loss``, ``backward`` and ``optimizer``."""
+    pixel_loss = build_pixel_loss(loss_decode)
+
+    def draw_of(step: int, device: torch.device) -> Callable:
+        if dropout_draw is not None:
+            return dropout_draw(step)
+        gen = point_generator(seed, step, 0, device)
+        return lambda shape, dev: torch.rand(shape, generator=gen,
+                                             device=dev)
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   sem_seg: torch.Tensor):
+        model = state.model.train()
+        for p in model.parameters():
+            p.grad = None
+        drops = [m for m in model.modules() if isinstance(m, Dropout)]
+        draw = draw_of(state.step, images.device)
+        for m in drops:
+            m.draw = draw
+        try:
+            with record_function("forward"):
+                logits = model(preprocess(images))
+        finally:
+            for m in drops:
+                m.draw = None
+        with record_function("pixel_loss"):
+            if isinstance(logits, (list, tuple)):
+                total, metrics = torch.zeros((), device=images.device), {}
+                for i, stage in enumerate(logits):
+                    stage_total, stage_metrics = pixel_loss(stage, sem_seg)
+                    total = total + stage_total
+                    metrics.update({f"decode_{i}.{k}": v
+                                    for k, v in stage_metrics.items()})
+                last = logits[-1]
+            else:
+                total, metrics = pixel_loss(logits, sem_seg)
+                last = logits
+            metrics["acc_seg"] = pixel_accuracy(last.detach(), sem_seg)
+        with record_function("backward"):
+            total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["total"] = total.detach()
+        with record_function("optimizer"):
+            metrics["grad_norm"] = state.optimizer.step()
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def is_fpn(cfg: Config) -> bool:
+    """Whether ``cfg`` builds the FPN family (``model.kind`` 'fpn' or
+    'cascade'), which trains on the pixel losses."""
+    return cfg.model.kind in ("fpn", "cascade")
+
+
 def is_panoptic(cfg: Config) -> bool:
     """Whether ``cfg`` trains and evaluates panoptic segmentation (the
     JAX CLIs' test: the dataset is COCO panoptic)."""
@@ -241,8 +318,8 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
                  seed: int | None = None,
                  state_dict: dict[str, torch.Tensor] | None = None
                  ) -> Trainer:
-    """Build a model and its train step (the panoptic one where
-    ``is_panoptic(cfg)``) from a preset (or Config) on ``device`` (the
+    """Build a model and its train step (the FPN family's where
+    ``is_fpn(cfg)``, else the panoptic one where ``is_panoptic(cfg)``) from a preset (or Config) on ``device`` (the
     card unless ``device="cpu"``), in ``model.dtype``, with
     ``model.remat`` and ``train.packed_residuals`` as the config says (the
     parameters, gradients and AdamW moments stay float32).  Weights come from
@@ -257,7 +334,12 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
               oversample_ratio=t.loss_points_oversample,
               importance_sample_ratio=t.loss_points_importance,
               points_dtype=t.loss_points_dtype, seed=t.seed)
-    if is_panoptic(cfg):
+    if is_fpn(cfg):
+        if t.accum_steps != 1:
+            raise ValueError("the FPN family's step takes no accum_steps, "
+                             "as in the JAX package")
+        step_fn = make_train_step_fpn(t.loss_decode, seed=t.seed)
+    elif is_panoptic(cfg):
         step_fn = make_train_step_panoptic(cfg.model.num_classes, **kw)
     else:
         step_fn = make_train_step(cfg.model.num_classes, max_gt=t.max_gt,

@@ -3,7 +3,8 @@
 Layer-scale gammas and BatchNorm statistics are drawn at O(1), as the
 reference's test golden does (``tests/torch_golden.py:randomize_torch``): at
 their init values (gammas 1e-6) whole branches, the DCN one among them,
-would be numerically silent.  Conv and linear weights are drawn at
+would be numerically silent; so would every MS-ResNet residual branch,
+whose second BN starts at a zero scale (each BN scale is drawn around 1).  Conv and linear weights are drawn at
 ``2/sqrt(fan_in)`` so that the q8 spikes keep firing at any width.
 """
 from __future__ import annotations

@@ -306,7 +306,11 @@ class BNAndPad(nn.Module):
     input would give (sdtv2.py:48-109).  In training mode the statistics are
     the batch's (biased variance, two-pass as the JAX module's ``jnp.var``)
     and the pad value reads the running statistics after their update, with
-    the affine parameters detached, as the JAX module does."""
+    the affine parameters detached, as the JAX module does.  There the
+    updated running statistics are traced values of the batch's, so the
+    pad value passes the batch statistics' gradient on (times ``1 -
+    momentum``), where the reference's buffers pass none: the port follows
+    JAX."""
 
     def __init__(self, c: int, pad_pixels: int = 1, eps: float = 1e-5):
         super().__init__()
@@ -318,18 +322,22 @@ class BNAndPad(nn.Module):
 
     def forward(self, x):
         xf = x.float()
+        ra_mean, ra_var = self.mean, self.var
         if self.training:
             var, mean = torch.var_mean(xf, tuple(range(x.dim() - 1)),
                                        correction=0)
             _update_running(self.mean, mean)
             _update_running(self.var, var)
+            # the updated statistics' values, with the batch's gradient
+            ra_mean = self.mean + (1.0 - MOMENTUM) * (mean - mean.detach())
+            ra_var = self.var + (1.0 - MOMENTUM) * (var - var.detach())
         else:
             mean, var = self.mean, self.var
         y = ((xf - mean) * torch.rsqrt(var + self.eps) * self.scale
              + self.bias).to(x.dtype)
         p = self.p
-        pad_value = (self.bias.detach() - self.mean * self.scale.detach()
-                     * torch.rsqrt(self.var + self.eps)).to(y.dtype)
+        pad_value = (self.bias.detach() - ra_mean * self.scale.detach()
+                     * torch.rsqrt(ra_var + self.eps)).to(y.dtype)
         n, h, w, c = y.shape
         out = pad_value.expand(n, h + 2 * p, w + 2 * p, c).clone()
         out[:, p:h + p, p:w + p] = y

@@ -1,18 +1,21 @@
-"""Where a flagship request's time goes, on one NVIDIA GPU.
+"""Where a request's time goes, on one NVIDIA GPU.
 
-    python -m spike2former_tpu_torch.profile_request [--cfg-options] \
-        [KEY=VALUE ...]
+    python -m spike2former_tpu_torch.profile_request [--preset NAME] \
+        [--cfg-options] [KEY=VALUE ...]
 
-Serves the same seeded requests as ``chip_smoke.py`` (flagship preset at full
-width, seeded random weights, uint8 images of 512x683, 683x512, 512x512,
-with TF32 off; the config overrides given, e.g. ``model.dtype='bfloat16'``,
+Serves the same seeded requests as ``chip_smoke.py`` (the flagship preset,
+or ``--preset``'s, e.g. ``fpn_sdtv3_512x512_19M_ade20k``, at full width,
+seeded random weights, uint8 images of 512x683, 683x512, 512x512, with
+TF32 off; the config overrides given, e.g. ``model.dtype='bfloat16'``,
 ``model.masked_attention=True`` or ``model.decoder='dab'``) and prints:
 
 * host stages per request (resize/pad, upload, forward, post-process,
   download), median ms over the timed rounds;
 * device time per model part (backbone, each DCN encoder layer and its
   DCNv3 module, the FPN and mask features, each decoder layer, the SDME tail
-  with the semantic einsum), from CUDA events recorded by forward hooks;
+  with the semantic einsum; for the FPN family the backbone, the neck and
+  the head, or each cascade stage), from CUDA events recorded by forward
+  hooks;
 * from ``torch.profiler``: device launches (kernels and copies) per
   request, device busy time against the unprofiled request time, and the
   kernels with the most device time.
@@ -63,10 +66,17 @@ def _stages(im, img):
     return out
 
 
-def _part_hooks(model):
-    """Forward hooks recording CUDA events around the model's parts."""
-    head = model.head
+def model_parts(model) -> dict:
+    """The parts of ``model`` to time, by name."""
     parts = {"backbone": model.backbone}
+    if hasattr(model, "neck"):      # the FPN family
+        parts["neck"] = model.neck
+        if hasattr(model, "head"):
+            parts["head"] = model.head
+        for i in range(getattr(model, "num_stages", 0)):
+            parts[f"stage{i}"] = getattr(model, f"stage{i}")
+        return parts
+    head = model.head
     dec = head.pixel_decoder
     for i in range(dec.num_encoder_layers):
         layer = getattr(dec, f"encoder_{i}")
@@ -79,6 +89,12 @@ def _part_hooks(model):
     for i in range(head.num_decoder_layers):
         parts[f"decoder_{i}"] = getattr(layers, f"{name}_{i}")
     parts["head"] = head
+    return parts
+
+
+def _part_hooks(model):
+    """Forward hooks recording CUDA events around the model's parts."""
+    parts = model_parts(model)
     events = defaultdict(list)
     handles = []
     for name, mod in parts.items():
@@ -97,6 +113,17 @@ def _part_hooks(model):
     return events, handles
 
 
+def preset_and_overrides(argv: list[str], default: str = PRESET
+                         ) -> tuple[str, list[str]]:
+    """``--preset NAME`` (``default`` without it) and the config
+    overrides among ``argv``, with or without ``--cfg-options``."""
+    argv = [a for a in argv if a != "--cfg-options"]
+    if "--preset" in argv:
+        i = argv.index("--preset")
+        return argv[i + 1], argv[:i] + argv[i + 2:]
+    return default, argv
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_request: no CUDA device available", file=sys.stderr)
@@ -105,9 +132,9 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__}",
           flush=True)
-    overrides = [a for a in argv if a != "--cfg-options"]
-    im = api.init_model(PRESET, overrides=overrides, seed=0)
-    print(f"dtype={im.cfg.model.dtype}", flush=True)
+    preset, overrides = preset_and_overrides(argv)
+    im = api.init_model(preset, overrides=overrides, seed=0)
+    print(f"preset={preset} dtype={im.cfg.model.dtype}", flush=True)
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
             for hw in REQUEST_SHAPES]

@@ -1,9 +1,11 @@
-"""Where a flagship train step's time goes, on one NVIDIA GPU.
+"""Where a train step's time goes, on one NVIDIA GPU.
 
     python -m spike2former_tpu_torch.profile_train [--loader | --panoptic] \
-        [--cfg-options] [KEY=VALUE ...]
+        [--preset NAME] [--cfg-options] [KEY=VALUE ...]
 
-Builds the flagship preset at full width with seeded random weights, with
+Builds the flagship preset (or ``--preset``'s, e.g. an FPN-family one,
+``fpn_sdtv3_512x512_19M_ade20k``) at full width with seeded random
+weights, with
 the config overrides given, with or without ``--cfg-options`` before them
 as the CLIs take them (e.g. ``train.matcher='host'``, or
 ``model.dtype='bfloat16'`` for the bf16 step; by default the preset's
@@ -27,7 +29,9 @@ Prints:
   port that issued them;
 * from ``torch.profiler`` over one step: for each stage of the step
   (the ``record_function`` ranges of ``engine/train.py``: forward, GT
-  slots, matching and the loss forward, backward, optimizer) the
+  slots, matching and the loss forward, backward, optimizer; for the FPN
+  family backbone, neck and head, ranges opened by forward hooks, then
+  the pixel loss, backward, optimizer) the
   host ms inside the range (waits for the device included) and the device
   ms of the kernels launched from it; device launches, device busy time
   against the unprofiled step time, the kernels with the most device
@@ -54,7 +58,7 @@ import warnings
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from . import api
 from .data.dataset import make_dataset
@@ -63,8 +67,10 @@ from .data.panoptic import PanopticDataset, panoptic_train_batches
 from .data.synthetic import (ADE_LIKE_SHAPES, COCO_LIKE_SHAPES,
                              synthetic_batch, write_ade_tree,
                              write_coco_panoptic_tree)
+from .engine.train import is_fpn
 from .losses import criterion
 from .losses.matcher import auction_match
+from .profile_request import preset_and_overrides
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
 PANOPTIC = "SDTv2_maskformer_coco_panoptic"
@@ -72,33 +78,58 @@ WARMUP, TIMED = 2, 3
 
 
 STAGES = ("forward", "match_and_loss", "backward", "optimizer")
+FPN_STAGES = ("backbone", "neck", "head", "pixel_loss", "backward",
+              "optimizer")
 
 
-def _stage_ms(prof) -> dict:
-    """Host ms of each stage's range and device ms of the kernels it
+def _stage_ms(prof, stages=STAGES) -> dict:
+    """Host ms of each stage's ranges and device ms of the kernels they
     launched.  A kernel belongs to the stage whose range holds the start
     of the op that launched it, whatever that op's thread: the autograd
     engine runs the backward's ops on a thread of its own."""
     events = prof.profiler.kineto_results.events()
-    ranges = {}
+    ranges = collections.defaultdict(list)
     op_start = {}
     for e in events:
         if e.device_type() != DeviceType.CPU:
             continue
         op_start[e.correlation_id()] = e.start_ns()
-        if e.name() in STAGES:
-            ranges[e.name()] = (e.start_ns(), e.end_ns())
-    out = {k: {"host_ms": (b - a) / 1e6, "device_ms": 0.0}
-           for k, (a, b) in ranges.items()}
+        if e.name() in stages:
+            ranges[e.name()].append((e.start_ns(), e.end_ns()))
+    out = {k: {"host_ms": sum(b - a for a, b in v) / 1e6, "device_ms": 0.0}
+           for k, v in ranges.items()}
     out["unassigned"] = {"device_ms": 0.0}
     for e in events:
-        if e.device_type() != DeviceType.CUDA or e.name() in STAGES:
+        if e.device_type() != DeviceType.CUDA or e.name() in stages:
             continue
         t = op_start.get(e.linked_correlation_id())
-        stage = next((k for k, (a, b) in ranges.items()
+        stage = next((k for k, v in ranges.items() for a, b in v
                       if t is not None and a <= t <= b), "unassigned")
         out[stage]["device_ms"] += e.duration_ns() / 1e6
     return out
+
+
+def fpn_part_ranges(model) -> list:
+    """Forward hooks that run the FPN family's backbone, neck and head (a
+    cascade's every stage) inside ``record_function`` ranges of those
+    names; returns the hooks' handles."""
+    heads = ([model.head] if hasattr(model, "head") else
+             [getattr(model, f"stage{i}") for i in range(model.num_stages)])
+    open_ranges, handles = [], []
+    for name, mods in (("backbone", [model.backbone]),
+                       ("neck", [model.neck]), ("head", heads)):
+        for mod in mods:
+            def pre(_m, _a, name=name):
+                rf = record_function(name)
+                rf.__enter__()
+                open_ranges.append(rf)
+
+            def post(_m, _a, _o):
+                open_ranges.pop().__exit__(None, None, None)
+
+            handles += [mod.register_forward_pre_hook(pre),
+                        mod.register_forward_hook(post)]
+    return handles
 
 
 def sync_sites(fn) -> collections.Counter:
@@ -160,11 +191,12 @@ def main(argv: list[str]) -> int:
     print(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__}",
           flush=True)
     loader, panoptic = "--loader" in argv, "--panoptic" in argv
-    overrides = [a for a in argv
-                 if a not in ("--loader", "--panoptic", "--cfg-options")]
-    tr = api.init_trainer(PANOPTIC if panoptic else PRESET, overrides,
-                          seed=0)
-    print(f"matcher={tr.cfg.train.matcher} compact_gt="
+    preset, overrides = preset_and_overrides(
+        [a for a in argv if a not in ("--loader", "--panoptic")],
+        PANOPTIC if panoptic else PRESET)
+    tr = api.init_trainer(preset, overrides, seed=0)
+    fpn = is_fpn(tr.cfg)
+    print(f"preset={preset} matcher={tr.cfg.train.matcher} compact_gt="
           f"{tr.cfg.train.compact_gt} dtype={tr.cfg.model.dtype} remat="
           f"{tr.cfg.model.remat} packed_residuals="
           f"{tr.cfg.train.packed_residuals} batches="
@@ -217,17 +249,24 @@ def main(argv: list[str]) -> int:
     print(f"host synchronizations in one step: {sum(sites.values())} "
           f"{json.dumps(dict(sites.most_common()))}", flush=True)
 
+    stages = FPN_STAGES if fpn else STAGES
+    handles = fpn_part_ranges(tr.state.model) if fpn else []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tr.step_fn(tr.state, *batches[-1])
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.step_fn(tr.state, *batches[-1])
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
     print("stages " + json.dumps(
         {k: {m: round(v, 3) for m, v in d.items()}
-         for k, d in _stage_ms(prof).items()}), flush=True)
+         for k, d in _stage_ms(prof, stages).items()}), flush=True)
     # the ranges' own device-side spans are not kernels
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key not in STAGES]
+               if e.device_type == DeviceType.CUDA and e.key not in stages
+               and e.key != "forward"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         print("profile_train: the profiler saw no device time",

@@ -12,7 +12,8 @@ timing block ended by ``torch.cuda.synchronize()``.
 
 It prints one line: ms/iter, img/s, and with ``--mfu`` the TFLOP of a
 forward or a step (``utils/flops.py``: what ``FlopCounterMode`` counts
-plus the DCN sampler's intrinsic work, which it cannot see) and the MFU
+plus the MaskFormer's DCN sampler's intrinsic work, which it cannot see;
+the FPN family runs no sampler) and the MFU
 against the card's dense peak for the compute dtype, looked up from the
 card's name (``--peak-tflops`` for another card), with the card's
 ``nvidia-smi`` name and power limit; and the peak device memory.  The
@@ -101,8 +102,9 @@ def run(args) -> dict:
     images = rng.integers(0, 256, (total, *size, 3), dtype=np.uint8)
     m = cfg.model
     group = min(m.dcn_group, m.feat_channels)
-    dcn = dict(num_layers=m.num_encoder_layers, group=group,
-               group_channels=m.feat_channels // group)
+    # only the MaskFormer runs the DCN sampler (tools/benchmark.py:149,195)
+    dcn = dict(num_layers=m.num_encoder_layers if m.kind == "maskformer"
+               else 0, group=group, group_channels=m.feat_channels // group)
     if args.train:
         cfg.train.accum_steps = accum
         cfg.data.batch_size = total

@@ -162,6 +162,9 @@ def main(argv: list[str] | None = None) -> int:
         cfg.data.data_root = args.data_root
     state_dict = None
     if args.torch_checkpoint:
+        if cfg.model.kind != "maskformer":
+            ap.error("--torch-checkpoint reads a reference MaskFormer "
+                     f"checkpoint, not model.kind={cfg.model.kind!r}")
         cfg.model.compat = True
         m = cfg.model
         state_dict = load_reference_model(

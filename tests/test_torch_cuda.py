@@ -928,3 +928,75 @@ def test_variant_train_step_card_matches_cpu(cuda, variant):
                     and dcnv3.dcnv3_sample_backward.launches == k2 + 1)
     assert np.isfinite(totals).all()
     assert abs(totals[1] - totals[0]) <= 1e-3 * abs(totals[0])
+
+
+FPN_PRESETS = ("fpn_sdtv3_512x512_19M_ade20k", "fpn_msresnet18_512x512_ade20k",
+               "fpn_msresnet104_512x512_ade20k",
+               "cascade_fpn_sdtv2_512x512_ade20k")
+TINY_FPN = ["model.num_classes=5", "model.embed_dim=(8,16,24,32)",
+            "model.backbone_heads=4", "model.depths_stage3=1",
+            "model.depths_stage4=1", "model.neck_channels=16",
+            "model.head_channels=8", "model.T=2"]
+
+
+@pytest.mark.parametrize("name", FPN_PRESETS)
+def test_fpn_family_card_matches_cpu(cuda, name):
+    """The FPN family at tiny widths: logits (1e-3, the LIF and multispike
+    neurons on the card), and 2 train steps with the same dropout masks
+    (a CPU generator's) within 1e-3 relative; no K1/K2 launch."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        im = api.init_model(name, overrides=TINY_FPN, device=dev, seed=2)
+        with torch.inference_mode():
+            logits[dev] = im.model.predict_logits(x.to(dev)).cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0,
+                               atol=1e-3)
+
+    def cpu_draw(step):
+        gen = torch.Generator().manual_seed(step)
+        return lambda shape, dev: torch.rand(shape, generator=gen).to(dev)
+
+    from spike2former_tpu_torch.engine.train import make_train_step_fpn
+
+    rng = np.random.default_rng(1)
+    batches = [synthetic_batch(rng, 2, (64, 64), num_classes=5)
+               for _ in range(2)]
+    totals = {}
+    k1 = dcnv3.dcnv3_sample.launches
+    for dev in ("cpu", "cuda"):
+        tr = api.init_trainer(name, TINY_FPN + ["train.warmup_iters=1"],
+                              device=dev, seed=2)
+        tr.step_fn = make_train_step_fpn(tr.cfg.train.loss_decode,
+                                         dropout_draw=cpu_draw)
+        totals[dev] = [m["total"] for m in api.train_steps(tr, batches)]
+    np.testing.assert_allclose(totals["cuda"], totals["cpu"], rtol=1e-3)
+    assert dcnv3.dcnv3_sample.launches == k1
+
+
+def test_pixel_losses_card_match_cpu(cuda):
+    """Each pixel loss and its logits gradient on the card against the
+    CPU (1e-5 relative; the Lovász stable sort and the OHEM threshold on
+    the card), and ``edt_sq`` equal."""
+    from spike2former_tpu_torch.losses import pixel
+
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.normal(0, 2, (2, 24, 20, 5)).astype(
+        np.float32))
+    sem = torch.from_numpy(rng.integers(0, 5, (2, 48, 40)))
+    sem[0, :3] = 255
+    for name, fn in pixel.PIXEL_LOSSES.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            lg = logits.to(dev, copy=True).requires_grad_(True)
+            v = fn(lg, sem.to(dev))
+            v.backward()
+            out[dev] = (v.detach().cpu(), lg.grad.cpu())
+        torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                                   atol=1e-6, msg=name)
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                                   atol=1e-6, msg=name)
+    mask = sem.clamp(max=4)
+    torch.testing.assert_close(pixel.edt_sq(mask.cuda()).cpu(),
+                               pixel.edt_sq(mask), rtol=0, atol=0)

@@ -44,7 +44,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "tools.analyze_logs", "tools.print_config",
                  "tools.publish_model", "tools.browse_dataset",
                  "utils.flops", "utils.profiling", "data.panoptic",
-                 "evaluation.panoptic", "models.dab_detr"):
+                 "evaluation.panoptic", "models.dab_detr", "ops.neuron",
+                 "models.fpn", "models.msresnet", "models.cascade",
+                 "models.tebn", "losses.pixel"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys

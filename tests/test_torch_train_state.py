@@ -303,8 +303,12 @@ def test_new_config_keys_have_the_jax_defaults():
             assert getattr(getattr(got, part), k) == getattr(
                 getattr(want, part), k), (part, k)
     assert got.work_dir == want.work_dir
-    with pytest.raises(AttributeError, match="unknown config key"):
-        get_config(PRESET, ["model.kind='fpn'"])
+    # every key of the JAX config is the port's since the FPN family
+    # came (model.kind among them); a key of neither is refused by both
+    assert get_config(PRESET, ["model.kind='fpn'"]).model.kind == "fpn"
+    for getter in (get_config, jax_get_config):
+        with pytest.raises(AttributeError, match="unknown config key"):
+            getter(PRESET, ["model.neurons='lif'"])
     # the backbone variants are ported; an unknown one is refused
     assert get_config(PRESET, ["model.variant='sdtv3'"]).model.variant == \
         "sdtv3"
