@@ -226,6 +226,37 @@ seeded data and weights):
       images and the train CLI for 2 iterations with a checkpoint and a
       val, then ``--resume`` to 3, with the 19M preset.
 
+The bf16 forms of K3-K7 (run after (bf16 kernels)), the FPN family at
+bf16, DDD17 and the deformable modules (run after the FPN phases):
+
+  (grouped bf16) the grouped forward on bf16 features in both layouts,
+      each JAX name with its column rounding (K3, K6 round the column
+      weights to bf16; K4, K5 keep them f32), and the grouped backward
+      (K7's bf16 form) under their plans against their plain versions
+      (which round where the JAX kernels round): out and dfeat within one
+      bf16 ulp, dpy/dpx/dmask within ``BF16_GRAD_RTOL``, at the flagship
+      shapes for every kind of coordinates and at every Cg of
+      ``CHANNELS`` on ``GROUPED_MAPS`` (random and NaN coordinates);
+      autograd of the gchw form at the train shape; warm and cold ms,
+      plain ms, the ``F.grid_sample`` yardstick on bf16, the byte bound
+      and the registers of the bf16 Cg=8 instantiations.  No model path
+      calls them (their launches on every path read 0);
+  (fpn bf16) ``fpn_sdtv3_512x512_19M_ade20k`` at ``model.dtype=bfloat16``
+      beside the f32 preset (the same seeded weights): the three request
+      images in turns, request ms and peak memory of each, bf16 against
+      f32 class agreement and logit gap; a warm-up and 2 train steps at
+      batch 6 of 512x512 of each in turns, step ms, peak memory, finite
+      losses; K1/K2 0 launches; the tiny model at bf16 card vs CPU;
+  (ddd17) the flagship preset with ``data.dataset=ddd17
+      model.num_classes=6`` on a seeded DDD17 tree of 2-channel 200x352
+      event frames written as ``.npy`` by the port's ``events``
+      converter: the eval CLI whole (K1 6 a frame) and the train CLI for
+      2 iterations (K1 and K2 6 an iteration);
+  (deformable) the deformable encoder (6 layers, 256 channels, 8 heads,
+      4 points over the /8, /16 and /32 maps of a 512x512 image) and the
+      Transformer-encoder and FPN pixel decoders at the flagship head's
+      widths, card against CPU on the same seeded weights and inputs.
+
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero and prints no result; it also
@@ -262,7 +293,8 @@ from spike2former_tpu_torch.data.synthetic import (ADE_LIKE_SHAPES,
                                                     write_ade_tree,
                                                     write_cityscapes_tree,
                                                     write_coco_panoptic_tree,
-                                                    write_coco_stuff_tree)
+                                                    write_coco_stuff_tree,
+                                                    write_ddd17_tree)
 from spike2former_tpu_torch.device import f32_precision
 from spike2former_tpu_torch.engine import checkpoint
 from spike2former_tpu_torch.engine.checkpoint import load_reference_model
@@ -531,8 +563,10 @@ def phase_serve(im) -> dict:
     torch.cuda.synchronize()
     launches = dcnv3.dcnv3_sample.launches
     grouped = grouped_launches()
+    grouped_bf16 = grouped_bf16_launches()
     log("serve", f"3 requests served; dcnv3_sample launches={launches}, "
-        f"grouped forward/backward launches={grouped}")
+        f"grouped forward/backward launches={grouped} (bf16 "
+        f"{grouped_bf16})")
     check(launches == 6 * len(imgs),
           f"expected {6 * len(imgs)} DCN kernel launches, got {launches}")
     for img, pred in zip(imgs, preds):
@@ -586,7 +620,8 @@ def phase_serve(im) -> dict:
             api.inference_model(im, img)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-    return dict(launches=launches, grouped=grouped, max_abs_err=worst,
+    return dict(launches=launches, grouped=grouped,
+                grouped_bf16=grouped_bf16, max_abs_err=worst,
                 request_ms=statistics.median(times), max_ms=max(times),
                 n=len(times),
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -793,12 +828,18 @@ def grouped_launches() -> tuple[int, int]:
             dcnv3_grouped.dcnv3_sample_grouped_backward.launches)
 
 
+def grouped_bf16_launches() -> tuple[int, int]:
+    return (dcnv3_grouped.dcnv3_sample_grouped.bf16_launches,
+            dcnv3_grouped.dcnv3_sample_grouped_backward.bf16_launches)
+
+
 def zero_launches() -> None:
     """Set every kernel's launch count to 0."""
     for k in (dcnv3.dcnv3_sample, dcnv3.dcnv3_sample_backward):
         k.launches = k.bf16_launches = 0
-    dcnv3_grouped.dcnv3_sample_grouped.launches = 0
-    dcnv3_grouped.dcnv3_sample_grouped_backward.launches = 0
+    for k in (dcnv3_grouped.dcnv3_sample_grouped,
+              dcnv3_grouped.dcnv3_sample_grouped_backward):
+        k.launches = k.bf16_launches = 0
 
 
 def read_launches() -> dict:
@@ -806,7 +847,8 @@ def read_launches() -> dict:
                 k2=dcnv3.dcnv3_sample_backward.launches,
                 k1_bf16=dcnv3.dcnv3_sample.bf16_launches,
                 k2_bf16=dcnv3.dcnv3_sample_backward.bf16_launches,
-                grouped=grouped_launches())
+                grouped=grouped_launches(),
+                grouped_bf16=grouped_bf16_launches())
 
 
 # the grouped kernels' checks: the flagship shapes at Cg=8 for every kind
@@ -1039,6 +1081,200 @@ def phase_grouped(gen) -> dict:
             f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
             f"op_bound_us={t['ops_ms'] * 1e3:.3f} share of bound "
             f"{t['bytes_ms'] / t['ms']:.3f}")
+    return dict(errs=errs, times=times)
+
+
+# the bf16 forms' checks: the flagship shapes for every kind of
+# coordinates, and every Cg on the maps of GROUPED_MAPS
+GROUPED_BF16_MAP_KINDS = ("random", "nan")
+
+
+def round_columns(name: str) -> bool:
+    """Whether the JAX kernel ``name``'s bf16 form rounds its column
+    weights (K3, K6) or keeps them f32 (K4, K5)."""
+    return dcnv3_grouped.JAX_COUNTERPARTS[name].keywords.get(
+        "round_columns", False)
+
+
+def check_grouped_bf16(n, h, w, g, cg, kind, gen) -> dict:
+    """The bf16 grouped forward in both layouts (each JAX name with its
+    column rounding) and the bf16 grouped backward on one case against
+    their plain versions (the dropped points taken out of the plain
+    inputs): out and dfeat within one bf16 ulp, dpy/dpx/dmask within
+    ``BF16_GRAD_RTOL`` of their largest magnitude; returns the largest
+    differences by JAX name."""
+    flat, dropped = grouped_inputs(n, h, w, g, cg, kind, gen)
+    value, py, px, mask, dout = flat
+    keep = ~dropped
+    feat, gy, gx, gm, gd = to_grouped(value.bfloat16(), py, px, mask,
+                                      dout.bfloat16())
+    _, py0, px0, m0 = to_grouped(value, *(torch.where(keep, t, 0.0)
+                                          for t in (py, px)), mask * keep)
+    keep_g = to_grouped(value, keep.float(), keep.float(), keep.float())[1]
+    static = dict(num_points=9, h_in=h, w_in=w, group=g, group_channels=cg)
+    case = f"N={n} {h}x{w} G={g} Cg={cg} {kind}"
+    errs = {}
+    for name, (k, layout) in GROUPED_FORWARD.items():
+        got = dcnv3_grouped.JAX_COUNTERPARTS[name](feat, gy, gx, gm,
+                                                   **static)
+        torch.cuda.synchronize()
+        want = dcnv3_grouped.dcnv3_sample_grouped_reference(
+            feat, py0, px0, m0, **static, out_layout=layout,
+            round_columns=round_columns(name))
+        check(got.dtype == torch.bfloat16
+              and bool(torch.isfinite(got).all()),
+              f"bf16 {k} out ({case})")
+        check(within_one_bf16_ulp(got, want),
+              f"bf16 {k} ({layout}) beyond one ulp of plain ({case})")
+        errs[name] = (got.float() - want.float()).abs().max().item()
+    got = dcnv3_grouped.dcnv3_sample_grouped_backward(feat, gy, gx, gm, gd,
+                                                      **static)
+    torch.cuda.synchronize()
+    want = dcnv3_grouped.dcnv3_sample_grouped_backward_reference(
+        feat, py0, px0, m0, gd, **static)
+    check(got[0].dtype == torch.bfloat16
+          and within_one_bf16_ulp(got[0], want[0]),
+          f"bf16 K7 dfeat beyond one ulp of plain ({case})")
+    errs[GROUPED_BACKWARD] = (got[0].float() - want[0].float()).abs().max(
+    ).item()
+    for gname, gv, wv in zip(("dpy", "dpx", "dmask"), got[1:], want[1:]):
+        wv = wv * keep_g
+        err = (gv - wv).abs().max().item()
+        check(bool(torch.isfinite(gv).all())
+              and err <= BF16_GRAD_RTOL * wv.abs().max().item(),
+              f"bf16 K7 {gname} off by {err:.3g} ({case})")
+        errs[GROUPED_BACKWARD] = max(errs[GROUPED_BACKWARD], err)
+    return errs
+
+
+def phase_grouped_bf16(gen) -> dict:
+    """(grouped bf16): the bf16 forms of K3-K6 (the grouped forward in
+    both layouts, with and without the column rounding) and of K7 under
+    their plans against their plain versions, at the flagship's /16 maps
+    for every kind of coordinates and at every Cg of ``CHANNELS`` on
+    ``GROUPED_MAPS``; autograd of the gchw form at the train shape; the
+    times at both flagship shapes, warm and cold, the plain times, the
+    ``F.grid_sample`` yardsticks on bf16, the byte bounds, and the
+    registers of the bf16 Cg=8 instantiations."""
+    g, cg, p = 32, 8, 9
+    fwd = dcnv3_grouped.JAX_COUNTERPARTS
+    bwd = dcnv3_grouped.dcnv3_sample_grouped_backward
+    errs = {name: 0.0 for name in (*GROUPED_FORWARD, GROUPED_BACKWARD)}
+    launched = (fwd["dcnv3_sample_pallas_t"].func.bf16_launches,
+                bwd.bf16_launches)
+
+    def record(e):
+        for name, err in e.items():
+            errs[name] = max(errs[name], err)
+
+    for shape, n, h, w in GROUPED_SHAPES:
+        for kind in GROUPED_KINDS:
+            record(check_grouped_bf16(n, h, w, g, cg, kind, gen))
+        log("grouped bf16", f"{shape} N={n} {h}x{w} G={g} Cg={cg}, kinds "
+            f"{GROUPED_KINDS}: max|kernel-plain| so far {errs}")
+    for n, h, w in GROUPED_MAPS:
+        for c in CHANNELS:
+            for kind in GROUPED_BF16_MAP_KINDS:
+                record(check_grouped_bf16(n, h, w, 4, c, kind, gen))
+        log("grouped bf16", f"N={n} {h}x{w} G=4 Cg {CHANNELS}, kinds "
+            f"{GROUPED_BF16_MAP_KINDS}: max|kernel-plain| so far {errs}")
+
+    times = {}
+    for shape, n, h, w in GROUPED_SHAPES:
+        howo = h * w
+        static = dict(num_points=p, h_in=h, w_in=w, group=g,
+                      group_channels=cg)
+        flat = sampler_inputs(n, h, w, g, cg, p, "random", gen)
+        dout_flat = torch.randn((n, howo, g * cg), generator=gen).cuda()
+        feat, py, px, mask, dout = to_grouped(
+            flat[0].bfloat16(), *flat[1:], dout_flat.bfloat16())
+        ins = [feat, py, px, mask]
+        lib = [feat, py.bfloat16(), px.bfloat16(), mask.bfloat16()]
+        if shape == "train":
+            before = (fwd["dcnv3_sample_pallas_t"].func.bf16_launches,
+                      bwd.bf16_launches)
+            cot = torch.randn((n, g, cg, howo), generator=gen).cuda()
+            cot = cot.bfloat16()
+            leaves = [t.clone().requires_grad_() for t in ins]
+            out = fwd["dcnv3_sample_pallas_t"](*leaves, **static)
+            got = torch.autograd.grad(out, leaves, cot)
+            check((fwd["dcnv3_sample_pallas_t"].func.bf16_launches,
+                   bwd.bf16_launches) == (before[0] + 1, before[1] + 1),
+                  "bf16 gchw autograd did not run the bf16 kernels once "
+                  "each")
+            want = dcnv3_grouped.dcnv3_sample_grouped_backward_reference(
+                *ins, cot, **static)
+            check(within_one_bf16_ulp(got[0], want[0]),
+                  "bf16 autograd dfeat beyond one ulp of plain")
+            line = []
+            for gname, gv, wv in zip(("dpy", "dpx", "dmask"), got[1:],
+                                     want[1:]):
+                err = (gv - wv).abs().max().item()
+                check(err <= BF16_GRAD_RTOL * wv.abs().max().item(),
+                      f"bf16 autograd {gname} off by {err:.3g}")
+                line.append(f"{gname} {err:.3g}")
+            log("grouped bf16", f"autograd K3 gchw {shape} N={n}: "
+                "max|kernel-plain| " + ", ".join(line))
+        out_elems = n * g * cg * howo
+        for name, (k, layout) in GROUPED_FORWARD.items():
+            rc = round_columns(name)
+
+            def kernel():
+                return fwd[name](*ins, **static)
+
+            t = dict(
+                ms=median_ms(kernel),
+                cold_ms=cuda_ms(kernel, cold=True),
+                plain_ms=cuda_ms(lambda: dcnv3_grouped
+                                 .dcnv3_sample_grouped_reference(
+                                     *ins, **static, out_layout=layout,
+                                     round_columns=rc), iters=10),
+                library_ms=cuda_ms(lambda: grouped_yardstick(
+                    *lib, **static, out_layout=layout), iters=20),
+                bytes_ms=(2 * feat.numel() + 12 * py.numel()
+                          + 2 * out_elems) / HBM_BYTES_PER_S * 1e3,
+                ops_ms=n * howo * g * p * (4 * cg * 2 + 16)
+                / F32_FLOPS_PER_S * 1e3)
+            times[name, shape] = t
+            log("grouped bf16", f"{k} {name} {layout} round_columns={rc} "
+                f"{shape} N={n} timing: kernel_ms={t['ms']:.5f} "
+                f"cold_l2_ms={t['cold_ms']:.5f} plain_ms="
+                f"{t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
+                f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
+                f"op_bound_us={t['ops_ms'] * 1e3:.3f} share of bound "
+                f"{t['bytes_ms'] / t['ms']:.3f}")
+        lib_ins = [t.clone().requires_grad_() for t in lib]
+        lib_out = grouped_yardstick(*lib_ins, **static, out_layout="gchw")
+
+        def kernel():
+            return bwd(*ins, dout, **static)
+
+        t = dict(
+            ms=median_ms(kernel),
+            cold_ms=cuda_ms(kernel, cold=True),
+            plain_ms=cuda_ms(lambda: dcnv3_grouped
+                             .dcnv3_sample_grouped_backward_reference(
+                                 *ins, dout, **static), iters=10),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, lib_ins, dout, retain_graph=True), iters=20),
+            bytes_ms=(2 * (2 * feat.numel() + dout.numel())
+                      + 24 * py.numel()) / HBM_BYTES_PER_S * 1e3,
+            ops_ms=py.numel() * (4 * 4 * cg + 40) / F32_FLOPS_PER_S * 1e3)
+        times[GROUPED_BACKWARD, shape] = t
+        log("grouped bf16", f"K7 {GROUPED_BACKWARD} {shape} N={n} timing: "
+            f"kernel_ms={t['ms']:.5f} cold_l2_ms={t['cold_ms']:.5f} "
+            f"plain_ms={t['plain_ms']:.5f} "
+            f"library_ms={t['library_ms']:.5f} "
+            f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
+            f"op_bound_us={t['ops_ms'] * 1e3:.3f} share of bound "
+            f"{t['bytes_ms'] / t['ms']:.3f}")
+    for src in (dcnv3.GROUPED_SOURCE, dcnv3.GROUPED_BWD_SOURCE):
+        log("grouped bf16", f"{src} bf16 Cg=8 registers: "
+            f"{registers(src, '13__nv_bfloat16Li8E')}")
+    launched = (fwd["dcnv3_sample_pallas_t"].func.bf16_launches
+                - launched[0], bwd.bf16_launches - launched[1])
+    log("grouped bf16", f"bf16 launches in this phase (checks and timing, "
+        f"not a main path): forward {launched[0]}, backward {launched[1]}")
     return dict(errs=errs, times=times)
 
 
@@ -3384,6 +3620,270 @@ def phase_fpn_family(smi: str) -> dict:
     return out
 
 
+FPN_BF16_ROUNDS = 3           # turns of the three requests per dtype
+FPN_BF16_STEPS = 2            # timed steps per dtype, after a warm-up each
+
+
+def phase_fpn_bf16(smi: str) -> dict:
+    """(fpn bf16): the 19M FPN preset at ``model.dtype=bfloat16`` beside
+    the f32 preset with the same seeded weights, at full width: the three
+    request images in turns (f32, bf16, ``FPN_BF16_ROUNDS`` times after a
+    warm-up of each), request ms and peak memory of each, the class
+    agreement and largest logit gap of bf16 against f32; then a warm-up
+    and ``FPN_BF16_STEPS`` train steps at batch 6 of 512x512 of each, in
+    turns, step ms and peak memory.  The launch counts are set to 0 just
+    before the bf16 requests and before the bf16 steps (K1 and K2 must
+    read 0: no DCN).  At tiny widths the bf16 model on the card against
+    the CPU: class agreement >= ``BF16_AGREEMENT``, logit gap <=
+    ``BF16_LOGIT_GAP``."""
+    ims = {dt: api.init_model(FPN_PRESET, overrides=opts, seed=0)
+           for dt, opts in (("f32", []), ("bf16", BF16_OPTS))}
+    imgs = request_images()
+    for im in ims.values():
+        timed_requests(im, imgs, len(imgs))
+    times = {dt: [] for dt in ims}
+    peaks = {dt: 0.0 for dt in ims}
+    for _ in range(FPN_BF16_ROUNDS):
+        for dt, im in ims.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            times[dt] += timed_requests(im, imgs, len(imgs))
+            req_launches = read_launches()
+            check(req_launches["k1"] == req_launches["k2"] == 0,
+                  f"fpn bf16: K1/K2 launched: {req_launches}")
+            peaks[dt] = max(peaks[dt],
+                            torch.cuda.max_memory_allocated() / 2 ** 30)
+    x = preprocess(torch.from_numpy(imgs[2][None]).cuda())
+    with torch.inference_mode(), f32_precision():
+        logits = {dt: im.model.predict_logits(x).float().cpu()
+                  for dt, im in ims.items()}
+    agree, gap = compare_logits(logits["bf16"], logits["f32"])
+    check(all(torch.isfinite(v).all() for v in logits.values()),
+          "fpn bf16: non-finite logits")
+    log("fpn bf16", f"requests in turns: f32 median "
+        f"{statistics.median(times['f32']):.3f} ms (peak "
+        f"{peaks['f32']:.3f} GiB), bf16 median "
+        f"{statistics.median(times['bf16']):.3f} ms (peak "
+        f"{peaks['bf16']:.3f} GiB), n={len(times['bf16'])} each; bf16 vs "
+        f"f32 logits of a 512x512 image: class agreement {agree:.6f}, "
+        f"largest gap {gap:.6g}; K1/K2 launches {req_launches['k1']}/"
+        f"{req_launches['k2']} on {smi}")
+    del ims
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(7)
+    batches = [synthetic_batch(rng, 6, (512, 512))
+               for _ in range(1 + FPN_BF16_STEPS)]
+    trs = {dt: api.init_trainer(FPN_PRESET, opts, seed=0)
+           for dt, opts in (("f32", []), ("bf16", BF16_OPTS))}
+    step_ms = {dt: [] for dt in trs}
+    step_peak = {dt: 0.0 for dt in trs}
+    step_launches = {}
+    metrics = {}
+    for i, batch in enumerate(batches):
+        for dt, tr in trs.items():
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t = time.perf_counter()
+            metrics[dt] = api.train_steps(tr, [batch])[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if dt == "bf16":
+                step_launches = read_launches()
+            step_peak[dt] = max(step_peak[dt],
+                                torch.cuda.max_memory_allocated() / 2 ** 30)
+            if i:
+                step_ms[dt].append(ms)
+    for dt, m in metrics.items():
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        check(not bad, f"fpn bf16: {dt} step non-finite {bad}")
+    model = trs["bf16"].state.model
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "fpn bf16: parameters left float32")
+    head = max(float(p.grad.abs().max()) for p in model.head.parameters())
+    check(head > 0, "fpn bf16: the head's gradients are 0")
+    del trs, model
+    torch.cuda.empty_cache()
+    check(step_launches["k1"] == step_launches["k2"] == 0,
+          f"fpn bf16: K1/K2 launched: {step_launches}")
+    log("fpn bf16", f"batch 6 of 512x512 in turns: f32 step "
+        f"{[round(v, 1) for v in step_ms['f32']]} ms (peak "
+        f"{step_peak['f32']:.3f} GiB), bf16 step "
+        f"{[round(v, 1) for v in step_ms['bf16']]} ms (peak "
+        f"{step_peak['bf16']:.3f} GiB); last total f32 "
+        f"{metrics['f32']['total']:.4f}, bf16 {metrics['bf16']['total']:.4f}"
+        f"; K1/K2 launches {step_launches['k1']}/{step_launches['k2']} on "
+        f"{smi}")
+
+    opts = TINY_FPN + BF16_OPTS
+    cpu = api.init_model(FPN_PRESET, overrides=opts, device="cpu", seed=1)
+    gpu = api.init_model(FPN_PRESET, overrides=opts, seed=1)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode(), f32_precision():
+        t_agree, t_gap = compare_logits(
+            gpu.model.predict_logits(x.cuda()).float().cpu(),
+            cpu.model.predict_logits(x).float())
+    log("fpn bf16", f"tiny model at bf16, 64x64 card vs CPU: class "
+        f"agreement {t_agree:.6f}, largest logit gap {t_gap:.6g}")
+    check(t_agree >= BF16_AGREEMENT and t_gap <= BF16_LOGIT_GAP,
+          f"fpn bf16 tiny card vs CPU: agreement {t_agree}, gap {t_gap}")
+    return dict(req_ms={dt: statistics.median(v) for dt, v in times.items()},
+                req_peak=peaks, step_ms={dt: statistics.median(v)
+                                         for dt, v in step_ms.items()},
+                step_peak=step_peak, agree=agree, gap=gap,
+                launches=[req_launches, step_launches])
+
+
+DDD17_PRESET_OPTS = ["data.dataset='ddd17'", "model.num_classes=6"]
+DDD17_VAL, DDD17_TRAIN = 3, 6   # frames in the seeded tree's two splits
+
+
+def phase_ddd17(smi: str) -> dict:
+    """(ddd17): the flagship preset with ``data.dataset=ddd17
+    model.num_classes=6`` on a seeded DDD17 tree (``write_ddd17_tree``:
+    raw events voxelized by the port's ``events`` converter into 2-channel
+    uint8 frames of 200x352 as ``.npy``, 6-class maps): the eval CLI whole
+    on the val frames (K1 6 launches a frame), then the train CLI for 2
+    iterations at the preset's batch 6 (K1 and K2 6 an iteration, K1 6
+    more for the val frame of the val at iteration 2).  Each path's launch
+    counts are set to 0 just before it."""
+    out = {"launches": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ddd17")
+        t = time.perf_counter()
+        write_ddd17_tree(root, DDD17_VAL, seed=0)
+        write_ddd17_tree(root, DDD17_TRAIN, seed=1, split="training")
+        frame = np.load(os.path.join(root, "images", "validation",
+                                     "rec_0.npy"))
+        check(frame.shape == (200, 352, 2) and frame.dtype == np.uint8,
+              f"ddd17 frame {frame.shape} {frame.dtype}")
+        log("ddd17", f"seeded tree of {DDD17_VAL} + {DDD17_TRAIN} event "
+            f"frames {frame.shape} {frame.dtype} written in "
+            f"{time.perf_counter() - t:.1f}s (mean count "
+            f"{frame.mean():.3f})")
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        lines = run_cli(eval_cli.main, [PRESET, "--data-root", root,
+                                        "--cfg-options",
+                                        *DDD17_PRESET_OPTS], "eval", "ddd17")
+        torch.cuda.synchronize()
+        n = read_launches()
+        out["launches"].append(n)
+        check(any(f"images: {DDD17_VAL}" in ln for ln in lines)
+              and any("mIoU" in ln for ln in lines),
+              "ddd17: the eval CLI printed no mIoU")
+        check(n["k1"] == 6 * DDD17_VAL and n["k2"] == 0,
+              f"ddd17 eval: launches {n}")
+        log("ddd17", f"eval CLI: {time.perf_counter() - t:.1f} s for "
+            f"{DDD17_VAL} frames (the build included); K1 launches "
+            f"{n['k1']}")
+        zero_launches()
+        t = time.perf_counter()
+        wd = os.path.join(tmp, "wd")
+        lines = run_cli(train_cli.main, [
+            PRESET, "--data-root", root, "--work-dir", wd, "--log-interval",
+            "1", "--eval-images", "1", "--cfg-options", *DDD17_PRESET_OPTS,
+            "train.checkpoint_interval=2", "train.val_interval=2",
+            "data.num_workers=4", "train.total_iters=2"], "train", "ddd17")
+        torch.cuda.synchronize()
+        n = read_launches()
+        out["launches"].append(n)
+        check(any("iter 2/2 loss" in ln for ln in lines),
+              "ddd17: no log of iteration 2")
+        check(os.path.exists(os.path.join(wd, "ckpt_2")),
+              "ddd17: no checkpoint")
+        check(n["k2"] == 6 * 2 and n["k1"] == 6 * 2 + 6,
+              f"ddd17 train: launches {n}")
+        log("ddd17", f"train CLI 2 iterations: "
+            f"{time.perf_counter() - t:.1f} s (the build included); K1/K2 "
+            f"launches {n['k1']}/{n['k2']} on {smi}")
+    return out
+
+
+# the flagship head's widths and the levels it sees of a 512x512 image
+DEFORM_SHAPES = ((64, 64), (32, 32), (16, 16))   # /8, /16, /32
+DECODER_LEVELS = ((256, 32), (128, 64), (64, 128), (32, 360))  # /2-/16
+DEFORM_TOL, DEFORM_SHARE = 1e-3, 0.99   # card vs CPU: elements within
+
+
+def card_vs_cpu(module: torch.nn.Module, args: list, tag: str) -> dict:
+    """``module`` in inference mode on the CPU and on the card on the same
+    ``args`` (tensors, or lists of them): the share of output elements
+    within ``DEFORM_TOL`` (>= ``DEFORM_SHARE``), the largest gap, and the
+    card's warm ms."""
+    def to(a, dev):
+        return ([x.to(dev) for x in a] if isinstance(a, list)
+                else a.to(dev) if torch.is_tensor(a) else a)
+
+    def flat(out):
+        if torch.is_tensor(out):
+            return [out]
+        return [t for o in out for t in flat(o)]
+
+    module = module.eval()
+    with torch.inference_mode(), f32_precision():
+        want = flat(module(*args))
+        module.cuda()
+        gpu_args = [to(a, "cuda") for a in args]
+        got = flat(module(*gpu_args))
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: module(*gpu_args), iters=5, warmup=1)
+    module.cpu()
+    share = min(float(((g.cpu() - w).abs() <= DEFORM_TOL).float().mean())
+                for g, w in zip(got, want))
+    gap = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"deformable: {tag} non-finite on the card")
+    check(share >= DEFORM_SHARE, f"deformable: {tag} card vs CPU: only "
+          f"{share:.6f} of the elements within {DEFORM_TOL}")
+    return dict(share=share, gap=gap, scale=scale, ms=ms)
+
+
+def phase_deformable(smi: str) -> dict:
+    """(deformable): at the flagship head's widths (feat 256, 8 heads, FFN
+    1024, 6 layers, seeded weights), the deformable encoder over the /8,
+    /16 and /32 maps of a 512x512 image (5376 tokens, 4 points), and the
+    Transformer-encoder and FPN pixel decoders over the four levels the
+    head sees ((32, 64, 128, 360) channels at /2 to /16), on the card
+    against the CPU on the same inputs: the share of elements within
+    ``DEFORM_TOL`` and the largest gap of every output, the card's ms."""
+    from spike2former_tpu_torch.models.deformable import (
+        SpikeDeformableEncoder)
+    from spike2former_tpu_torch.models.pixel_decoder import (
+        FPNPixelDecoder, TransformerEncoderPixelDecoder)
+
+    gen = torch.Generator().manual_seed(11)
+    n_tok = sum(h * w for h, w in DEFORM_SHAPES)
+    tokens = torch.randn((1, 1, n_tok, 256), generator=gen) + 0.5
+    pos = torch.randn((1, 1, n_tok, 256), generator=gen)
+    feats = [torch.randn((1, 1, s, s, c), generator=gen) + 0.4
+             for s, c in DECODER_LEVELS]
+    chans = tuple(c for _, c in DECODER_LEVELS)
+    out = {}
+    for tag, module, args in (
+            ("deformable encoder", SpikeDeformableEncoder(
+                6, 256, 8, 4, 1024, num_levels=len(DEFORM_SHAPES)),
+             [tokens, DEFORM_SHAPES, pos]),
+            ("transformer pixel decoder", TransformerEncoderPixelDecoder(
+                chans, 256, 256, 6, 8, 1024), [feats]),
+            ("fpn pixel decoder", FPNPixelDecoder(chans, 256, 256),
+             [feats])):
+        randomize_(module, 3)
+        r = card_vs_cpu(module, args, tag)
+        out[tag] = r
+        log("deformable", f"{tag}: card vs CPU {r['share']:.6f} of the "
+            f"elements within {DEFORM_TOL}, largest gap {r['gap']:.3g} "
+            f"(largest |output| {r['scale']:.3g}); card {r['ms']:.3f} ms on "
+            f"{smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3415,6 +3915,7 @@ def main() -> int:
     grad_err = phase_core_autograd(gen)
     gk = phase_grouped(gen)
     kb = phase_bf16_kernels(gen)
+    gb = phase_grouped_bf16(gen)
 
     t = time.perf_counter()
     im = api.init_model(PRESET, seed=0)
@@ -3507,13 +4008,25 @@ def main() -> int:
         f"flagship's {s['request_ms']:.3f}, step {fpn_train['step_ms']:.3f} "
         f"ms at batch {fpn_train['batch']} against the flagship's "
         f"{tr['step_ms']:.3f} on {smi}")
+    t_new = time.perf_counter()
+    fb = phase_fpn_bf16(smi)
+    dd = phase_ddd17(smi)
+    de = phase_deformable(smi)
+    log("deformable", f"(fpn bf16), (ddd17) and (deformable) took "
+        f"{time.perf_counter() - t_new:.1f}s; {FPN_PRESET} at bf16: request "
+        f"{fb['req_ms']['bf16']:.3f} ms against f32 "
+        f"{fb['req_ms']['f32']:.3f}, step {fb['step_ms']['bf16']:.3f} ms "
+        f"against {fb['step_ms']['f32']:.3f}, peaks "
+        f"{fb['step_peak']['bf16']:.3f} / {fb['step_peak']['f32']:.3f} GiB "
+        f"on {smi}")
 
     # the main path's launches: serve, the three eval modes, the train
     # steps at the defaults, the overflow step, the host-matcher steps,
     # the train CLI's two runs and the eval CLI on its best checkpoint,
     # the firing CLI, the TTA requests and the Inferencer, the point-loss
     # steps, the Cityscapes and COCO-Stuff eval CLIs and the Cityscapes
-    # steps, each counted from 0 just before it
+    # steps, ..., the FPN family's paths in f32 and bf16, the DDD17 eval
+    # and train CLIs, each counted from 0 just before it
     paths = [ev[mode]["launches"] for mode in EVAL_MODES] + [
         tr["launches"], ov["launches"], host["launches"], *cli["launches"],
         fi["launches"], tt["launches"], tt["inf_launches"], pt["launches"],
@@ -3525,11 +4038,15 @@ def main() -> int:
         pan["eval_launches"], pan["cli_launches"],
         *(var[n]["req_launches"] for n in VARIANTS),
         *(var[n]["launches"] for n in VARIANTS),
-        fpn["launches"], fpn_train["launches"], *fam["launches"]]
+        fpn["launches"], fpn_train["launches"], *fam["launches"],
+        *fb["launches"], *dd["launches"]]
     k1_launches = s["launches"] + sum(p["k1"] for p in paths)
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
                for i in (0, 1)]
+    grouped_bf16 = [s["grouped_bf16"][i]
+                    + sum(p["grouped_bf16"][i] for p in paths)
+                    for i in (0, 1)]
     # the bf16 paths: the bf16 requests and both bf16 train runs
     bf16_paths = [bs["launches"], bt["bf16"]["launches"],
                   bt["bf16+remat+packed"]["launches"]]
@@ -3578,6 +4095,18 @@ def main() -> int:
     kernels.append(row("dcnv3_sample_bwd[bf16]", dcnv3.BWD_SOURCE,
                        "dcnv3_sample_pallas_t5_bwd", k2_bf16, kb["k2_err"],
                        kb["k2", 6]))
+    # the bf16 forms of K3-K7: the forwards at the serve shape, K7 at the
+    # train shape
+    for name, (_, layout) in GROUPED_FORWARD.items():
+        kernels.append(row(
+            f"dcnv3_sample_grouped[{layout},bf16] ({name})",
+            dcnv3.GROUPED_SOURCE, name, grouped_bf16[0], gb["errs"][name],
+            gb["times"][name, "serve"]))
+    kernels.append(row(
+        f"dcnv3_sample_grouped_bwd[bf16] ({GROUPED_BACKWARD})",
+        dcnv3.GROUPED_BWD_SOURCE, GROUPED_BACKWARD, grouped_bf16[1],
+        gb["errs"][GROUPED_BACKWARD],
+        gb["times"][GROUPED_BACKWARD, "train"]))
     log("summary", f"K1 launches: serve {s['launches']}, eval "
         f"{[ev[m]['launches']['k1'] for m in EVAL_MODES]}, train "
         f"{tr['launches']['k1']}, overflow {ov['launches']['k1']}, host "

@@ -28,7 +28,8 @@
 // (converted to f32 while staging and loading), accumulates dvalue in an
 // f32 buffer (`dacc`, which the wrapper allocates: there are no bf16
 // atomics in the scatter, and bands overlap) and writes it to bf16 once, in
-// a second pass over the map (cast_bf16_kernel) on the same stream.  It does
+// a second pass over the map (dcnv3_tile.cuh:cast_bf16_kernel) on the same
+// stream.  It does
 // not copy the TPU kernel's rounding of its intermediates to bf16.  Its
 // bound halves only the feature terms: 42.5 MB of coordinates and their
 // gradients and 3 x 3.15 MB of value, dout and dvalue, 51.9 MB at the train
@@ -277,23 +278,6 @@ dcnv3_sample_bwd_kernel_bounded(const T* __restrict__ value,
                     howo, groups, points, h, w, gb, bands, rows, halo);
 }
 
-// dst[i] = src[i] rounded to bf16 for i < n: the bf16 form's one rounding
-// of dvalue, four elements a thread a step (src 16-byte aligned).
-__global__ void cast_bf16_kernel(const float* __restrict__ src,
-                                 __nv_bfloat16* __restrict__ dst, size_t n) {
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-  const size_t n4 = n / 4;
-  for (size_t i = first; i < n4; i += stride) {
-    float v[4];
-    load_vec<4>(v, src + 4 * i);
-    store_vec<4>(dst + 4 * i, v);
-  }
-  for (size_t i = 4 * n4 + first; i < n; i += stride)
-    dst[i] = __float2bfloat16_rn(src[i]);
-}
-
 template <typename T, int CG>
 cudaError_t launch(const T* value, const float* py, const float* px,
                    const float* mask, const T* dout, float* dvalue,
@@ -395,14 +379,6 @@ extern "C" int dcnv3_sample_bwd_bf16(const void* value, const void* py,
       points, h, w, cg, gb, bands, rows, halo, device, s);
   if (err != cudaSuccess) return err;
   const size_t elems = static_cast<size_t>(n) * h * w * groups * cg;
-  int sms = 0;
-  err = device_facts<&cast_bf16_kernel>(device, &sms);
-  if (err != cudaSuccess) return err;
-  const size_t blocks = (elems / 4 + 255) / 256;
-  cast_bf16_kernel<<<static_cast<unsigned>(
-                         std::max<size_t>(1, std::min<size_t>(
-                                                 blocks, 8 * sms))),
-                     256, 0, s>>>(acc, static_cast<__nv_bfloat16*>(dvalue),
-                                  elems);
-  return cudaGetLastError();
+  return launch_cast_bf16(acc, static_cast<__nv_bfloat16*>(dvalue), elems,
+                          device, s);
 }

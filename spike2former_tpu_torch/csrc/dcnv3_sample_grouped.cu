@@ -66,9 +66,34 @@
 // serve, a third at train) is the shared-memory reads of a warp's random
 // taps, which conflict on banks, and at serve the latency of one block of
 // 352 columns an SM.
+//
+// Element types: feat and out are both f32 (dcnv3_sample_grouped_f32) or
+// both bf16 (dcnv3_sample_grouped_bf16, the TPU kernels' bf16 forms, which
+// take bf16 features and f32 coordinates and mask).  The bf16 form stages
+// the map as f32 (dcnv3_tile.cuh) and rounds where the TPU kernels round,
+// since each rounding there changes the function:
+//   - the row weight m * (1 - fy), m * fy, taken in f32, to bf16 (the row
+//     selector cast to feat.dtype before its matmul, dcnv3_kernel.py:53,
+//     :101, :283, :537);
+//   - with `round_cols` (K3, K6), the column weight 1 - fx, fx to bf16 (the
+//     column selector cast to expand_ref's dtype, :109, :546); K4 and K5
+//     keep it f32;
+//   - the per-column sum T[v, c] = sum over the points reaching map column
+//     v, in point order, of (F[y0, v, c] r0 + F[y0+1, v, c] r1) * cw, to
+//     bf16 (t_acc cast before the channel select, :66, :115, :297, :554),
+//     then the sum over v in f32 and one rounding to bf16 at the store.
+// So a thread walks the map columns its points reach: for each point p and
+// tap column v that no earlier point reached, it sums the contributions
+// of points p..P-1 at v in point order, rounds, and adds.  Products and
+// sums are taken with __fmul_rn / __fadd_rn, as XLA takes them, unfused.
+// Only the f32 sum over v runs in another order than the TPU kernel's
+// channel-select matmul, so the result is within one bf16 ulp of it.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "dcnv3_tile.cuh"
 
@@ -84,34 +109,124 @@ constexpr int kThreads = CG >= 32 ? 256 : 512;
 // Points whose coordinates a thread loads together: the flagship's 3x3.
 constexpr int kPoints = 9;
 
-template <int CG, bool GCHW>
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// g += r * F[yy, xx, :] over the CG channels: from the staged tile when row
+// yy is staged, else from device memory.
+template <int CG, typename T>
+__device__ __forceinline__ void add_tap(float (&g)[CG], const float* s,
+                                        int stride, int y_lo, int y_hi,
+                                        const T* __restrict__ map, int w,
+                                        int yy, int xx, float r) {
+  constexpr int V = CG >= 4 ? 4 : CG;
+  const bool staged = yy >= y_lo && yy < y_hi;
+  const float* src = s + ((yy - y_lo) * w + xx) * stride;
+  const T* gsrc = map + (static_cast<size_t>(yy) * w + xx) * CG;
+#pragma unroll
+  for (int c = 0; c < CG; c += V) {
+    float v[V];
+    if (staged)
+      load_vec<V>(v, src + c);
+    else
+      load_vec<V>(v, gsrc + c);
+#pragma unroll
+    for (int k = 0; k < V; ++k) g[c + k] = __fadd_rn(g[c + k],
+                                                     __fmul_rn(v[k], r));
+  }
+}
+
+// The bf16 forms' sum for output column o of a group (see the note at the
+// top): acc += bf16(T[v, :]) for every map column v its points reach.  A
+// point with a NaN coordinate is dropped, as the f32 form drops it.
+template <int CG, bool ROUND_COLS, typename T>
+__device__ __forceinline__ void sample_column_rounded(
+    float (&acc)[CG], const float* s, int stride, int y_lo, int y_hi,
+    const T* __restrict__ map, int h, int w, const float* __restrict__ py,
+    const float* __restrict__ px, const float* __restrict__ mask,
+    size_t coord, int howo, int points, int o) {
+  for (int p = 0; p < points; ++p) {
+    const float x0p = floorf(__ldg(px + coord + static_cast<size_t>(p) * howo
+                                   + o));
+    if (!(x0p >= -1.f && x0p <= w - 1.f)) continue;  // off the map, or NaN
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx) {
+      const float v = x0p + dx;
+      if (v < 0.f || v > w - 1.f) continue;
+      bool first = true;
+      for (int q = 0; q < p && first; ++q) {
+        const float d = v - floorf(__ldg(px + coord +
+                                         static_cast<size_t>(q) * howo + o));
+        first = !(d == 0.f || d == 1.f);
+      }
+      if (!first) continue;
+      const int xx = static_cast<int>(v);
+      float t[CG];
+#pragma unroll
+      for (int c = 0; c < CG; ++c) t[c] = 0.f;
+      for (int q = p; q < points; ++q) {
+        const size_t i = coord + static_cast<size_t>(q) * howo + o;
+        const float x = __ldg(px + i);
+        const float x0 = floorf(x);
+        const float d = v - x0;
+        if (!(d == 0.f || d == 1.f)) continue;
+        const float y = __ldg(py + i);
+        const float y0f = floorf(y);
+        if (!(y0f >= -1.f && y0f <= h - 1.f)) continue;  // G = 0, or NaN
+        const float m = __ldg(mask + i);
+        const float fx = __fsub_rn(x, x0);
+        float cw = d == 0.f ? __fsub_rn(1.f, fx) : fx;
+        if constexpr (ROUND_COLS) cw = round_bf16(cw);
+        const float fy = __fsub_rn(y, y0f);
+        const int y0 = static_cast<int>(y0f);
+        float g[CG];
+#pragma unroll
+        for (int c = 0; c < CG; ++c) g[c] = 0.f;
+        if (y0 >= 0)
+          add_tap<CG>(g, s, stride, y_lo, y_hi, map, w, y0, xx,
+                      round_bf16(__fmul_rn(__fsub_rn(1.f, fy), m)));
+        if (y0 + 1 < h)
+          add_tap<CG>(g, s, stride, y_lo, y_hi, map, w, y0 + 1, xx,
+                      round_bf16(__fmul_rn(fy, m)));
+#pragma unroll
+        for (int c = 0; c < CG; ++c) t[c] = __fadd_rn(t[c],
+                                                      __fmul_rn(g[c], cw));
+      }
+#pragma unroll
+      for (int c = 0; c < CG; ++c) acc[c] += round_bf16(t[c]);
+    }
+  }
+}
+
+template <typename T, int CG, bool GCHW, bool ROUND_COLS>
 __global__ void __launch_bounds__(kThreads<CG>)
-dcnv3_sample_grouped_kernel(const float* __restrict__ feat,
+dcnv3_sample_grouped_kernel(const T* __restrict__ feat,
                             const float* __restrict__ py,
                             const float* __restrict__ px,
                             const float* __restrict__ mask,
-                            float* __restrict__ out, int howo, int groups,
+                            T* __restrict__ out, int howo, int groups,
                             int points, int h, int w, int bands, int rows,
                             int halo) {
   constexpr int V = CG >= 4 ? 4 : CG;
+  constexpr bool kF32 = std::is_same_v<T, float>;
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
   const Tile t = block_tile(howo, h, 1, bands, rows, halo);
   const size_t ng = static_cast<size_t>(t.n) * groups + t.g0;
-  const float* __restrict__ map = feat + ng * h * w * CG;
+  const T* __restrict__ map = feat + ng * h * w * CG;
   const size_t coord = ng * points * howo;
   const int stride = tile_stride(1, CG);
 
-  // stage rows [y_lo, y_hi) of the group's map: V floats a copy, into the
-  // padded pixel stride
+  // stage rows [y_lo, y_hi) of the group's map as f32: V elements a copy,
+  // into the padded pixel stride
   {
     constexpr int per_pix = CG / V;
-    const float* src = map + static_cast<size_t>(t.y_lo) * w * CG;
+    const T* src = map + static_cast<size_t>(t.y_lo) * w * CG;
     const int vecs = (t.y_hi - t.y_lo) * w * per_pix;
     for (int i = threadIdx.x; i < vecs; i += blockDim.x)
-      __pipeline_memcpy_async(s + i / per_pix * stride + i % per_pix * V,
-                              src + static_cast<size_t>(i) * V,
-                              V * sizeof(float));
+      stage_vec<V>(s + i / per_pix * stride + i % per_pix * V,
+                   src + static_cast<size_t>(i) * V);
     __pipeline_commit();
   }
 
@@ -127,9 +242,9 @@ dcnv3_sample_grouped_kernel(const float* __restrict__ feat,
       }
     }
   };
-  // the first column's coordinates fly while the map arrives
+  // the f32 form: the first column's coordinates fly while the map arrives
   int o = t.o_lo + threadIdx.x;
-  if (o < t.o_hi) load(o, 0);
+  if (kF32 && o < t.o_hi) load(o, 0);
   __pipeline_wait_prior(0);
   __syncthreads();
 
@@ -137,89 +252,103 @@ dcnv3_sample_grouped_kernel(const float* __restrict__ feat,
     float acc[CG];
 #pragma unroll
     for (int c = 0; c < CG; ++c) acc[c] = 0.f;
-    for (int p0 = 0; p0 < points; p0 += kPoints) {
-      if (p0) load(o, p0);
+    if constexpr (kF32) {
+      for (int p0 = 0; p0 < points; p0 += kPoints) {
+        if (p0) load(o, p0);
 #pragma unroll
-      for (int k = 0; k < kPoints; ++k)
-        if (p0 + k < points)
-          sample_point<CG>(acc, s, stride, t.y_lo, t.y_hi, map, CG, h, w,
-                           y[k], x[k], m[k]);
+        for (int k = 0; k < kPoints; ++k)
+          if (p0 + k < points)
+            sample_point<CG>(acc, s, stride, t.y_lo, t.y_hi, map, CG, h, w,
+                             y[k], x[k], m[k]);
+      }
+      if (o + static_cast<int>(blockDim.x) < t.o_hi) load(o + blockDim.x, 0);
+    } else {
+      sample_column_rounded<CG, ROUND_COLS>(acc, s, stride, t.y_lo, t.y_hi,
+                                            map, h, w, py, px, mask, coord,
+                                            howo, points, o);
     }
     if constexpr (GCHW) {
-      float* __restrict__ dst = out + ng * CG * howo + o;
+      T* __restrict__ dst = out + ng * CG * howo + o;
 #pragma unroll
-      for (int c = 0; c < CG; ++c) dst[static_cast<size_t>(c) * howo] = acc[c];
+      for (int c = 0; c < CG; ++c) {
+        if constexpr (kF32)
+          dst[static_cast<size_t>(c) * howo] = acc[c];
+        else
+          dst[static_cast<size_t>(c) * howo] = __float2bfloat16_rn(acc[c]);
+      }
     } else {
-      float* __restrict__ dst = out + (ng * howo + o) * CG;
+      T* __restrict__ dst = out + (ng * howo + o) * CG;
 #pragma unroll
       for (int c = 0; c < CG; c += V) {
         float v[V];
 #pragma unroll
         for (int k = 0; k < V; ++k) v[k] = acc[c + k];
-        store_vec<V>(dst + c, v);
+        store_vec<V>(dst + c, v);  // bf16: the one rounding of the sum
       }
     }
-    if (o + static_cast<int>(blockDim.x) < t.o_hi) load(o + blockDim.x, 0);
   }
 }
 
-template <int CG>
-cudaError_t launch(const float* feat, const float* py, const float* px,
-                   const float* mask, float* out, int n, int howo, int groups,
-                   int points, int h, int w, int bands, int rows, int halo,
-                   int gchw, int device, cudaStream_t stream) {
+template <typename T, int CG, bool GCHW, bool ROUND_COLS>
+cudaError_t launch_one(const T* feat, const float* py, const float* px,
+                       const float* mask, T* out, int n, int howo,
+                       int groups, int points, int h, int w, int bands,
+                       int rows, int halo, int device, cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(tile_stride(1, CG)) * rows * w * sizeof(float);
   const int ob = (howo + bands - 1) / bands;
   const int threads = min(kThreads<CG>, (ob + 31) / 32 * 32);
-  const dim3 grid(bands, groups, n);
+  constexpr auto* kernel =
+      &dcnv3_sample_grouped_kernel<T, CG, GCHW, ROUND_COLS>;
   int sms = 0;
-  cudaError_t err;
-  if (gchw) {
-    constexpr auto* kernel = &dcnv3_sample_grouped_kernel<CG, true>;
-    err = device_facts<kernel>(device, &sms);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, smem, stream>>>(feat, py, px, mask, out, howo,
-                                            groups, points, h, w, bands,
-                                            rows, halo);
-  } else {
-    constexpr auto* kernel = &dcnv3_sample_grouped_kernel<CG, false>;
-    err = device_facts<kernel>(device, &sms);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, smem, stream>>>(feat, py, px, mask, out, howo,
-                                            groups, points, h, w, bands,
-                                            rows, halo);
-  }
+  const cudaError_t err = device_facts<kernel>(device, &sms);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bands, groups, n), threads, smem, stream>>>(
+      feat, py, px, mask, out, howo, groups, points, h, w, bands, rows,
+      halo);
   return cudaGetLastError();
 }
 
-}  // namespace
+template <typename T, int CG>
+cudaError_t launch(const T* feat, const float* py, const float* px,
+                   const float* mask, T* out, int n, int howo, int groups,
+                   int points, int h, int w, int bands, int rows, int halo,
+                   int gchw, int round_cols, int device,
+                   cudaStream_t stream) {
+#define DCNV3_GROUPED_LAUNCH(GCHW, ROUND)                                   \
+  return launch_one<T, CG, GCHW, ROUND>(feat, py, px, mask, out, n, howo,  \
+                                        groups, points, h, w, bands, rows, \
+                                        halo, device, stream)
+  if constexpr (std::is_same_v<T, float>) {
+    if (gchw) DCNV3_GROUPED_LAUNCH(true, false);
+    DCNV3_GROUPED_LAUNCH(false, false);
+  } else {
+    if (gchw && round_cols) DCNV3_GROUPED_LAUNCH(true, true);
+    if (gchw) DCNV3_GROUPED_LAUNCH(true, false);
+    if (round_cols) DCNV3_GROUPED_LAUNCH(false, true);
+    DCNV3_GROUPED_LAUNCH(false, false);
+  }
+#undef DCNV3_GROUPED_LAUNCH
+}
 
-// Plain C entry point, loaded with ctypes.  `gchw` = 1 writes
-// [N, G, Cg, HoWo], 0 writes [N, G, HoWo, Cg].  (bands, rows, halo) is the
-// tile plan of ops/dcnv3_grouped.py:grouped_tile_plan.  Launches on
-// `stream` of CUDA device `device`, the current one, and does not
-// synchronise; returns the cudaError_t of the launch.
-extern "C" int dcnv3_sample_grouped_f32(const void* feat, const void* py,
-                                        const void* px, const void* mask,
-                                        void* out, int n, int howo,
-                                        int groups, int points, int h, int w,
-                                        int cg, int bands, int rows,
-                                        int halo, int gchw, int device,
-                                        void* stream) {
-  const auto* f = static_cast<const float*>(feat);
+template <typename T>
+int entry(const void* feat, const void* py, const void* px, const void* mask,
+          void* out, int n, int howo, int groups, int points, int h, int w,
+          int cg, int bands, int rows, int halo, int gchw, int round_cols,
+          int device, void* stream) {
+  const auto* f = static_cast<const T*>(feat);
   const auto* y = static_cast<const float*>(py);
   const auto* x = static_cast<const float*>(px);
   const auto* m = static_cast<const float*>(mask);
-  auto* o = static_cast<float*>(out);
+  auto* o = static_cast<T*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (n * groups * howo == 0) return cudaSuccess;
   if (bands < 1 || rows < 0 || halo < 0) return cudaErrorInvalidValue;
   switch (cg) {
 #define DCNV3_GROUPED_CASE(CG)                                               \
   case CG:                                                                   \
-    return launch<CG>(f, y, x, m, o, n, howo, groups, points, h, w, bands,   \
-                      rows, halo, gchw, device, s);
+    return launch<T, CG>(f, y, x, m, o, n, howo, groups, points, h, w,      \
+                         bands, rows, halo, gchw, round_cols, device, s);
     DCNV3_GROUPED_CASE(1)
     DCNV3_GROUPED_CASE(2)
     DCNV3_GROUPED_CASE(4)
@@ -230,4 +359,36 @@ extern "C" int dcnv3_sample_grouped_f32(const void* feat, const void* py,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  `gchw` = 1 writes
+// [N, G, Cg, HoWo], 0 writes [N, G, HoWo, Cg].  (bands, rows, halo) is the
+// tile plan of ops/dcnv3_grouped.py:grouped_tile_plan.  Launch on `stream`
+// of CUDA device `device`, the current one, and do not synchronise; return
+// the cudaError_t of the launch.
+extern "C" int dcnv3_sample_grouped_f32(const void* feat, const void* py,
+                                        const void* px, const void* mask,
+                                        void* out, int n, int howo,
+                                        int groups, int points, int h, int w,
+                                        int cg, int bands, int rows,
+                                        int halo, int gchw, int device,
+                                        void* stream) {
+  return entry<float>(feat, py, px, mask, out, n, howo, groups, points, h, w,
+                      cg, bands, rows, halo, gchw, 0, device, stream);
+}
+
+// The bf16 form: feat and out bf16.  `round_cols` = 1 rounds the column
+// weights to bf16 as K3 and K6 do, 0 keeps them f32 as K4 and K5 do.
+extern "C" int dcnv3_sample_grouped_bf16(const void* feat, const void* py,
+                                         const void* px, const void* mask,
+                                         void* out, int n, int howo,
+                                         int groups, int points, int h,
+                                         int w, int cg, int bands, int rows,
+                                         int halo, int gchw, int round_cols,
+                                         int device, void* stream) {
+  return entry<__nv_bfloat16>(feat, py, px, mask, out, n, howo, groups,
+                              points, h, w, cg, bands, rows, halo, gchw,
+                              round_cols, device, stream);
 }

@@ -71,9 +71,25 @@
 // of the shared adds and the L2 vector atomics, at 12% of the byte
 // bound.  The atomics sum dfeat in an order that varies from run to run
 // (f32 rounding only).
+//
+// Element types: feat, dout and dfeat are f32 (dcnv3_sample_grouped_bwd_f32)
+// or bf16 (dcnv3_sample_grouped_bwd_bf16, K7's bf16 form); py/px/mask and
+// their gradients are f32 in both.  The bf16 form stages feat as f32,
+// loads dout as f32, adds dfeat into an f32 buffer (`dacc`, under the f32
+// form's zero-fill rule; there are no bf16 atomics) and rounds it into
+// dfeat once, in a second pass on the same stream
+// (dcnv3_tile.cuh:cast_bf16_kernel), as the TPU kernel sums dfeat in f32
+// and casts it once (dcnv3_kernel.py:1019).  Its one other rounding is
+// the TPU kernel's row weight, cast to bf16 before the product that feeds
+// the column gradient (:913): dpx sums sx * bf16(m * wy) * <F, dout>
+// (dcnv3_tile.cuh:sample_point_bwd's ROUND_ROWS); dpy and dmask use the
+// f32 weights, as the TPU kernel's do.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "dcnv3_tile.cuh"
 
@@ -90,13 +106,13 @@ constexpr int kThreads = CG >= 32 ? 128 : 256;
 // Points whose coordinates a thread loads together: the flagship's 3x3.
 constexpr int kPoints = 9;
 
-template <int CG>
+template <typename T, int CG>
 __global__ void __launch_bounds__(kThreads<CG>)
-dcnv3_sample_grouped_bwd_kernel(const float* __restrict__ feat,
+dcnv3_sample_grouped_bwd_kernel(const T* __restrict__ feat,
                                 const float* __restrict__ py,
                                 const float* __restrict__ px,
                                 const float* __restrict__ mask,
-                                const float* __restrict__ dout,
+                                const T* __restrict__ dout,
                                 float* __restrict__ dfeat,
                                 float* __restrict__ dpy,
                                 float* __restrict__ dpx,
@@ -106,6 +122,7 @@ dcnv3_sample_grouped_bwd_kernel(const float* __restrict__ feat,
   constexpr int V = CG >= 4 ? 4 : CG;
   constexpr int shared = kShared<CG>;
   constexpr int per_pix = CG / V;  // vectors a pixel
+  constexpr bool kBf16 = !std::is_same_v<T, float>;
   extern __shared__ float4 smem4[];
   float* s_val = reinterpret_cast<float*>(smem4);  // [pixel][CG]
   const Tile t = block_tile(howo, h, 1, bands, rows, halo);
@@ -113,22 +130,21 @@ dcnv3_sample_grouped_bwd_kernel(const float* __restrict__ feat,
   const int plane = rows * w;
   float* s_acc = s_val + plane * CG;  // [c][pixel], c < shared
   const size_t ng = static_cast<size_t>(t.n) * groups + t.g0;
-  const float* __restrict__ map = feat + ng * h * w * CG;
+  const T* __restrict__ map = feat + ng * h * w * CG;
   float* __restrict__ dmap = dfeat + ng * h * w * CG;
   const size_t tile_off = static_cast<size_t>(t.y_lo) * w * CG;
   const size_t coord = ng * points * howo;
-  const float* __restrict__ dsrc = dout + ng * CG * howo;
+  const T* __restrict__ dsrc = dout + ng * CG * howo;
 
-  // stage the map rows (pixel-major as in device memory) and zero the
-  // accumulator; a block that owns the whole map also zeroes the channels
+  // stage the map rows (pixel-major as in device memory, as f32) and zero
+  // the accumulator; a block that owns the whole map also zeroes the channels
   // it adds in device memory (no other block touches them)
   const int staged = (t.y_hi - t.y_lo) * w * per_pix;  // vectors
   for (int i = threadIdx.x; i < staged; i += blockDim.x) {
     const int pix = i / per_pix;
     const int c = i % per_pix * V;
-    __pipeline_memcpy_async(s_val + static_cast<size_t>(i) * V,
-                            map + tile_off + static_cast<size_t>(i) * V,
-                            V * sizeof(float));
+    stage_vec<V>(s_val + static_cast<size_t>(i) * V,
+                 map + tile_off + static_cast<size_t>(i) * V);
     if (c < shared) {
 #pragma unroll
       for (int k = 0; k < V; ++k) s_acc[(c + k) * plane + pix] = 0.f;
@@ -153,7 +169,7 @@ dcnv3_sample_grouped_bwd_kernel(const float* __restrict__ feat,
     if (p0 == 0) {
 #pragma unroll
       for (int c = 0; c < CG; ++c)
-        d[c] = dsrc[static_cast<size_t>(c) * howo + o];
+        d[c] = to_f32(dsrc[static_cast<size_t>(c) * howo + o]);
     }
   };
   // the first column's upstream gradient and coordinates fly while the map
@@ -170,12 +186,12 @@ dcnv3_sample_grouped_bwd_kernel(const float* __restrict__ feat,
       for (int k = 0; k < kPoints; ++k) {
         if (p0 + k >= points) continue;
         float gy = 0.f, gx = 0.f, gm = 0.f;
-        sample_point_bwd<CG>(gy, gx, gm, s_val, CG, s_acc, plane, t.y_lo,
-                             t.y_hi, map, dmap, CG, h, w, d, y[k], x[k],
-                             m[k]);
+        sample_point_bwd<CG, kBf16>(gy, gx, gm, s_val, CG, s_acc, plane,
+                                    t.y_lo, t.y_hi, map, dmap, CG, h, w, d,
+                                    y[k], x[k], m[k]);
         const size_t i = coord + static_cast<size_t>(p0 + k) * howo + o;
         dpy[i] = m[k] * gy;
-        dpx[i] = m[k] * gx;
+        dpx[i] = kBf16 ? gx : m[k] * gx;
         dmask[i] = gm;
       }
     }
@@ -206,9 +222,9 @@ dcnv3_sample_grouped_bwd_kernel(const float* __restrict__ feat,
   }
 }
 
-template <int CG>
-cudaError_t launch(const float* feat, const float* py, const float* px,
-                   const float* mask, const float* dout, float* dfeat,
+template <typename T, int CG>
+cudaError_t launch(const T* feat, const float* py, const float* px,
+                   const float* mask, const T* dout, float* dfeat,
                    float* dpy, float* dpx, float* dmask, int n, int howo,
                    int groups, int points, int h, int w, int bands, int rows,
                    int halo, int device, cudaStream_t stream) {
@@ -216,7 +232,7 @@ cudaError_t launch(const float* feat, const float* py, const float* px,
                       sizeof(float);
   const int ob = (howo + bands - 1) / bands;
   const int threads = min(kThreads<CG>, (ob + 31) / 32 * 32);
-  constexpr auto* kernel = &dcnv3_sample_grouped_bwd_kernel<CG>;
+  constexpr auto* kernel = &dcnv3_sample_grouped_bwd_kernel<T, CG>;
   int sms = 0;
   const cudaError_t err = device_facts<kernel>(device, &sms);
   if (err != cudaSuccess) return err;
@@ -226,35 +242,26 @@ cudaError_t launch(const float* feat, const float* py, const float* px,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes.  (bands, rows, halo) is the tile
-// plan of ops/dcnv3_grouped.py:grouped_tile_plan.  Launches on `stream` of
-// CUDA device `device`, the current one, and does not synchronise; returns
-// the cudaError_t of the launch.  `dfeat` must hold zeros unless the plan
-// is one band of every row (the whole map).
-extern "C" int dcnv3_sample_grouped_bwd_f32(
-    const void* feat, const void* py, const void* px, const void* mask,
-    const void* dout, void* dfeat, void* dpy, void* dpx, void* dmask, int n,
-    int howo, int groups, int points, int h, int w, int cg, int bands,
-    int rows, int halo, int device, void* stream) {
-  const auto* f = static_cast<const float*>(feat);
+template <typename T>
+cudaError_t entry(const void* feat, const void* py, const void* px,
+                  const void* mask, const void* dout, float* dfeat,
+                  void* dpy, void* dpx, void* dmask, int n, int howo,
+                  int groups, int points, int h, int w, int cg, int bands,
+                  int rows, int halo, int device, cudaStream_t s) {
+  const auto* f = static_cast<const T*>(feat);
   const auto* y = static_cast<const float*>(py);
   const auto* x = static_cast<const float*>(px);
   const auto* m = static_cast<const float*>(mask);
-  const auto* d = static_cast<const float*>(dout);
-  auto* df = static_cast<float*>(dfeat);
+  const auto* d = static_cast<const T*>(dout);
   auto* dy = static_cast<float*>(dpy);
   auto* dx = static_cast<float*>(dpx);
   auto* dm = static_cast<float*>(dmask);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (n * groups * howo == 0) return cudaSuccess;
   if (bands < 1 || rows < 0 || halo < 0) return cudaErrorInvalidValue;
   switch (cg) {
 #define DCNV3_GROUPED_BWD_CASE(CG)                                           \
   case CG:                                                                   \
-    return launch<CG>(f, y, x, m, d, df, dy, dx, dm, n, howo, groups,        \
-                      points, h, w, bands, rows, halo, device, s);
+    return launch<T, CG>(f, y, x, m, d, dfeat, dy, dx, dm, n, howo, groups,  \
+                         points, h, w, bands, rows, halo, device, s);
     DCNV3_GROUPED_BWD_CASE(1)
     DCNV3_GROUPED_BWD_CASE(2)
     DCNV3_GROUPED_BWD_CASE(4)
@@ -265,4 +272,43 @@ extern "C" int dcnv3_sample_grouped_bwd_f32(
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  (bands, rows, halo) is the
+// tile plan of ops/dcnv3_grouped.py:grouped_tile_plan.  Launch on `stream`
+// of CUDA device `device`, the current one, and do not synchronise; return
+// the cudaError_t of the launch.  The f32 form adds into `dfeat`, which
+// must hold zeros unless the plan is one band of every row (the whole map).
+extern "C" int dcnv3_sample_grouped_bwd_f32(
+    const void* feat, const void* py, const void* px, const void* mask,
+    const void* dout, void* dfeat, void* dpy, void* dpx, void* dmask, int n,
+    int howo, int groups, int points, int h, int w, int cg, int bands,
+    int rows, int halo, int device, void* stream) {
+  if (n * groups * howo == 0) return cudaSuccess;
+  return entry<float>(feat, py, px, mask, dout, static_cast<float*>(dfeat),
+                      dpy, dpx, dmask, n, howo, groups, points, h, w, cg,
+                      bands, rows, halo, device,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: feat, dout and dfeat bf16; `dacc` an f32 [N, G, H, W*Cg]
+// buffer that the kernel adds into, under the f32 form's zero-fill rule
+// for its dfeat, and that a second launch rounds into dfeat.
+extern "C" int dcnv3_sample_grouped_bwd_bf16(
+    const void* feat, const void* py, const void* px, const void* mask,
+    const void* dout, void* dacc, void* dfeat, void* dpy, void* dpx,
+    void* dmask, int n, int howo, int groups, int points, int h, int w,
+    int cg, int bands, int rows, int halo, int device, void* stream) {
+  if (n * groups * howo == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* acc = static_cast<float*>(dacc);
+  const cudaError_t err = entry<__nv_bfloat16>(
+      feat, py, px, mask, dout, acc, dpy, dpx, dmask, n, howo, groups,
+      points, h, w, cg, bands, rows, halo, device, s);
+  if (err != cudaSuccess) return err;
+  return launch_cast_bf16(acc, static_cast<__nv_bfloat16*>(dfeat),
+                          static_cast<size_t>(n) * groups * h * w * cg,
+                          device, s);
 }

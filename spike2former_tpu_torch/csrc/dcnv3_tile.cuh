@@ -8,8 +8,8 @@
 // walk that copies a warp's coordinates, and what a launch needs to know of
 // the device, kept per device.
 //
-// The feature element type T is float or __nv_bfloat16 (K1 and K2 take
-// both; the grouped pair float only).  A staged tile is f32 whatever T: a
+// The feature element type T is float or __nv_bfloat16 (every kernel takes
+// both).  A staged tile is f32 whatever T: a
 // bf16 feature is converted to f32 while it is staged (stage_vec), so the
 // shared-memory layout, its bank arithmetic and the host's plan sizes
 // (4 bytes a staged channel) are the same for both types, and a tap read
@@ -93,6 +93,12 @@ __device__ __forceinline__ void load_vec(float (&v)[V],
   } else {
     v[0] = __bfloat162float(*src);
   }
+}
+
+// An element converted to f32.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // dst[0:V] += v, one vector atomic (sm_90: red.global.add.v4.f32 / .v2).
@@ -304,7 +310,11 @@ __device__ __forceinline__ float dot(const T* src, const float (&d)[CG]) {
 // device-memory map as in sample_point (`feat` f32 or bf16; `dfeat`, the
 // gradient's device-memory accumulator, is f32 in both cases); `acc`
 // holds the staged pixels' shared channels in planes of `plane` floats.
-template <int CG, typename T>
+// With ROUND_ROWS (the grouped bf16 backward, K7's bf16 form) gx sums
+// sx * bf16(m * wy) * s, the row weight rounded to bf16 as the TPU kernel
+// rounds it before the product that feeds its column gradient
+// (dcnv3_kernel.py:913), and the caller does not scale gx by m.
+template <int CG, bool ROUND_ROWS = false, typename T>
 __device__ __forceinline__ void sample_point_bwd(
     float& gy, float& gx, float& gm, const float* s, int stride, float* acc,
     int plane, int y_lo, int y_hi, const T* __restrict__ feat,
@@ -382,7 +392,11 @@ __device__ __forceinline__ void sample_point_bwd(
       const float v = sv[dy][dx];
       gm += wy[dy] * wx[dx] * v;
       gy += sy[dy] * wx[dx] * v;
-      gx += sy[dx] * wy[dy] * v;
+      if constexpr (ROUND_ROWS)
+        gx += sy[dx] * __bfloat162float(__float2bfloat16_rn(
+                           __fmul_rn(m, wy[dy]))) * v;
+      else
+        gx += sy[dx] * wy[dy] * v;
       const float wt = m * wy[dy] * wx[dx];
       if (wt != 0.f)
         scatter<CG>(acc, ti[dy][dx], plane, ti[dy][dx] >= 0,
@@ -436,6 +450,24 @@ __device__ __forceinline__ void fetch_coords(
                  });
 }
 
+// dst[i] = src[i] rounded to bf16 for i < n: a bf16 backward's one
+// rounding of its f32 feature gradient, four elements a thread a step (src
+// 16-byte aligned).
+__global__ void cast_bf16_kernel(const float* __restrict__ src,
+                                 __nv_bfloat16* __restrict__ dst, size_t n) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  const size_t n4 = n / 4;
+  for (size_t i = first; i < n4; i += stride) {
+    float v[4];
+    load_vec<4>(v, src + 4 * i);
+    store_vec<4>(dst + 4 * i, v);
+  }
+  for (size_t i = 4 * n4 + first; i < n; i += stride)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
 constexpr int kMaxDevices = 64;
 
 // What a launch of `Kernel` needs to know of device `device` (the current
@@ -485,6 +517,23 @@ cudaError_t device_facts(int device, int* sms, int* per_sm = nullptr,
     *per_sm = f.per_sm;
   }
   return cudaSuccess;
+}
+
+// Round the f32 buffer `src` of `n` elements into bf16 `dst` on `stream`
+// (cast_bf16_kernel, at most 8 blocks an SM).
+inline cudaError_t launch_cast_bf16(const float* src, __nv_bfloat16* dst,
+                                    size_t n, int device,
+                                    cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = device_facts<&cast_bf16_kernel>(device, &sms);
+  if (err != cudaSuccess) return err;
+  const size_t blocks = (n / 4 + 255) / 256;
+  const size_t grid =
+      blocks < 1 ? 1 : (blocks > 8 * static_cast<size_t>(sms)
+                            ? 8 * static_cast<size_t>(sms) : blocks);
+  cast_bf16_kernel<<<static_cast<unsigned>(grid), 256, 0, stream>>>(src, dst,
+                                                                    n);
+  return cudaGetLastError();
 }
 
 }  // namespace dcnv3

@@ -1,14 +1,15 @@
-"""Dataset metainfo (port of the ADE20K, Cityscapes, VOC 2012 and
-COCO-Stuff 164k entries of ``spike2former_tpu/data/metainfo.py``): class
-names, palettes (mmseg's METAINFO blocks), label conventions and the
-directory layouts."""
+"""Dataset metainfo (port of ``spike2former_tpu/data/metainfo.py``, its ten
+entries): class names, palettes (mmseg's METAINFO blocks), label
+conventions and the directory layouts."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 from .label_constants import (ADE20K_PALETTE, CITYSCAPES_PALETTE,
                               COCO_STUFF_CLASSES, COCO_STUFF_PALETTE,
-                              VOC_PALETTE)
+                              PASCAL_CONTEXT59_CLASSES,
+                              PASCAL_CONTEXT_CLASSES, PASCAL_CONTEXT_PALETTE,
+                              SYNAPSE_CLASSES, SYNAPSE_PALETTE, VOC_PALETTE)
 
 
 @dataclass(frozen=True)
@@ -98,5 +99,53 @@ COCO_STUFF_164K = DatasetMeta(
     splits={"train": ("images/train2017", "annotations/train2017"),
             "val": ("images/val2017", "annotations/val2017")})
 
+PASCAL_CONTEXT = DatasetMeta(
+    name="pascal_context", classes=PASCAL_CONTEXT_CLASSES,  # background
+    palette=PASCAL_CONTEXT_PALETTE, reduce_zero_label=False,  # + 59
+    splits={"train": ("JPEGImages", "SegmentationClassContext"),
+            "val": ("JPEGImages", "SegmentationClassContext")})
+
+PASCAL_CONTEXT_59 = DatasetMeta(
+    name="pascal_context59", classes=PASCAL_CONTEXT59_CLASSES,
+    reduce_zero_label=True,  # mmseg PascalContextDataset59
+    splits={"train": ("JPEGImages", "SegmentationClassContext"),
+            "val": ("JPEGImages", "SegmentationClassContext")})
+
+# Synapse multi-organ CT (mmseg synapse.py)
+SYNAPSE = DatasetMeta(
+    name="synapse", classes=SYNAPSE_CLASSES, palette=SYNAPSE_PALETTE,
+    reduce_zero_label=False, img_suffix=".jpg", seg_suffix=".png",
+    splits={"train": ("img_dir/train", "ann_dir/train"),
+            "val": ("img_dir/val", "ann_dir/val")})
+
+# retina-vessel binary segmentation sets (mmseg DRIVE, ChaseDB1): png pairs
+DRIVE = DatasetMeta(
+    name="drive", classes=("background", "vessel"), reduce_zero_label=False,
+    img_suffix=".png", seg_suffix="_manual1.png",
+    splits={"train": ("images/training", "annotations/training"),
+            "val": ("images/validation", "annotations/validation")})
+
+CHASE_DB1 = DatasetMeta(
+    name="chase_db1", classes=("background", "vessel"),
+    reduce_zero_label=False, img_suffix=".png", seg_suffix="_1stHO.png",
+    splits={"train": ("images/training", "annotations/training"),
+            "val": ("images/validation", "annotations/validation")})
+
+# DDD17 DVS event-camera driving (mmseg ddd17.py:17-36 and
+# configs/_base_/datasets/ddd17.py): 6 classes over event frames stored as
+# .npy files in the ADE layout (``data/transforms.py:load_image``), eval at
+# the native 200x352
+DDD17 = DatasetMeta(
+    name="ddd17",
+    classes=("flat", "construction+sky", "object", "nature", "human",
+             "vehicle"),
+    palette=((120, 120, 120), (180, 120, 120), (6, 230, 230), (80, 50, 50),
+             (4, 200, 3), (120, 120, 80)),
+    reduce_zero_label=False, img_suffix=".npy", seg_suffix=".png",
+    splits={"train": ("images/training", "annotations/training"),
+            "val": ("images/validation", "annotations/validation")})
+
 DATASETS = {d.name: d for d in (ADE20K, CITYSCAPES, VOC2012,
-                                COCO_STUFF_164K)}
+                                COCO_STUFF_164K, PASCAL_CONTEXT,
+                                PASCAL_CONTEXT_59, SYNAPSE, DRIVE, CHASE_DB1,
+                                DDD17)}

@@ -127,6 +127,45 @@ def write_coco_stuff_tree(root: str, shapes=((480, 640), (640, 480)),
         lambda sem: ids[np.where(sem == 255, 171, sem)])
 
 
+# DDD17's event-frame resolution (H, W)
+DDD17_SHAPE = (200, 352)
+
+
+def write_ddd17_tree(root: str, n: int = 3, seed: int = 0,
+                     split: str = "validation", hw=DDD17_SHAPE,
+                     events: int = 400_000, t_bins: int = 4) -> str:
+    """A seeded DDD17-layout tree under ``root``: ``n`` recordings of raw
+    events ``[E, 4]`` (t, x, y, polarity) under ``root/raw/{split}``, each
+    voxelized by the port's ``events`` converter
+    (``tools/dataset_converters.py:convert_events_dir``, ``t_bins`` bins)
+    into a 2-channel uint8 frame ``root/images/{split}/rec_{i}.npy``, and a
+    6-class map ``root/annotations/{split}/rec_{i}.png`` (255 ignore).
+    Events fall on a pixel with a probability that grows with its class,
+    so the frames carry the map's structure."""
+    from PIL import Image
+
+    from ..tools.dataset_converters import convert_events_dir
+
+    rng = np.random.default_rng(seed)
+    raw = os.path.join(root, "raw", split)
+    ann_dir = os.path.join(root, "annotations", split)
+    os.makedirs(raw, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    h, w = hw
+    for i in range(n):
+        _, sem = synthetic_batch(rng, 1, (h, w), 6, (2, 6))
+        weight = np.where(sem[0] == 255, 1.0, sem[0] + 1.0).ravel()
+        pix = rng.choice(h * w, events, p=weight / weight.sum())
+        ev = np.stack([np.sort(rng.random(events)), pix % w, pix // w,
+                       rng.integers(0, 2, events)], axis=1)
+        np.save(os.path.join(raw, f"rec_{i}.npy"), ev)
+        Image.fromarray(sem[0].astype(np.uint8)).save(
+            os.path.join(ann_dir, f"rec_{i}.png"))
+    convert_events_dir(raw, os.path.join(root, "images", split), (h, w),
+                       t_bins)
+    return root
+
+
 # COCO-like image shapes (H, W)
 COCO_LIKE_SHAPES = ((480, 640), (640, 480), (427, 640))
 

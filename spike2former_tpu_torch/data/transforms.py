@@ -22,8 +22,37 @@ Sample = dict
 
 
 def load_image(path: str) -> np.ndarray:
+    """An RGB image [H, W, 3] uint8; a ``.npy`` / ``.npz`` file is an event
+    frame (``_load_event_frame``)."""
+    if path.endswith((".npy", ".npz")):
+        return _load_event_frame(path)
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def _load_event_frame(path: str) -> np.ndarray:
+    """An event-camera frame stored as .npy / .npz (the first array of an
+    .npz), as the DDD17 pipeline's LoadImageFromNpyFile loads it (mmseg
+    transforms/loading.py:630-693), canonicalized to [H, W, 3] uint8 for the
+    3-channel image pipeline: a 2-channel frame (positive and negative
+    event counts) gets a zero third channel, a 1-channel one is repeated,
+    more channels are cut to 3; other dtypes are clipped to [0, 255] and
+    cast (floats truncate)."""
+    arr = np.load(path)
+    if isinstance(arr, np.lib.npyio.NpzFile):
+        arr = arr[arr.files[0]]
+    arr = np.asarray(arr)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    elif arr.shape[-1] == 1:
+        arr = np.repeat(arr, 3, axis=-1)
+    elif arr.shape[-1] == 2:
+        arr = np.concatenate([arr, np.zeros_like(arr[..., :1])], axis=-1)
+    else:
+        arr = arr[..., :3]
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr, 0, 255)
+    return arr.astype(np.uint8)
 
 
 def load_annotation(path: str, reduce_zero_label: bool) -> np.ndarray:

@@ -20,7 +20,8 @@ backbone over all T steps with its BN trained, as the JAX package does:
 ``collapse_t``, ``norm_eval``, ``compat`` and the MaskFormer head's keys
 do not apply to them, nor do ``model.remat`` and
 ``train.packed_residuals`` (accepted, no effect, as in JAX); they run in
-float32 only.
+float32 or at ``model.dtype='bfloat16'`` (convs and denses in bf16 where
+JAX passes ``dtype``, parameters and BN statistics float32).
 ``model.masked_attention`` runs the MaskFormer head in Mask2Former mode
 and ``model.decoder='dab'`` swaps its decoder for the spiking DAB-DETR
 one (not both).
@@ -182,16 +183,13 @@ def build_model(cfg: ModelConfig, packed_residuals: bool = False
     """The model of ``cfg.kind``: the MaskFormer with the ``cfg.variant``
     backbone and ``cfg.decoder`` (masked or not), in ``cfg.dtype``
     (``packed_residuals``, ``train.packed_residuals``, saves packed spike
-    codes at its Spike->Conv sites); or the FPN or cascade segmentor,
-    float32 only."""
+    codes at its Spike->Conv sites); or the FPN or cascade segmentor in
+    ``cfg.dtype``."""
     if cfg.kind not in KINDS:
         raise ValueError(f"model.kind must be one of {KINDS}, got "
                          f"{cfg.kind!r}")
     dtype = compute_dtype(cfg.dtype)
     if cfg.kind != "maskformer":
-        if dtype != torch.float32:
-            raise ValueError(f"model.kind={cfg.kind!r} runs in float32 "
-                             "only in the port")
         from ..models.cascade import CascadeSegmentor
         from ..models.fpn import FPNSegmentor
 

@@ -18,6 +18,11 @@ does the FPN family: PLIF's scalar ``w``, TEBN's ``temporal_scale``,
 MS-ResNet's named ``stem_bn`` (flax's own ``nn.BatchNorm``, no wrapper)
 and its ``ConvBNF/BatchNorm_0`` (flax's ``nn.BatchNorm`` directly in the
 module, whose leaves fold into the port's ``ConvBNF``, itself the BN).
+And so do the deformable encoder (``layer_<i>/gamma1``, ``gamma2``,
+``self_attn/{value_proj,sampling_offsets,attention_weights,output_proj}``
+token convs + BN, ``ffn``) and the Transformer and FPN pixel decoders
+(``encoder_attn_<i>``, ``encoder_ffn_<i>``, ``last_feat_conv``,
+``output_<i>``, beside the DCN decoder's names).
 Load the result with ``model.load_state_dict(sd, strict=True)``.
 """
 from __future__ import annotations

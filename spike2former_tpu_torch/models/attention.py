@@ -16,11 +16,13 @@ from .layers import BatchNorm, Linear, Spike, fold_t, unfold_t
 
 
 class TokenConvBN(nn.Module):
-    """spike -> pointwise projection -> BN over tokens [T, B, N, C]."""
+    """spike (of ``spike`` kind) -> pointwise projection -> BN over tokens
+    [T, B, N, C]."""
 
-    def __init__(self, cin: int, features: int, dtype=torch.float32):
+    def __init__(self, cin: int, features: int, dtype=torch.float32,
+                 spike: str = "qspike"):
         super().__init__()
-        self.Spike_0 = Spike()
+        self.Spike_0 = Spike(spike)
         self.Conv_0 = Linear(cin, features, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(features)
 
@@ -54,16 +56,16 @@ class SpikeMHA(nn.Module):
 
     def __init__(self, embed_dims: int, num_heads: int = 8,
                  factored: bool = False, factored_min_kv: int = 1024,
-                 dtype=torch.float32):
+                 dtype=torch.float32, spike: str = "qspike"):
         super().__init__()
         self.embed_dims, self.num_heads = embed_dims, num_heads
         self.factored, self.factored_min_kv = factored, factored_min_kv
         # Spike_0-2 on q, k and v, Spike_3 on the merged heads
         for i in range(4):
-            setattr(self, f"Spike_{i}", Spike())
-        self.q = TokenConvBN(embed_dims, embed_dims, dtype)
-        self.k = TokenConvBN(embed_dims, embed_dims, dtype)
-        self.v = TokenConvBN(embed_dims, embed_dims, dtype)
+            setattr(self, f"Spike_{i}", Spike(spike))
+        self.q = TokenConvBN(embed_dims, embed_dims, dtype, spike)
+        self.k = TokenConvBN(embed_dims, embed_dims, dtype, spike)
+        self.v = TokenConvBN(embed_dims, embed_dims, dtype, spike)
         self.Conv_0 = Linear(embed_dims, embed_dims, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(embed_dims)
 

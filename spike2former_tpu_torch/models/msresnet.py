@@ -14,7 +14,6 @@ mean over T, dropout (104 only) and the ``fc`` layer.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .fpn import Dropout
@@ -51,6 +50,21 @@ class ConvBNF(BatchNorm):
         return super().forward(conv_nhwc(self.Conv_0, xf))
 
 
+def _avg_pool(xf: torch.Tensor, s: int) -> torch.Tensor:
+    """flax's ``nn.avg_pool`` over s x s windows at stride s (VALID) of
+    [N, H, W, C]: the window's sum taken in ``xf``'s dtype tap by tap in
+    row-major order, then divided by s * s, as XLA's ``reduce_window``
+    sums without excess precision (at bf16 each addition rounds:
+    ``F.avg_pool2d``'s f32 sum, rounded once, is an ulp off on a third of
+    the elements)."""
+    n, h, w, c = xf.shape
+    win = xf[:, :h // s * s, :w // s * s].reshape(n, h // s, s, w // s, s, c)
+    out = win[:, :, 0, :, 0]
+    for k in range(1, s * s):
+        out = out + win[:, :, k // s, :, k % s]
+    return out / (s * s)
+
+
 class SnnBasicBlock(nn.Module):
     """BasicBlock_104 (``avgpool_shortcut``) / BasicBlock_18
     (MSResnet.py:144-181, :240-280) on folded tensors."""
@@ -77,9 +91,7 @@ class SnnBasicBlock(nn.Module):
         sc = xf
         if self.shortcut is not None:
             if self.avgpool:
-                s = self.stride
-                sc = F.avg_pool2d(sc.permute(0, 3, 1, 2), s, s).permute(
-                    0, 2, 3, 1)
+                sc = _avg_pool(sc, self.stride)
             sc = self.shortcut(sc)
         return y + sc
 

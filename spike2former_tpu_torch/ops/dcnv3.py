@@ -103,7 +103,8 @@ def dcnv3_sample_reference(value: torch.Tensor, py: torch.Tensor,
 
 def dcnv3_sample_backward_reference(value: torch.Tensor, py: torch.Tensor,
                                     px: torch.Tensor, mask: torch.Tensor,
-                                    dout: torch.Tensor):
+                                    dout: torch.Tensor, *,
+                                    round_row_weights: bool = False):
     """Plain version of the sampler's backward, written out: for each of
     the four floor-based taps inside the map, with ``s = <F_tap, dout>``,
 
@@ -113,6 +114,10 @@ def dcnv3_sample_backward_reference(value: torch.Tensor, py: torch.Tensor,
     where ``dwy/dpy`` is -1 on the floor row and +1 on the next (likewise
     x): the floor-based subgradient, also at exact integer coordinates.
     Taps off the map give 0 to every term.
+
+    ``round_row_weights`` (the grouped bf16 backward, K7's bf16 form)
+    takes ``m * wy`` rounded to bf16 in the dpx term, as that TPU kernel
+    rounds its row weights before the product feeding its column gradient.
 
     value [N, H, W, G*Cg]; py/px/mask [N, HoWo, G, P]; dout [N, HoWo, G*Cg]
     -> (dvalue [N, H, W, G*Cg] in ``value.dtype``, summed in f32 and
@@ -131,7 +136,10 @@ def dcnv3_sample_backward_reference(value: torch.Tensor, py: torch.Tensor,
         s = torch.where(ok, (taps * d).sum(-1), 0.0)
         dmask += wy * wx * s
         dpy += mask * sy * wx * s
-        dpx += mask * wy * sx * s
+        row = mask * wy
+        if round_row_weights:
+            row = row.bfloat16().float()
+        dpx += row * sx * s
         wt = torch.where(ok, mask * wy * wx, 0.0)
         dvalue.scatter_add_(1, idx, (wt[..., None] * d).reshape(n, -1, cg))
     return dvalue.reshape(n, h, w, c).to(value.dtype), dpy, dpx, dmask
@@ -274,16 +282,21 @@ CHANNELS_PER_GROUP = (1, 2, 4, 8, 16, 32)
 # each library's entry points by the features' dtype: (name, tensor
 # pointers, ints); the ints are (n, howo, groups, points, h, w, cg), then
 # the tile plan (K1's and K2's TilePlan; the grouped pair's GroupedPlan,
-# and the grouped forward's layout flag) and the device index; the stream
-# comes last.  K2's bf16 entry takes an f32 accumulator beside dvalue.
+# and the grouped forward's layout flag, then its bf16 entry's column
+# rounding flag) and the device index; the stream comes last.  The bf16
+# entries of K2 and K7 take an f32 accumulator beside the feature
+# gradient.
 _ENTRY = {
     (SOURCE, torch.float32): ("dcnv3_sample_f32", 5, 12),
     (SOURCE, torch.bfloat16): ("dcnv3_sample_bf16", 5, 12),
     (BWD_SOURCE, torch.float32): ("dcnv3_sample_bwd_f32", 9, 12),
     (BWD_SOURCE, torch.bfloat16): ("dcnv3_sample_bwd_bf16", 10, 12),
     (GROUPED_SOURCE, torch.float32): ("dcnv3_sample_grouped_f32", 5, 12),
+    (GROUPED_SOURCE, torch.bfloat16): ("dcnv3_sample_grouped_bf16", 5, 13),
     (GROUPED_BWD_SOURCE, torch.float32): ("dcnv3_sample_grouped_bwd_f32", 9,
-                                          11)}
+                                          11),
+    (GROUPED_BWD_SOURCE, torch.bfloat16): ("dcnv3_sample_grouped_bwd_bf16",
+                                           10, 11)}
 SOURCES = tuple(dict.fromkeys(src for src, _ in _ENTRY))
 
 
@@ -303,7 +316,8 @@ def _library(source: str) -> ctypes.CDLL:
 
 def build_kernels() -> None:
     """Build (or find) and load the four CUDA libraries (K1, K2 and the
-    grouped-layout pair), the ``nvcc`` runs side by side."""
+    grouped-layout pair, each with its f32 and bf16 entries), the ``nvcc``
+    runs side by side."""
     from .cuda_build import build_all
 
     build_all(SOURCES)

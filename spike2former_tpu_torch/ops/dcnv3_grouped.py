@@ -15,15 +15,32 @@ one counterpart with output ``[N, G, Cg, HoWo]`` (``"gchw"``); K4 is the
 same function with output ``[N, G, HoWo, Cg]`` (``"ghwc"``); K7 is the
 backward.  ``JAX_COUNTERPARTS`` maps each JAX name to its counterpart.
 
+``feat`` (and ``dout``) may be float32 or bfloat16, the coordinates and
+mask are float32, and the outputs come back in ``feat.dtype`` (dpy, dpx,
+dmask in float32), as the JAX kernels return them.  At bf16 the JAX
+kernels round inside the sum, and each rounding changes the function, so
+the bf16 forms round where they do (``_grouped_forward_rounded``): the row
+weights ``m * (1 - fy)``, ``m * fy``; the column weights ``1 - fx``,
+``fx`` with ``round_columns`` (K3 and K6 cast them to ``expand_ref``'s
+dtype; K4 and K5 keep them f32, so at bf16 K5 is K4's function in K3's
+layout); and each map column's sum over the points that reach it, before
+the f32 sum over the columns and the final rounding.  K7's bf16 form sums
+dfeat in f32 and rounds it once, and takes the row weights rounded to bf16
+in dpx alone (``dcnv3_sample_backward_reference(round_row_weights=True)``).
+In f32 every rounding is the identity, and ``round_columns`` does
+nothing.
+
 For a CUDA tensor ``dcnv3_sample_grouped`` is a ``torch.autograd.Function``
 whose forward launches ``csrc/dcnv3_sample_grouped.cu`` and whose backward
 launches ``csrc/dcnv3_sample_grouped_bwd.cu`` through
 ``dcnv3_sample_grouped_backward``; a failed build or launch raises.  For a
 CPU tensor both are the plain versions, layout adapters around
-``ops/dcnv3.py``'s plain sampler and its backward, with PyTorch's autograd
-of the forward.  Both paths check their arguments alike.  Launches are
-counted in ``dcnv3_sample_grouped.launches`` and
-``dcnv3_sample_grouped_backward.launches``.  No model path calls this
+``ops/dcnv3.py``'s plain sampler and its backward (the bf16 forward its
+own, ``_grouped_forward_rounded``), with PyTorch's autograd of the
+forward.  Both paths check their arguments alike.  Launches are counted in
+``dcnv3_sample_grouped.launches`` and
+``dcnv3_sample_grouped_backward.launches``, those of the bf16 forms also in
+``.bf16_launches``.  No model path calls this
 module; the JAX package's model path uses K1 and K2 only.
 
 Both kernels stage a group's map in shared memory: a block owns one
@@ -39,10 +56,10 @@ from typing import NamedTuple
 
 import torch
 
-from .dcnv3 import (CHANNELS_PER_GROUP, GROUPED_BWD_SOURCE, GROUPED_SOURCE,
-                    NUM_SMS, SHARED_CHANNELS, SMEM_BYTES, _banded, _launch,
-                    _pixel_floats, dcnv3_sample_backward_reference,
-                    dcnv3_sample_reference)
+from .dcnv3 import (CHANNELS_PER_GROUP, FEATURE_DTYPES, GROUPED_BWD_SOURCE,
+                    GROUPED_SOURCE, NUM_SMS, SHARED_CHANNELS, SMEM_BYTES,
+                    _banded, _launch, _pixel_floats,
+                    dcnv3_sample_backward_reference, dcnv3_sample_reference)
 
 LAYOUTS = ("gchw", "ghwc")
 # shared memory a block of either kernel may stage: two blocks an SM
@@ -143,10 +160,15 @@ def _check_args(feat: torch.Tensor, py: torch.Tensor,
     for name, t, kind in others:
         if tuple(t.shape) != shapes[kind]:
             raise ValueError(f"{name} {tuple(t.shape)} != {shapes[kind]}")
+    if feat.dtype not in FEATURE_DTYPES:
+        raise TypeError(f"feat must be float32 or bfloat16, got "
+                        f"{feat.dtype}")
     for name, t in (("feat", feat), ("py", py)) + tuple(
             (name, t) for name, t, _ in others):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = feat.dtype if name in ("feat", "dout") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} with a {feat.dtype} "
+                            f"feat, got {t.dtype}")
         if t.device != feat.device:
             raise ValueError(f"{name} is on {t.device}, feat on "
                              f"{feat.device}")
@@ -169,12 +191,78 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2)
 
 
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.bfloat16().float()
+
+
+def _grouped_forward_rounded(feat, py, px, mask, h, w, cg,
+                             round_columns) -> torch.Tensor:
+    """The bf16 forms' sum, rounded where the JAX kernels round.  Each
+    point p has two tap columns v (slots (p, 0), (p, 1)) and adds the
+    contribution ``(F[y0, v] * bf16(m (1 - fy)) + F[y0+1, v] * bf16(m fy))
+    * cw`` (cw ``1 - fx`` or ``fx``, rounded to bf16 with
+    ``round_columns``) into that column's f32 sum T[v], in point order, as
+    the JAX kernels' ``t_acc + g * cexp`` adds it; the output is
+    ``sum_v bf16(T[v])`` in f32, rounded once.  Here each slot sums the
+    contributions of every slot at its column in slot order, and the
+    first slot at a column counts its T.  Taps off the map add nothing; a
+    point with a NaN coordinate is dropped (as the CUDA kernels drop it).
+    -> [N, G, HoWo, Cg] in ``feat.dtype``."""
+    n, g = feat.shape[:2]
+    p, howo = py.shape[2:]
+    f = feat.float().reshape(n, g, h * w, cg)
+    keep = ~(py.isnan() | px.isnan())
+    py, px = (torch.where(keep, t, 0.0).permute(0, 1, 3, 2)
+              for t in (py, px))                         # [N, G, HoWo, P]
+    m = torch.where(keep, mask, 0.0).permute(0, 1, 3, 2)
+    y0, x0 = torch.floor(py), torch.floor(px)
+    fy, fx = py - y0, px - x0
+    rows = ((y0, _round_bf16((1.0 - fy) * m)), (y0 + 1, _round_bf16(fy * m)))
+    cols, valid, contrib = [], [], []
+    for xx, cw in ((x0, 1.0 - fx), (x0 + 1, fx)):
+        if round_columns:
+            cw = _round_bf16(cw)
+        in_x = keep.permute(0, 1, 3, 2) & (xx >= 0) & (xx <= w - 1)
+        g_v = torch.zeros((n, g, howo, p, cg), dtype=torch.float32,
+                          device=feat.device)
+        for yy, r in rows:
+            ok = in_x & (yy >= 0) & (yy <= h - 1)
+            idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
+            tap = torch.gather(f, 2, idx.reshape(n, g, -1, 1).expand(
+                -1, -1, -1, cg)).reshape(n, g, howo, p, cg)
+            g_v = g_v + torch.where(ok[..., None], tap * r[..., None], 0.0)
+        cols.append(xx)
+        valid.append(in_x)
+        contrib.append(g_v * cw[..., None])
+    # slots (p, dx), point-major: [N, G, HoWo, 2P]
+    cols, valid = (torch.stack(t, -1).flatten(-2) for t in (cols, valid))
+    contrib = torch.stack(contrib, 4).flatten(3, 4)  # [N, G, HoWo, 2P, Cg]
+    same = ((cols[..., :, None] == cols[..., None, :])
+            & valid[..., :, None] & valid[..., None, :])
+    t = torch.zeros_like(contrib)
+    for k in range(2 * p):
+        t = t + torch.where(same[..., k, None], contrib[..., k, None, :],
+                            0.0)
+    earlier = torch.ones(2 * p, 2 * p, dtype=torch.bool,
+                         device=feat.device).tril(-1)
+    first = valid & ~(same & earlier).any(-1)
+    return torch.where(first[..., None], _round_bf16(t), 0.0).sum(3) \
+        .to(feat.dtype)
+
+
 def dcnv3_sample_grouped_reference(feat, py, px, mask, *, num_points, h_in,
-                                   w_in, group, group_channels, out_layout):
+                                   w_in, group, group_channels, out_layout,
+                                   round_columns=False):
     """Plain version of the grouped forward: ``dcnv3_sample_reference`` in
-    the grouped layout.  -> [N, G, Cg, HoWo] ("gchw") or [N, G, HoWo, Cg]
-    ("ghwc")."""
+    the grouped layout for f32 features, ``_grouped_forward_rounded`` for
+    bf16 ones.  -> [N, G, Cg, HoWo] ("gchw") or [N, G, HoWo, Cg]
+    ("ghwc") in ``feat.dtype``."""
     n, cg = feat.shape[0], group_channels
+    if feat.dtype == torch.bfloat16:
+        out = _grouped_forward_rounded(feat, py, px, mask, h_in, w_in, cg,
+                                       round_columns)
+        return (out.transpose(2, 3) if out_layout == "gchw"
+                else out).contiguous()
     out = dcnv3_sample_reference(_value(feat, cg), _rows(py), _rows(px),
                                  _rows(mask))
     out = out.reshape(n, -1, group, cg)                  # [N, HoWo, G, Cg]
@@ -186,13 +274,15 @@ def dcnv3_sample_grouped_backward_reference(feat, py, px, mask, dout, *,
                                             num_points, h_in, w_in, group,
                                             group_channels):
     """Plain version of the grouped backward: the formulas of
-    ``dcnv3_sample_backward_reference`` in the grouped layout.  dout
-    [N, G, Cg, HoWo] -> (dfeat [N, G, H_in, W_in*Cg] in ``feat.dtype``,
-    dpy, dpx, dmask [N, G, P, HoWo] f32)."""
+    ``dcnv3_sample_backward_reference`` in the grouped layout, with the
+    bf16 dpx's rounded row weights.  dout [N, G, Cg, HoWo] -> (dfeat
+    [N, G, H_in, W_in*Cg] in ``feat.dtype``, summed in f32 and rounded
+    once; dpy, dpx, dmask [N, G, P, HoWo] f32)."""
     n, cg = feat.shape[0], group_channels
     d = dout.permute(0, 3, 1, 2).reshape(n, -1, group * cg)
     dvalue, dpy, dpx, dmask = dcnv3_sample_backward_reference(
-        _value(feat, cg), _rows(py), _rows(px), _rows(mask), d)
+        _value(feat, cg), _rows(py), _rows(px), _rows(mask), d,
+        round_row_weights=feat.dtype == torch.bfloat16)
     dfeat = dvalue.reshape(n, h_in, w_in, group, cg).permute(0, 3, 1, 2, 4) \
         .reshape(feat.shape).to(feat.dtype)
     return (dfeat, *(t.permute(0, 2, 3, 1).contiguous()
@@ -204,10 +294,12 @@ class _GroupedFunction(torch.autograd.Function):
     CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, sampler, feat, py, px, mask, s, out_layout):
+    def forward(ctx, sampler, feat, py, px, mask, s, out_layout,
+                round_columns):
         ctx.save_for_backward(feat, py, px, mask)
         ctx.static, ctx.out_layout = s, out_layout
-        return sampler.launch(feat, py, px, mask, s, out_layout)
+        return sampler.launch(feat, py, px, mask, s, out_layout,
+                              round_columns)
 
     @staticmethod
     def backward(ctx, dout):
@@ -218,21 +310,25 @@ class _GroupedFunction(torch.autograd.Function):
             dout = dout.clone()
         grads = dcnv3_sample_grouped_backward(*ctx.saved_tensors, dout,
                                               **ctx.static._asdict())
-        return (None, *grads, None, None)
+        return (None, *grads, None, None, None)
 
 
 class _GroupedSample:
     """The grouped forward: the CUDA kernel (differentiable through the
     backward kernel) for a CUDA tensor, the plain version for a CPU
-    tensor.  ``launches`` counts the kernel's launches."""
+    tensor.  ``round_columns`` (bf16 only) rounds the column weights as K3
+    and K6 do.  ``launches`` counts the kernel's launches,
+    ``bf16_launches`` those of its bf16 form among them."""
 
     def __init__(self):
         self.launches = 0
+        self.bf16_launches = 0
 
     def __call__(self, feat: torch.Tensor, py: torch.Tensor,
                  px: torch.Tensor, mask: torch.Tensor, *, num_points: int,
                  h_in: int, w_in: int, group: int, group_channels: int,
-                 out_layout: str) -> torch.Tensor:
+                 out_layout: str, round_columns: bool = False
+                 ) -> torch.Tensor:
         s = Static(num_points, h_in, w_in, group, group_channels)
         if out_layout not in LAYOUTS:
             raise ValueError(f"out_layout {out_layout!r} not in {LAYOUTS}")
@@ -240,12 +336,13 @@ class _GroupedSample:
                                ("mask", mask, "coords")), s)
         if not feat.is_cuda:
             return dcnv3_sample_grouped_reference(
-                feat, py, px, mask, **s._asdict(), out_layout=out_layout)
+                feat, py, px, mask, **s._asdict(), out_layout=out_layout,
+                round_columns=round_columns)
         return _GroupedFunction.apply(self, feat, py, px, mask, s,
-                                      out_layout)
+                                      out_layout, round_columns)
 
-    def launch(self, feat, py, px, mask, s: Static,
-               out_layout: str) -> torch.Tensor:
+    def launch(self, feat, py, px, mask, s: Static, out_layout: str,
+               round_columns: bool) -> torch.Tensor:
         """Launch the forward kernel on checked arguments (no autograd)."""
         n, g, cg = feat.shape[0], s.group, s.group_channels
         howo = py.shape[3]
@@ -253,10 +350,14 @@ class _GroupedSample:
         plan = grouped_tile_plan(n, s.h_in, s.w_in, howo, g, cg,
                                  backward=False)
         out = torch.empty(shape, dtype=feat.dtype, device=feat.device)
+        bf16 = feat.dtype == torch.bfloat16
         _launch(GROUPED_SOURCE, (feat, py, px, mask, out),
                 (n, howo, g, s.num_points, s.h_in, s.w_in, cg, *plan,
-                 int(out_layout == "gchw"), feat.device.index))
+                 int(out_layout == "gchw"),
+                 *((int(round_columns),) if bf16 else ()),
+                 feat.device.index))
         self.launches += 1
+        self.bf16_launches += bf16
         return out
 
 
@@ -264,10 +365,12 @@ class _GroupedSampleBackward:
     """The grouped backward: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor.  Shapes as
     ``dcnv3_sample_grouped_backward_reference``; ``launches`` counts the
-    kernel's launches."""
+    kernel's launches, ``bf16_launches`` those of its bf16 form among
+    them."""
 
     def __init__(self):
         self.launches = 0
+        self.bf16_launches = 0
 
     def __call__(self, feat: torch.Tensor, py: torch.Tensor,
                  px: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor,
@@ -284,15 +387,25 @@ class _GroupedSampleBackward:
         plan = grouped_tile_plan(n, h_in, w_in, howo, group, group_channels,
                                  backward=True)
         # a block that owns a group's whole map stores its dfeat; with
-        # bands the halos overlap and the kernel adds with atomics
-        dfeat = (torch.empty_like(feat) if plan.whole(h_in)
-                 else torch.zeros_like(feat))
+        # bands the halos overlap and the kernel adds with atomics.  The
+        # bf16 form adds into an f32 buffer (no bf16 atomics) that its
+        # second pass rounds into dfeat.
+        acc = (torch.empty if plan.whole(h_in) else torch.zeros)(
+            feat.shape, dtype=torch.float32, device=feat.device)
         dpy, dpx, dmask = (torch.empty_like(py) for _ in range(3))
+        bf16 = feat.dtype == torch.bfloat16
+        if bf16:
+            dfeat = torch.empty_like(feat)
+            bufs = (acc, dfeat)
+        else:
+            dfeat = acc
+            bufs = (dfeat,)
         _launch(GROUPED_BWD_SOURCE,
-                (feat, py, px, mask, dout, dfeat, dpy, dpx, dmask),
+                (feat, py, px, mask, dout, *bufs, dpy, dpx, dmask),
                 (n, howo, group, num_points, h_in, w_in, group_channels,
                  *plan, feat.device.index))
         self.launches += 1
+        self.bf16_launches += bf16
         return dfeat, dpy, dpx, dmask
 
 
@@ -301,15 +414,18 @@ dcnv3_sample_grouped_backward = _GroupedSampleBackward()
 
 # Each TPU kernel of the family (dcnv3_kernel.py, wrapper line) and its
 # counterpart here.
+# ``round_columns`` follows each kernel's bf16 column weights.
 JAX_COUNTERPARTS = {
     "dcnv3_sample_pallas_t":                               # K3, :125
-        functools.partial(dcnv3_sample_grouped, out_layout="gchw"),
+        functools.partial(dcnv3_sample_grouped, out_layout="gchw",
+                          round_columns=True),
     "dcnv3_sample_pallas":                                 # K4, :197
         functools.partial(dcnv3_sample_grouped, out_layout="ghwc"),
     "dcnv3_sample_pallas_t4":                              # K5, :307
         functools.partial(dcnv3_sample_grouped, out_layout="gchw"),
     "dcnv3_sample_pallas_tg":                              # K6, :566
-        functools.partial(dcnv3_sample_grouped, out_layout="gchw"),
+        functools.partial(dcnv3_sample_grouped, out_layout="gchw",
+                          round_columns=True),
     "dcnv3_sample_pallas_t_bwd":                           # K7, :954
         dcnv3_sample_grouped_backward,
 }

@@ -366,6 +366,60 @@ def test_grouped_backward_kernel_matches_plain(cuda, cg):
         torch.testing.assert_close(gv.cpu(), wv, atol=3e-4, rtol=1e-3)
 
 
+def _within_one_bf16_ulp(got, want) -> bool:
+    """Each element within one bf16 ulp of ``want``'s (the ulp of
+    max(|want|, 1e-2))."""
+    scale = want.float().abs().clamp(min=1e-2)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("round_columns", [False, True])
+@pytest.mark.parametrize("layout", ["gchw", "ghwc"])
+@pytest.mark.parametrize("cg", [1, 8, 32])
+def test_grouped_bf16_kernel_matches_plain(cuda, cg, layout,
+                                           round_columns):
+    """The bf16 form of the grouped forward (K3/K6 with the column
+    weights rounded, K4/K5 without) against its plain version on the CPU,
+    within one bf16 ulp: both round where the JAX kernels round and sum
+    the rounded columns in f32 in other orders."""
+    (feat, py, px, mask, _), static = _grouped_case(
+        torch.Generator().manual_seed(60 + cg), cg)
+    feat = feat.bfloat16()
+    kw = dict(**static, out_layout=layout, round_columns=round_columns)
+    want = dcnv3_grouped.dcnv3_sample_grouped_reference(feat, py, px, mask,
+                                                        **kw)
+    sampler = dcnv3_grouped.dcnv3_sample_grouped
+    before = sampler.bf16_launches
+    got = sampler(*(t.to(cuda) for t in (feat, py, px, mask)), **kw)
+    torch.cuda.synchronize()
+    assert sampler.bf16_launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert _within_one_bf16_ulp(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cg", [1, 8, 32])
+def test_grouped_bf16_backward_kernel_matches_plain(cuda, cg):
+    """The bf16 form of the grouped backward (K7's) against its plain
+    version: dfeat (summed in f32 by atomics, rounded once) within one
+    bf16 ulp, dpy/dpx/dmask at atol 3e-4 / rtol 1e-3."""
+    arrays, static = _grouped_case(torch.Generator().manual_seed(80 + cg),
+                                   cg)
+    feat, py, px, mask, dout = arrays
+    arrays = (feat.bfloat16(), py, px, mask, dout.bfloat16())
+    want = dcnv3_grouped.dcnv3_sample_grouped_backward_reference(*arrays,
+                                                                 **static)
+    bwd = dcnv3_grouped.dcnv3_sample_grouped_backward
+    before = bwd.bf16_launches
+    got = bwd(*(t.to(cuda) for t in arrays), **static)
+    torch.cuda.synchronize()
+    assert bwd.bf16_launches == before + 1
+    assert got[0].dtype == torch.bfloat16
+    assert _within_one_bf16_ulp(got[0].cpu(), want[0])
+    for gv, wv in zip(got[1:], want[1:]):
+        torch.testing.assert_close(gv.cpu(), wv, atol=3e-4, rtol=1e-3)
+
+
 @pytest.mark.parametrize("layout", ["gchw", "ghwc"])
 def test_grouped_autograd_card_matches_cpu(cuda, layout):
     """Autograd through the grouped sampler on the card (forward kernel,
@@ -1000,3 +1054,30 @@ def test_pixel_losses_card_match_cpu(cuda):
     mask = sem.clamp(max=4)
     torch.testing.assert_close(pixel.edt_sq(mask.cuda()).cpu(),
                                pixel.edt_sq(mask), rtol=0, atol=0)
+
+
+def test_msda_and_deformable_encoder_card_match_cpu(cuda):
+    """``ms_deform_attn`` (``F.grid_sample`` per level) and a 2-layer
+    deformable encoder (seeded weights, the gammas drawn) on the card
+    against the CPU on the same inputs."""
+    from spike2former_tpu_torch.models.deformable import (
+        SpikeDeformableEncoder)
+    from spike2former_tpu_torch.ops.msda import ms_deform_attn
+
+    gen = torch.Generator().manual_seed(5)
+    shapes = ((8, 10), (4, 5))
+    value = torch.randn((2, 100, 4, 8), generator=gen)
+    locs = torch.rand((2, 6, 4, 2, 3, 2), generator=gen) * 1.2 - 0.1
+    wgt = torch.rand((2, 6, 4, 2, 3), generator=gen)
+    want = ms_deform_attn(value, shapes, locs, wgt)
+    got = ms_deform_attn(value.to(cuda), shapes, locs.to(cuda),
+                         wgt.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=1e-4)
+    enc = randomize_(SpikeDeformableEncoder(2, 16, 4, 3, 32, num_levels=2),
+                     0).eval()
+    q = torch.randn((1, 2, 100, 16), generator=gen) + 0.5
+    with torch.no_grad():
+        want = enc(q, shapes)
+        got = enc.to(cuda)(q.to(cuda), shapes)
+    assert (got.cpu() - q).abs().max() > 0.1
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)

@@ -46,7 +46,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "utils.flops", "utils.profiling", "data.panoptic",
                  "evaluation.panoptic", "models.dab_detr", "ops.neuron",
                  "models.fpn", "models.msresnet", "models.cascade",
-                 "models.tebn", "losses.pixel"):
+                 "models.tebn", "losses.pixel", "ops.msda",
+                 "models.deformable", "ops.dcnv3_grouped",
+                 "data.synthetic"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys

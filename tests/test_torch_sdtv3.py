@@ -453,16 +453,20 @@ def test_presets_match_jax(name):
 
 def test_unported_kinds_are_refused_with_a_reason():
     """Every model kind of the JAX package is ported (the FPN family
-    among them); a kind that is none of them, the FPN family at
-    bfloat16 (left out of the port) and a preset that does not exist are
-    refused with a reason."""
+    among them, in float32 and bfloat16); a kind that is none of them, a
+    dtype that is neither and a preset that does not exist are refused
+    with a reason."""
     for kind in ("fpn", "cascade"):
         assert get_config(V3_PRESETS[0],
                           [f"model.kind='{kind}'"]).model.kind == kind
     with pytest.raises(ValueError, match="model.kind must be one of"):
         build_model(get_config(V3_PRESETS[0], ["model.kind='unet'"]).model)
-    with pytest.raises(ValueError, match="float32 only"):
-        build_model(get_config("fpn_sdtv3_512x512_10M_ade20k",
+    m = build_model(get_config("fpn_sdtv3_512x512_10M_ade20k",
                                ["model.dtype='bfloat16'"]).model)
+    assert m.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    with pytest.raises(ValueError, match="model.dtype must be one of"):
+        build_model(get_config("fpn_sdtv3_512x512_10M_ade20k",
+                               ["model.dtype='float16'"]).model)
     with pytest.raises(KeyError, match="no preset 'fpn_sdtv3_1B'"):
         get_config("fpn_sdtv3_1B")
