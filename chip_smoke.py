@@ -236,11 +236,15 @@ bf16, DDD17 and the deformable modules (run after the FPN phases):
       (which round where the JAX kernels round): out and dfeat within one
       bf16 ulp, dpy/dpx/dmask within ``BF16_GRAD_RTOL``, at the flagship
       shapes for every kind of coordinates and at every Cg of
-      ``CHANNELS`` on ``GROUPED_MAPS`` (random and NaN coordinates);
-      autograd of the gchw form at the train shape; warm and cold ms,
-      plain ms, the ``F.grid_sample`` yardstick on bf16, the byte bound
-      and the registers of the bf16 Cg=8 instantiations.  No model path
-      calls them (their launches on every path read 0);
+      ``CHANNELS`` on ``GROUPED_MAPS`` (random and NaN coordinates), and
+      with 4 and 25 points at the serve shape and at every Cg on the
+      9x13 map, every kind; autograd of the gchw form at the train
+      shape; warm and cold ms, plain ms, the ``F.grid_sample`` yardstick
+      on bf16, the byte bound, K3's bf16 form on 'random' and 'far'
+      coordinates in turns with its f32 form on the same data, and the
+      registers and spilled bytes of the bf16 Cg=8 instantiations (the
+      forward's must spill nothing).  No model path calls them (their
+      launches on every path read 0);
   (fpn bf16) ``fpn_sdtv3_512x512_19M_ade20k`` at ``model.dtype=bfloat16``
       beside the f32 preset (the same seeded weights): the three request
       images in turns, request ms and peak memory of each, bf16 against
@@ -860,13 +864,13 @@ GROUPED_MAPS = ((1, 64, 128), (1, 8, 2048), (2, 9, 13))
 GROUPED_MAP_KINDS = ("random", "offmap", "zero", "nan")
 
 
-def grouped_inputs(n, h, w, g, cg, kind, gen, device="cuda"):
-    """``sampler_inputs`` and a dout [N, HoWo, G*Cg] in K1's layout, and
-    the points that the kernels drop, for ``KINDS`` and 'offmap'
-    (coordinates spread over and 4 px off the map) and 'nan' ('random'
-    with every 7th py and every 11th px NaN)."""
+def grouped_inputs(n, h, w, g, cg, kind, gen, device="cuda", p=9):
+    """``sampler_inputs`` of ``p`` points and a dout [N, HoWo, G*Cg] in
+    K1's layout, and the points that the kernels drop, for ``KINDS`` and
+    'offmap' (coordinates spread over and 4 px off the map) and 'nan'
+    ('random' with every 7th py and every 11th px NaN)."""
     base = {"offmap": "far", "nan": "random"}.get(kind, kind)
-    value, py, px, mask = sampler_inputs(n, h, w, g, cg, 9, base, gen,
+    value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, base, gen,
                                          device)
     if kind == "offmap":
         py = (torch.rand(py.shape, generator=gen) * (h + 8) - 4).to(device)
@@ -1085,8 +1089,14 @@ def phase_grouped(gen) -> dict:
 
 
 # the bf16 forms' checks: the flagship shapes for every kind of
-# coordinates, and every Cg on the maps of GROUPED_MAPS
+# coordinates, and every Cg on the maps of GROUPED_MAPS; 2x2 and 5x5
+# points (the forward sorts up to 9 points' taps, more take its any-P
+# walk) at the serve shape and at every Cg on the last map, every kind
 GROUPED_BF16_MAP_KINDS = ("random", "nan")
+GROUPED_BF16_POINTS = (4, 25)
+# the bf16 forward's instantiations at Cg = 8 in its build log (the
+# backward's carry the feature type in their name)
+GROUPED_BF16_FWD_MARKER = "grouped_bf16_kernelILi8E"
 
 
 def round_columns(name: str) -> bool:
@@ -1096,14 +1106,14 @@ def round_columns(name: str) -> bool:
         "round_columns", False)
 
 
-def check_grouped_bf16(n, h, w, g, cg, kind, gen) -> dict:
+def check_grouped_bf16(n, h, w, g, cg, kind, gen, p: int = 9) -> dict:
     """The bf16 grouped forward in both layouts (each JAX name with its
-    column rounding) and the bf16 grouped backward on one case against
-    their plain versions (the dropped points taken out of the plain
-    inputs): out and dfeat within one bf16 ulp, dpy/dpx/dmask within
-    ``BF16_GRAD_RTOL`` of their largest magnitude; returns the largest
-    differences by JAX name."""
-    flat, dropped = grouped_inputs(n, h, w, g, cg, kind, gen)
+    column rounding) and the bf16 grouped backward on one case of ``p``
+    points against their plain versions (the dropped points taken out of
+    the plain inputs): out and dfeat within one bf16 ulp, dpy/dpx/dmask
+    within ``BF16_GRAD_RTOL`` of their largest magnitude; returns the
+    largest differences by JAX name."""
+    flat, dropped = grouped_inputs(n, h, w, g, cg, kind, gen, p=p)
     value, py, px, mask, dout = flat
     keep = ~dropped
     feat, gy, gx, gm, gd = to_grouped(value.bfloat16(), py, px, mask,
@@ -1111,8 +1121,8 @@ def check_grouped_bf16(n, h, w, g, cg, kind, gen) -> dict:
     _, py0, px0, m0 = to_grouped(value, *(torch.where(keep, t, 0.0)
                                           for t in (py, px)), mask * keep)
     keep_g = to_grouped(value, keep.float(), keep.float(), keep.float())[1]
-    static = dict(num_points=9, h_in=h, w_in=w, group=g, group_channels=cg)
-    case = f"N={n} {h}x{w} G={g} Cg={cg} {kind}"
+    static = dict(num_points=p, h_in=h, w_in=w, group=g, group_channels=cg)
+    case = f"N={n} {h}x{w} G={g} Cg={cg} P={p} {kind}"
     errs = {}
     for name, (k, layout) in GROUPED_FORWARD.items():
         got = dcnv3_grouped.JAX_COUNTERPARTS[name](feat, gy, gx, gm,
@@ -1152,10 +1162,12 @@ def phase_grouped_bf16(gen) -> dict:
     both layouts, with and without the column rounding) and of K7 under
     their plans against their plain versions, at the flagship's /16 maps
     for every kind of coordinates and at every Cg of ``CHANNELS`` on
-    ``GROUPED_MAPS``; autograd of the gchw form at the train shape; the
-    times at both flagship shapes, warm and cold, the plain times, the
-    ``F.grid_sample`` yardsticks on bf16, the byte bounds, and the
-    registers of the bf16 Cg=8 instantiations."""
+    ``GROUPED_MAPS``, and at ``GROUPED_BF16_POINTS`` points; autograd of
+    the gchw form at the train shape; the times at both flagship shapes,
+    warm and cold, the plain times, the ``F.grid_sample`` yardsticks on
+    bf16, the byte bounds, the forward on 'far' coordinates too and the
+    f32 forward on the same data beside it; the registers and spills of
+    the bf16 Cg=8 instantiations (the forward's must not spill)."""
     g, cg, p = 32, 8, 9
     fwd = dcnv3_grouped.JAX_COUNTERPARTS
     bwd = dcnv3_grouped.dcnv3_sample_grouped_backward
@@ -1178,6 +1190,17 @@ def phase_grouped_bf16(gen) -> dict:
                 record(check_grouped_bf16(n, h, w, 4, c, kind, gen))
         log("grouped bf16", f"N={n} {h}x{w} G=4 Cg {CHANNELS}, kinds "
             f"{GROUPED_BF16_MAP_KINDS}: max|kernel-plain| so far {errs}")
+    _, n, h, w = GROUPED_SHAPES[0]
+    for pts in GROUPED_BF16_POINTS:
+        for kind in GROUPED_KINDS:
+            record(check_grouped_bf16(n, h, w, g, cg, kind, gen, pts))
+            for c in CHANNELS:
+                record(check_grouped_bf16(*GROUPED_MAPS[-1], 4, c, kind, gen,
+                                          pts))
+        log("grouped bf16", f"P={pts}: serve N={n} {h}x{w} G={g} Cg={cg} "
+            f"and N={GROUPED_MAPS[-1][0]} {GROUPED_MAPS[-1][1]}x"
+            f"{GROUPED_MAPS[-1][2]} G=4 Cg {CHANNELS}, kinds "
+            f"{GROUPED_KINDS}: max|kernel-plain| so far {errs}")
 
     times = {}
     for shape, n, h, w in GROUPED_SHAPES:
@@ -1242,7 +1265,28 @@ def phase_grouped_bf16(gen) -> dict:
                 f"{t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
                 f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
                 f"op_bound_us={t['ops_ms'] * 1e3:.3f} share of bound "
-                f"{t['bytes_ms'] / t['ms']:.3f}")
+                f"{t['bytes_ms'] / t['ms']:.3f} library/kernel "
+                f"{t['library_ms'] / t['ms']:.2f}")
+        # K3's bf16 form on 'random' and 'far' coordinates beside the f32
+        # form on the same data (the features in f32), in turns
+        for kind in ("random", "far"):
+            data = flat if kind == "random" else sampler_inputs(
+                n, h, w, g, cg, p, kind, gen)
+            f32_ins = to_grouped(*data)
+            half = [f32_ins[0].bfloat16(), *f32_ins[1:]]
+            k3 = fwd["dcnv3_sample_pallas_t"]
+            pair = [median_ms(lambda: k3(*f32_ins, **static)),
+                    median_ms(lambda: k3(*half, **static)),
+                    median_ms(lambda: k3(*half, **static)),
+                    median_ms(lambda: k3(*f32_ins, **static))]
+            f32_ms = (pair[0] + pair[3]) / 2
+            bf16_ms = (pair[1] + pair[2]) / 2
+            times["K3 bf16/f32", shape, kind] = dict(
+                bf16_ms=bf16_ms, f32_ms=f32_ms)
+            log("grouped bf16", f"K3 {shape} N={n} {kind}: bf16 form "
+                f"{pair[1]:.5f}, {pair[2]:.5f} ms; f32 form {pair[0]:.5f}, "
+                f"{pair[3]:.5f} ms (f32, bf16, bf16, f32); bf16/f32 "
+                f"{bf16_ms / f32_ms:.3f}")
         lib_ins = [t.clone().requires_grad_() for t in lib]
         lib_out = grouped_yardstick(*lib_ins, **static, out_layout="gchw")
 
@@ -1268,9 +1312,14 @@ def phase_grouped_bf16(gen) -> dict:
             f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
             f"op_bound_us={t['ops_ms'] * 1e3:.3f} share of bound "
             f"{t['bytes_ms'] / t['ms']:.3f}")
-    for src in (dcnv3.GROUPED_SOURCE, dcnv3.GROUPED_BWD_SOURCE):
-        log("grouped bf16", f"{src} bf16 Cg=8 registers: "
-            f"{registers(src, '13__nv_bfloat16Li8E')}")
+    regs = registers(dcnv3.GROUPED_SOURCE, GROUPED_BF16_FWD_MARKER)
+    check(len(regs) == 4 and all(spill == 0 for _, spill in regs),
+          f"bf16 Cg=8 grouped forward: {registers_text(regs)}")
+    log("grouped bf16", f"{dcnv3.GROUPED_SOURCE} bf16 Cg=8: "
+        f"{registers_text(regs)}")
+    bwd_regs = registers(dcnv3.GROUPED_BWD_SOURCE, "13__nv_bfloat16Li8E")
+    log("grouped bf16", f"{dcnv3.GROUPED_BWD_SOURCE} bf16 Cg=8: "
+        f"{registers_text(bwd_regs)}")
     launched = (fwd["dcnv3_sample_pallas_t"].func.bf16_launches
                 - launched[0], bwd.bf16_launches - launched[1])
     log("grouped bf16", f"bf16 launches in this phase (checks and timing, "
@@ -1680,20 +1729,27 @@ def within_one_bf16_ulp(got, want) -> bool:
     return bool(((got.float() - want.float()).abs() <= ulp).all())
 
 
-def registers(source: str, marker: str) -> list[str]:
-    """``Used N registers`` of the kernels of ``source`` whose mangled
-    name holds ``marker`` (``-Xptxas -v`` in the build log)."""
+def registers(source: str, marker: str) -> list[tuple[int, int]]:
+    """(registers, bytes of spill stores) of each kernel of ``source``
+    whose mangled name holds ``marker`` (``-Xptxas -v`` in the build
+    log)."""
     lines = (cuda_build.library_path(source).parent / "build.log"
              ).read_text().splitlines()
-    out, name = [], None
+    out, name, spill = [], None, 0
     for line in lines:
         if "Compiling entry function" in line:
-            name = line.split("'")[1]
+            name, spill = line.split("'")[1], 0
+        elif "bytes spill stores" in line and name:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "Used" in line and "registers" in line and name:
             if marker in name:
-                out.append(line.split("Used")[1].split(",")[0].strip())
+                out.append((int(line.split("Used")[1].split()[0]), spill))
             name = None
     return out
+
+
+def registers_text(regs: list[tuple[int, int]]) -> str:
+    return ", ".join(f"{r} registers/{s} bytes spilled" for r, s in regs)
 
 
 def phase_bf16_kernels(gen) -> dict:
@@ -1790,8 +1846,8 @@ def phase_bf16_kernels(gen) -> dict:
             f"op_bound_us={t['ops_ms'] * 1e3:.3f}")
     for src, marker in ((dcnv3.SOURCE, "13__nv_bfloat16Li8E"),
                         (dcnv3.BWD_SOURCE, "13__nv_bfloat16Li8E")):
-        log("bf16 kernels", f"{src} bf16 Cg=8 registers: "
-            f"{registers(src, marker)}")
+        log("bf16 kernels", f"{src} bf16 Cg=8: "
+            f"{registers_text(registers(src, marker))}")
     rec.update(worst)
     return rec
 

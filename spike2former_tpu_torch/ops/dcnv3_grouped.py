@@ -45,8 +45,9 @@ module; the JAX package's model path uses K1 and K2 only.
 
 Both kernels stage a group's map in shared memory: a block owns one
 (image, group) and a band of its output pixels.  ``grouped_tile_plan``
-chooses the tile from the shapes (a plain function, so the CPU tests reach
-it).
+chooses the tile from the shapes and the features' dtype (a plain
+function, so the CPU tests reach it): the bf16 forward stages the map as
+bf16 and keeps a table of each thread's point terms beside it.
 """
 from __future__ import annotations
 
@@ -64,6 +65,9 @@ from .dcnv3 import (CHANNELS_PER_GROUP, FEATURE_DTYPES, GROUPED_BWD_SOURCE,
 LAYOUTS = ("gchw", "ghwc")
 # shared memory a block of either kernel may stage: two blocks an SM
 GROUPED_SMEM_BYTES = SMEM_BYTES // 2
+# the bf16 forward's point table, bytes a thread: 3 words (y0, the rounded
+# row weights, fx) of each of 9 points (kFields, kPoints in the source)
+POINT_TABLE_BYTES = 3 * 9 * 4
 
 
 class GroupedPlan(NamedTuple):
@@ -76,10 +80,13 @@ class GroupedPlan(NamedTuple):
     rows: int
     halo: int
 
-    def smem_bytes(self, w: int, cg: int, backward: bool) -> int:
-        """The staged rows: the forward's padded pixel stride, or the
-        backward's channels and the accumulator of its shared ones."""
-        return _grouped_pixel_floats(cg, backward) * self.rows * w * 4
+    def smem_bytes(self, w: int, cg: int, backward: bool,
+                   dtype: torch.dtype = torch.float32) -> int:
+        """The staged rows (the forward's padded pixel stride, or the
+        backward's channels and the accumulator of its shared ones) and
+        the bf16 forward's point table."""
+        return (_grouped_pixel_bytes(cg, backward, dtype) * self.rows * w
+                + _point_table_bytes(cg, backward, dtype))
 
     def whole(self, h: int) -> bool:
         """One block owns the group's whole map: the backward then stores
@@ -87,42 +94,65 @@ class GroupedPlan(NamedTuple):
         return self.bands == 1 and self.rows >= h
 
 
-def _grouped_pixel_floats(cg: int, backward: bool) -> int:
-    """Shared floats a staged pixel takes (the kernels' smem)."""
+def _grouped_pixel_bytes(cg: int, backward: bool,
+                         dtype: torch.dtype = torch.float32) -> int:
+    """Shared bytes a staged pixel takes (the kernels' smem): f32 but for
+    the bf16 forward, which stages bf16 with the pixel stride padded to an
+    odd number of 16-byte quads from Cg = 16 (tile_stride_bf16)."""
     if backward:
-        return cg + min(cg, SHARED_CHANNELS)
-    return _pixel_floats(1, cg, False)
+        return 4 * (cg + min(cg, SHARED_CHANNELS))
+    if dtype == torch.bfloat16:
+        return 2 * (cg if cg % 16 else cg + 8)
+    return 4 * _pixel_floats(1, cg, False)
 
 
-def _grouped_threads(cg: int, backward: bool) -> int:
-    """Threads a block at most (kThreads in the sources)."""
+def _grouped_threads(cg: int, backward: bool,
+                     dtype: torch.dtype = torch.float32) -> int:
+    """Threads a block at most (kThreads in the sources): the bf16
+    forward's blocks of 256 share an SM three at a time."""
+    if not backward and dtype == torch.bfloat16:
+        return 256
     threads = 256 if backward else 512
     return threads // 2 if cg >= 32 else threads
 
 
+def _point_table_bytes(cg: int, backward: bool, dtype: torch.dtype) -> int:
+    """The bf16 forward's point table, sized for a block of
+    ``_grouped_threads``; none for the other kernels."""
+    if backward or dtype != torch.bfloat16:
+        return 0
+    return POINT_TABLE_BYTES * _grouped_threads(cg, backward, dtype)
+
+
 @functools.cache
 def grouped_tile_plan(n: int, h: int, w: int, howo: int, g: int, cg: int,
-                      *, backward: bool) -> GroupedPlan:
+                      *, backward: bool, dtype: torch.dtype = torch.float32
+                      ) -> GroupedPlan:
     """Choose the tile of the grouped forward (``backward`` False) or
-    backward for feat [N, G, H, W*Cg] and HoWo output pixels.
+    backward for feat [N, G, H, W*Cg] of ``dtype`` and HoWo output pixels.
 
     A block takes one output column a thread, so a group's columns go in
     bands of at most ``_grouped_threads``; the forward, with fewer
     (image, group) pairs than SMs, takes more bands, so that every SM
-    works.  Each block stages its group's whole map when it fits
-    ``GROUPED_SMEM_BYTES`` (the flagship's 32x32 at Cg=8: 48 KB either
-    way); a map that does not is staged in bands of rows with halos, more
-    bands until the rows fit, then fewer halo rows, then nothing
-    (``_banded``, as K1's and K2's ``tile_plan``).  A single band that
-    stages the whole map owns it: the backward then stores dfeat without
-    atomics or zero-fill.  Plans are kept per shape: the wrappers ask on
-    every launch."""
-    bands = math.ceil(howo / _grouped_threads(cg, backward))
+    works: a block an SM for the f32 form, two for the bf16 forms, whose
+    blocks of 256 share an SM (at the serve shape 8 bands beat the 6 of
+    one block an SM: ``profile_grouped.py``, PERF.md §6).  Each block
+    stages its group's whole map when it fits ``GROUPED_SMEM_BYTES`` (the
+    flagship's 32x32 at Cg=8: 48 KB either way in f32; the bf16 forward's
+    bf16 map 16 KB beside its 27 KB point table);
+    a map that does not is staged in bands of rows with halos, more bands
+    until the rows fit, then fewer halo rows, then nothing (``_banded``,
+    as K1's and K2's ``tile_plan``).  A single band that stages the whole
+    map owns it: the backward then stores dfeat without atomics or
+    zero-fill.  The backward's plan does not depend on ``dtype``.  Plans
+    are kept per shape: the wrappers ask on every launch."""
+    bands = math.ceil(howo / _grouped_threads(cg, backward, dtype))
     if not backward:
-        bands = max(bands, NUM_SMS // (n * g))
+        per_sm = 2 if dtype == torch.bfloat16 else 1
+        bands = max(bands, per_sm * NUM_SMS // (n * g))
     bands = max(1, min(h, howo, bands))
-    fit = min(h, GROUPED_SMEM_BYTES
-              // (_grouped_pixel_floats(cg, backward) * w * 4))
+    fit = min(h, (GROUPED_SMEM_BYTES - _point_table_bytes(cg, backward, dtype))
+              // (_grouped_pixel_bytes(cg, backward, dtype) * w))
     if fit >= h:
         return GroupedPlan(bands, h, 0)
     return GroupedPlan(*_banded(h, howo, max(bands, min(2, howo)), fit))
@@ -348,7 +378,7 @@ class _GroupedSample:
         howo = py.shape[3]
         shape = (n, g, cg, howo) if out_layout == "gchw" else (n, g, howo, cg)
         plan = grouped_tile_plan(n, s.h_in, s.w_in, howo, g, cg,
-                                 backward=False)
+                                 backward=False, dtype=feat.dtype)
         out = torch.empty(shape, dtype=feat.dtype, device=feat.device)
         bf16 = feat.dtype == torch.bfloat16
         _launch(GROUPED_SOURCE, (feat, py, px, mask, out),

@@ -8,9 +8,11 @@ Cg=8, P=9, f32; coordinates about 3 px off their 3x3 grid, as
 (``csrc/dcnv3_sample_grouped.cu``, gchw) and backward
 (``csrc/dcnv3_sample_grouped_bwd.cu``) under ``grouped_tile_plan``'s plan
 and under other band counts of a whole staged map, beside K1 and K2 on the
-same data, each with a warm L2, in turns (plan, sweep, plan).  Each line is
-one JSON object; the first names the card and its power limit.  It exits
-non-zero without a card.
+same data, and the forward's bf16 form (the features rounded to bf16,
+K3's column rounding) under its own plan and the same band counts, each
+with a warm L2, in turns (plan, sweep, plan).  Each line is one JSON
+object; the first names the card and its power limit.  It exits non-zero
+without a card.
 """
 from __future__ import annotations
 
@@ -73,9 +75,11 @@ def _inputs(n, h, w, gen):
 
 def _forward(grouped, plan, n, h, w):
     feat, py, px, mask, _ = grouped
-    out = torch.empty((n, G, CG, h * w), device="cuda")
+    out = torch.empty((n, G, CG, h * w), dtype=feat.dtype, device="cuda")
+    bf16 = (1,) if feat.dtype == torch.bfloat16 else ()   # round_cols
     dcnv3._launch(dcnv3.GROUPED_SOURCE, (feat, py, px, mask, out),
-                  (n, h * w, G, P, h, w, CG, *plan, 1, feat.device.index))
+                  (n, h * w, G, P, h, w, CG, *plan, 1, *bf16,
+                   feat.device.index))
     return out
 
 
@@ -127,6 +131,21 @@ def main() -> int:
                 lambda: _backward(grouped, plan, n, h, w))
             row[f"max_diff[bands={bands}]"] = max(
                 float(err), *(float(e) for e in errs))
+        half = [grouped[0].bfloat16(), *grouped[1:]]
+        bf16_plan = grouped_tile_plan(n, h, w, h * w, G, CG, backward=False,
+                                      dtype=torch.bfloat16)
+        want_h = _forward(half, bf16_plan, n, h, w)
+        row["bf16_forward_plan"] = bf16_plan
+        row["bf16_forward_ms"] = [_ms(lambda: _forward(half, bf16_plan, n,
+                                                       h, w))]
+        for bands in BANDS:
+            plan = GroupedPlan(bands, h, 0)
+            same = torch.equal(_forward(half, plan, n, h, w), want_h)
+            row[f"bf16_forward_ms[bands={bands}]"] = _ms(
+                lambda: _forward(half, plan, n, h, w))
+            row[f"bf16_equal[bands={bands}]"] = same
+        row["bf16_forward_ms"].append(_ms(lambda: _forward(
+            half, bf16_plan, n, h, w)))
         row["forward_ms"].append(_ms(lambda: _forward(grouped, fwd_plan, n,
                                                       h, w)))
         row["backward_ms"].append(_ms(lambda: _backward(grouped, bwd_plan,

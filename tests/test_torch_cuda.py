@@ -398,6 +398,24 @@ def test_grouped_bf16_kernel_matches_plain(cuda, cg, layout,
     assert _within_one_bf16_ulp(got.cpu(), want)
 
 
+@pytest.mark.parametrize("layout", ["gchw", "ghwc"])
+@pytest.mark.parametrize("p", [1, 4, 16, 25])
+def test_grouped_bf16_kernel_any_points(cuda, p, layout):
+    """The bf16 grouped forward at other point counts than the flagship's
+    9 against its plain version within one bf16 ulp: up to 9 points it
+    sorts the taps in registers, beyond that it walks point by point."""
+    (feat, py, px, mask, _), static = _grouped_case(
+        torch.Generator().manual_seed(90 + p), 8, p=p)
+    feat = feat.bfloat16()
+    kw = dict(**static, out_layout=layout, round_columns=True)
+    want = dcnv3_grouped.dcnv3_sample_grouped_reference(feat, py, px, mask,
+                                                        **kw)
+    got = dcnv3_grouped.dcnv3_sample_grouped(
+        *(t.to(cuda) for t in (feat, py, px, mask)), **kw)
+    torch.cuda.synchronize()
+    assert _within_one_bf16_ulp(got.cpu(), want)
+
+
 @pytest.mark.parametrize("cg", [1, 8, 32])
 def test_grouped_bf16_backward_kernel_matches_plain(cuda, cg):
     """The bf16 form of the grouped backward (K7's) against its plain

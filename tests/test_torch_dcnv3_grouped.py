@@ -41,6 +41,10 @@ CASES = {
     # K5 too at Cg = 16; K7 then carries dfeat from one tile to the next
     "tiled_cg8": (1, 1, 4, 32, 8, 9, 2048, "uniform"),
     "tiled_cg16": (1, 1, 4, 32, 16, 9, 2048, "uniform"),
+    # 2x2 and 5x5 points: the bf16 forward kernel sorts the taps of up to
+    # 9 points in registers and walks more point by point
+    "p4": (1, 2, 5, 6, 8, 4, 30, "uniform"),
+    "p25": (1, 2, 5, 6, 8, 25, 30, "uniform"),
 }
 
 

@@ -44,9 +44,13 @@ from test_torch_dcnv3_grouped import BACKWARD, FORWARD, _case, _interpret
 GRAD_TOL = 1e-5     # dpy, dpx, dmask: of the largest magnitude
 
 # a subset of test_torch_dcnv3_grouped.CASES: taps off the map, exact
-# integer coordinates, Cg = 1 and 8, two images and groups, and the shape
-# at which JAX tiles HoWo (K6 and K7 carry state from tile to tile)
-CASES = ("off_map", "zero_offsets", "cg1", "cg8", "n2_g2", "tiled_cg8")
+# integer coordinates, Cg = 1 and 8, two images and groups, the shape at
+# which JAX tiles HoWo (K6 and K7 carry state from tile to tile), and 4
+# and 25 points (the CUDA forward sorts up to 9 points' taps in registers
+# and walks more point by point; on the card it is held to the plain
+# version at those P)
+CASES = ("off_map", "zero_offsets", "cg1", "cg8", "n2_g2", "tiled_cg8",
+         "p4", "p25")
 
 
 def _bf16(a: np.ndarray) -> np.ndarray:
