@@ -261,6 +261,29 @@ bf16, DDD17 and the deformable modules (run after the FPN phases):
       Transformer-encoder and FPN pixel decoders at the flagship head's
       widths, card against CPU on the same seeded weights and inputs.
 
+Data-parallel training and the library modules of slice fifteen, run
+last:
+
+  (distributed) NCCL's all-reduce on one rank; the train CLI with
+      ``--distributed --num-processes 1`` (NCCL) at full width, batch 6 of
+      512x512, 3 iterations: its first line, finite logged losses, K1 and
+      K2 6 launches an iteration, each call held to its plain version,
+      s/iter; then two ranks over gloo on the one card (this script run
+      as ``--ddp-worker``), one row each of global batches of 2, against
+      this process taking the whole batches, for the tiny model at 64x64
+      (every metric within 2e-4 relative, the parameters' fingerprint
+      within 2e-5) and the flagship at full width at 128x128 (the gap
+      reported: one flipped q8 level moves its losses by percents); the
+      ranks' metrics and parameters bitwise equal, K1/K2 6 launches a
+      step on each rank;
+  (library) on the card against a CPU copy with the same seeded weights
+      and inputs: ``SpikeformerDecoderLayer`` (256 channels, 8 heads, 100
+      queries, T=4, 64x64 keys), ``QueryProposal`` (150 classes, 100
+      queries, 128x128), ``CycleBlock`` (dim 256), the three spiking RNNs,
+      an ANN->SNN conversion at T=32 (calibration scales and outputs);
+      whether the native image runtime builds here, and where it does, its
+      decode and resize against PIL and ``F.interpolate``.
+
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero and prints no result; it also
@@ -285,7 +308,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spike2former_tpu_torch import api
+from PIL import Image
+
+from spike2former_tpu_torch import api, parallel
 from spike2former_tpu_torch.data.dataset import make_dataset
 from spike2former_tpu_torch.data.loader import TrainLoader
 from spike2former_tpu_torch.data.panoptic import PanopticDataset
@@ -3940,6 +3965,402 @@ def phase_deformable(smi: str) -> dict:
     return out
 
 
+# --- slice fifteen: data-parallel training and the library modules ----------
+
+DDP_ITERS = 3          # (distributed a): the one-rank NCCL train CLI
+DDP_STEPS = 2          # (distributed b): steps of each comparison
+DDP_RTOL = 2e-4        # each metric, two ranks against one process (tiny)
+DDP_FP_RTOL = 2e-5     # the parameters' fingerprint (tiny)
+DDP_TIMEOUT = 600      # seconds, for each rank's process
+# (distributed b)'s configurations: (overrides, crop, synthetic_batch's
+# keywords).  The tiny model (the host matcher; 4 queries, so at most 4
+# classes a crop) is held to the one-process step; at the flagship's
+# widths one element of the 128x128 step's million-element spike maps
+# lands within a last-bit BN rounding of a q8 step and flips, and the
+# flip moves the losses by up to a few percent (seen at half the widths
+# on the CPU: inputs 1e-6 apart, one flipped element of 1M in the pixel
+# decoder's ``output_spike_2``, ``tests/torch_ddp_divergence.py``), so
+# there the ranks are held to each other and the gap to one process is
+# reported
+DDP_CONFIGS = {
+    "tiny": ([f"model.{k}={v!r}".replace(" ", "") for k, v in TINY.items()]
+             + ["train.matcher='host'"], 64,
+             dict(num_classes=4, classes=(2, 4))),
+    "flagship": ([], 128, {}),
+}
+
+
+def ddp_worker(argv: list[str]) -> int:
+    """One rank of (distributed b), started as ``chip_smoke.py
+    --ddp-worker COORD PID NPROC OUT CONFIG``: joins a gloo group of
+    ``NPROC`` ranks on the one card, takes ``DDP_STEPS`` steps of
+    ``DDP_CONFIGS[CONFIG]`` on its rows of the global batches and saves
+    its metrics, K1/K2 launches and final state to ``OUT``."""
+    coord, pid, nproc, out, config = argv
+    pid, pcount = parallel.distributed_init(coord, int(nproc), int(pid),
+                                            backend="gloo")
+    try:
+        res = ddp_steps(pid, pcount, config)
+        torch.save(res, out)
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def ddp_steps(pid: int, pcount: int, config: str) -> dict:
+    """``DDP_STEPS`` steps of the flagship preset with the overrides of
+    ``DDP_CONFIGS[config]`` (weights from seed 0) on rank ``pid``'s rows
+    of global batches of 2 at its crop."""
+    overrides, crop, synth = DDP_CONFIGS[config]
+    tr = api.init_trainer(PRESET, overrides, seed=0)
+    rng = np.random.default_rng(7)
+    batches = [parallel.shard_batch(
+        synthetic_batch(rng, 2, (crop, crop), **synth), pid, pcount)
+        for _ in range(DDP_STEPS)]
+    torch.cuda.synchronize()
+    zero_launches()
+    metrics, ms = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        metrics += api.train_steps(tr, [batch])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return dict(metrics=metrics, launches=read_launches(), step_ms=ms,
+                dcn_layers=tr.cfg.model.num_encoder_layers,
+                state={k: v.detach().cpu()
+                       for k, v in tr.state.model.state_dict().items()})
+
+
+def phase_distributed(smi: str) -> dict:
+    """(distributed): (a) the train CLI with ``--distributed
+    --num-processes 1`` (NCCL, one rank) at full width, batch 6 of 512x512,
+    ``DDP_ITERS`` iterations, every K1/K2 call held to its plain version;
+    (b) two gloo ranks on the one card, one row each of global batches of
+    2, against this process taking the whole batches, for each of
+    ``DDP_CONFIGS`` (``ddp_compare``)."""
+    t0 = time.perf_counter()
+    # NCCL itself: one rank's all-reduce on the card
+    parallel.distributed_init(None, 1, 0, backend="nccl")
+    x = torch.arange(4.0, device="cuda")
+    torch.distributed.all_reduce(x)
+    check(x.tolist() == [0.0, 1.0, 2.0, 3.0], f"NCCL all-reduce {x}")
+    parallel.shutdown()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ade")
+        write_ade_tree(root, ADE_LIKE_SHAPES, seed=3, split="training")
+        wd = os.path.join(tmp, "wd")
+        store: dict = {}
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        with capture_dcn(store):
+            lines = run_cli(train_cli.main, [
+                PRESET, "--data-root", root, "--work-dir", wd,
+                "--log-interval", "1", "--eval-images", "0",
+                "--distributed", "--num-processes", "1", "--cfg-options",
+                f"train.total_iters={DDP_ITERS}",
+                "train.checkpoint_interval=0", "train.val_interval=0"],
+                "nccl", phase="distributed")
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        nccl_launches = read_launches()
+        check(lines[0] == "distributed: process 0/1, 1 global devices",
+              f"first line {lines[0]!r}")
+        check(not torch.distributed.is_initialized(),
+              "the CLI left its process group")
+        recs = [r for r in read_scalars(os.path.join(wd, "scalars.jsonl"))
+                if "total" in r]
+        check([r["step"] for r in recs] == list(range(1, DDP_ITERS + 1))
+              and all(np.isfinite(r["total"]) for r in recs),
+              f"logged {[(r['step'], r['total']) for r in recs]}")
+        check(nccl_launches["k1"] == 6 * DDP_ITERS
+              and nccl_launches["k2"] == 6 * DDP_ITERS,
+              f"one-rank CLI K1/K2 launches {nccl_launches['k1']}/"
+              f"{nccl_launches['k2']} for {DDP_ITERS} iterations")
+        held = hold_captured(store, "distributed", k1=6 * DDP_ITERS,
+                             k2=6 * DDP_ITERS)
+        del store
+        step_ms = [r["sec_per_iter"] * 1e3 for r in recs]
+        log("distributed", f"(a) one NCCL rank, train CLI at full width, "
+            f"batch 6 of 512x512: {cli_s:.1f}s for {DDP_ITERS} iterations, "
+            f"s/iter {[round(s, 1) for s in step_ms]} ms, K1/K2 launches "
+            f"{nccl_launches['k1']}/{nccl_launches['k2']} on {smi}")
+
+        gloo = {config: ddp_compare(config, tmp, smi)
+                for config in DDP_CONFIGS}
+    log("distributed", f"the phase took {time.perf_counter() - t0:.1f}s")
+    return dict(launches=[nccl_launches] + [
+                    n for g in gloo.values() for n in g["launches"]],
+                held=held, cli_step_ms=step_ms, gloo=gloo)
+
+
+def fmt_ms(times: list[float]) -> str:
+    return ", ".join(f"{t:.1f}" for t in times)
+
+
+def ddp_compare(tag: str, tmp: str, smi: str) -> dict:
+    """Two gloo ranks on the one card (this script as ``--ddp-worker``)
+    against this process on the whole global batches, for the
+    configuration ``tag`` of ``DDP_CONFIGS``: the ranks' metrics and
+    parameters bitwise equal and finite, K1/K2 one launch a DCN layer and
+    step on each;
+    for the tiny model every metric within ``DDP_RTOL`` and the
+    parameters' fingerprint within ``DDP_FP_RTOL`` of the one-process
+    step."""
+    coord = f"localhost:{parallel.free_port()}"
+    outs = [os.path.join(tmp, f"{tag}{i}.pt") for i in (0, 1)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+         coord, str(i), "2", outs[i], tag], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in (0, 1)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=DDP_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0])
+    for i, (p, out) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"gloo rank {i} failed:\n{out[-3000:]}")
+    # after the ranks, so that the timings do not share the card
+    single = ddp_steps(0, 1, tag)
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    worst, gaps = 0.0, []
+    for s, (want, got) in enumerate(zip(single["metrics"],
+                                        ranks[0]["metrics"])):
+        check(set(got) == set(want), f"metric keys {sorted(got)}")
+        for k, w in want.items():
+            check(bool(np.isfinite(got[k])), f"step {s} {k}: {got[k]}")
+            rel = abs(got[k] - w) / max(abs(w), 1e-6)
+            if abs(got[k] - w) > 1e-6:
+                worst = max(worst, rel)
+                gaps.append(f"step {s} {k} {got[k]:.7g}/{w:.7g}")
+    log("distributed", f"(b, {tag}) two ranks against one process: "
+        f"{'; '.join(gaps[:12]) or 'every metric equal'}")
+
+    check(ranks[0]["metrics"] == ranks[1]["metrics"],
+          f"{tag}: the ranks' metrics differ")
+    same = all(torch.equal(v, ranks[1]["state"][k])
+               for k, v in ranks[0]["state"].items())
+    check(same, f"{tag}: the ranks' parameters differ")
+
+    def fingerprint(state):
+        return sum(float(v.double().abs().sum()) for v in state.values())
+
+    fp_rel = abs(fingerprint(ranks[0]["state"])
+                 - fingerprint(single["state"])) / fingerprint(
+                     single["state"])
+    if tag == "tiny":
+        check(worst <= DDP_RTOL and fp_rel <= DDP_FP_RTOL,
+              f"{tag}: two ranks against one process: metrics {worst:.3g} "
+              f"(tol {DDP_RTOL}), fingerprint {fp_rel:.3g} (tol "
+              f"{DDP_FP_RTOL})")
+    for r in ranks + [single]:
+        n = r["dcn_layers"] * DDP_STEPS   # K1 and K2 once a DCN layer
+        check(r["launches"]["k1"] == n and r["launches"]["k2"] == n,
+              f"{tag}: K1/K2 launches {r['launches']}, expected {n} each")
+    crop = DDP_CONFIGS[tag][1]
+    log("distributed", f"(b, {tag}) two gloo ranks on one card, batch 1 "
+        f"each at {crop}x{crop}, against one process at batch 2: "
+        f"largest metric rel diff {worst:.3g}, parameter fingerprint rel "
+        f"diff {fp_rel:.3g}, ranks bitwise equal {same}; step ms (first, "
+        f"second) two ranks {fmt_ms(ranks[0]['step_ms'])} / "
+        f"{fmt_ms(ranks[1]['step_ms'])}, one process "
+        f"{fmt_ms(single['step_ms'])} on {smi}")
+    return dict(launches=[single["launches"],
+                          *(r["launches"] for r in ranks)],
+                worst=worst, fp_rel=fp_rel,
+                step_ms=[r["step_ms"] for r in ranks],
+                single_step_ms=single["step_ms"])
+
+
+LIB_TOL = 1e-4           # |card - CPU| <= LIB_TOL * (1 + |CPU|)
+LIB_AGREE = 1.0          # share of the elements within LIB_TOL
+# spiking modules at their full sizes: the float32 sums of thousands of
+# terms run in another order on the card, and a sum that lands on the
+# other side of a quantization step flips a spike level, which the next
+# layers spread; below, the same modules at small sizes are held at
+# LIB_SPIKE_AGREE
+LIB_FULL_AGREE = 0.8
+LIB_FULL_MEAN = 1e-2     # and mean|card - CPU| <= this * mean|CPU|
+LIB_SPIKE_AGREE = 0.999
+
+
+def hold_module(name: str, module: torch.nn.Module, args: tuple,
+                agree: float | None = None, train: bool = False) -> float:
+    """``module`` on the card against a CPU copy of it on the same inputs
+    (float32, TF32 off): every output finite, at least ``agree`` (by
+    default ``LIB_AGREE``) of the elements within ``LIB_TOL``, the mean
+    difference within ``LIB_FULL_MEAN`` of the mean magnitude; returns
+    the largest difference."""
+    agree = LIB_AGREE if agree is None else agree
+    cpu = copy.deepcopy(module).cpu().train(train)
+    card = module.cuda().train(train)
+
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        if isinstance(out, (tuple, list)):
+            return [t for o in out for t in flat(o)]
+        return []
+
+    with torch.no_grad(), f32_precision():
+        want = flat(cpu(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                          for a in args)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = flat(card(*(a.cuda() if isinstance(a, torch.Tensor) else a
+                          for a in args)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    worst, n, bad, total_d, total_w = 0.0, 0, 0, 0.0, 0.0
+    for g, w in zip(got, want):
+        g = g.float().cpu()
+        w = w.float()
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        n += d.numel()
+        bad += int((d > LIB_TOL * (1 + w.abs())).sum())
+        total_d += float(d.sum())
+        total_w += float(w.abs().sum())
+    share = 1.0 - bad / max(n, 1)
+    log("library", f"{name}: card vs CPU max|diff| {worst:.3g}, share "
+        f"within {LIB_TOL} {share:.6f} (need {agree}), mean|diff| / "
+        f"mean|CPU| {total_d / max(total_w, 1e-30):.3g}, {n} elements, "
+        f"card {ms:.1f} ms (first call)")
+    check(share >= agree, f"{name}: {share:.6f} of the outputs within "
+          f"{LIB_TOL} < {agree}")
+    check(total_d <= LIB_FULL_MEAN * total_w, f"{name}: mean|diff| "
+          f"{total_d / max(total_w, 1e-30):.3g} of mean|CPU|")
+    return worst
+
+
+def phase_library(smi: str) -> dict:
+    """(library): each module this slice adds, built with weights from
+    seed 0 (``engine/weights.py``), on the card against a CPU copy on the
+    same seeded inputs; then the native runtime."""
+    from spike2former_tpu_torch import runtime
+    from spike2former_tpu_torch.ann2snn import AnnSequential, Converter
+    from spike2former_tpu_torch.models.cyclemlp import CycleBlock
+    from spike2former_tpu_torch.models.spikeformer_lib import (
+        QueryProposal, SpikeformerDecoderLayer)
+    from spike2former_tpu_torch.ops.rnn import (SpikingGRU, SpikingLSTM,
+                                                SpikingVanillaRNN)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    errs = {}
+
+    def decoder_layer(keys, queries=100):
+        layer = randomize_(SpikeformerDecoderLayer(256, 8, 1024), 0)
+        return layer, (randn(4, 1, queries, 256, scale=2.0),
+                       randn(4, 1, keys, 256, scale=2.0),
+                       randn(4, 1, queries, 256), randn(4, 1, keys, 256))
+
+    def proposal(hw, queries=100):
+        qp = randomize_(QueryProposal(256, num_queries=queries,
+                                      num_classes=150), 0)
+        return qp, (randn(2, hw, hw, 256, scale=2.0),
+                    randn(1, hw, hw, 256), True)
+
+    def rnn(cls, t, b):
+        return randomize_(cls(256, 256), 0), (randn(t, b, 256),)
+
+    spiking = [
+        ("SpikeformerDecoderLayer (256 ch, 8 heads, 100 queries, T=4, "
+         "64x64 keys)", *decoder_layer(64 * 64), LIB_FULL_AGREE),
+        ("SpikeformerDecoderLayer (16 queries, 4x4 keys)",
+         *decoder_layer(16, 16), LIB_SPIKE_AGREE),
+        ("QueryProposal (150 classes, 100 queries, 128x128)",
+         *proposal(128), LIB_FULL_AGREE),
+        ("QueryProposal (150 classes, 10 queries, 8x8)", *proposal(8, 10),
+         LIB_SPIKE_AGREE)]
+    for cls in (SpikingLSTM, SpikingGRU, SpikingVanillaRNN):
+        spiking += [
+            (f"{cls.__name__} (256 -> 256, T=16, batch 32)",
+             *rnn(cls, 16, 32), LIB_FULL_AGREE),
+            (f"{cls.__name__} (T=4, batch 2)", *rnn(cls, 4, 2),
+             LIB_SPIKE_AGREE)]
+    for name, module, args, agree in spiking:
+        errs[name.split(" (")[0] + ("" if agree == LIB_FULL_AGREE
+                                    else " small")] = hold_module(
+            name, module, args, agree=agree)
+    errs["CycleBlock"] = hold_module(
+        "CycleBlock (dim 256)", randomize_(CycleBlock(256), 0),
+        (randn(2, 32, 32, 256),))
+
+    # ANN->SNN: calibrate on the card and on the CPU, the SNN at T=32
+    def ann():
+        torch.manual_seed(0)
+        return AnnSequential((
+            torch.nn.Conv2d(3, 64, 3, padding=1), "relu",
+            torch.nn.Conv2d(64, 128, 3, stride=2, padding=1), "relu",
+            lambda x: x.mean((1, 2)), torch.nn.Linear(128, 10)))
+
+    calib = [torch.rand((16, 32, 32, 3), generator=gen) for _ in range(2)]
+    x = torch.rand((16, 32, 32, 3), generator=gen)
+    with torch.no_grad(), f32_precision():
+        snn_c, scales_c = Converter("99.9%").convert(ann(), calib, t=32)
+        snn_g, scales_g = Converter("99.9%").convert(
+            ann().cuda(), [c.cuda() for c in calib], t=32)
+        y_c, y_g = snn_c(x), snn_g(x.cuda()).cpu()
+    d = (y_g - y_c).abs()
+    share = float((d <= LIB_TOL * (1 + y_c.abs())).float().mean())
+    errs["ann2snn"] = float(d.max())
+    log("library", f"ANN->SNN (T=32, 99.9% scales): scales card "
+        f"{[round(s, 6) for s in scales_g]} CPU "
+        f"{[round(s, 6) for s in scales_c]}, outputs max|diff| "
+        f"{errs['ann2snn']:.3g}, share within {LIB_TOL} {share:.4f}")
+    check(np.allclose(scales_g, scales_c, rtol=1e-5)
+          and bool(torch.isfinite(y_g).all()) and share >= LIB_FULL_AGREE,
+          f"ANN->SNN card vs CPU: scales {scales_g} / {scales_c}, share "
+          f"{share}")
+
+    # the native image runtime: built here or not, as in the JAX package
+    if not runtime.available():
+        log("library", f"native runtime not available on this machine "
+            f"(the JAX package's contract: every function returns None): "
+            f"{(runtime.build_error() or '').splitlines()[:3]}")
+        check(runtime.decode_image("missing.png") is None,
+              "runtime without a library returned an array")
+        rt = False
+    else:
+        rng = np.random.default_rng(12)
+        with tempfile.TemporaryDirectory() as tmp:
+            img = rng.integers(0, 255, (37, 53, 3), np.uint8)
+            Image.fromarray(img).save(os.path.join(tmp, "x.png"))
+            Image.fromarray(img).save(os.path.join(tmp, "x.jpg"),
+                                      quality=95)
+            png = runtime.decode_image(os.path.join(tmp, "x.png"))
+            jpg = runtime.decode_image(os.path.join(tmp, "x.jpg"))
+            with Image.open(os.path.join(tmp, "x.jpg")) as im:
+                pil_jpg = np.asarray(im.convert("RGB"))
+        check(png is not None and np.array_equal(png, img),
+              "runtime PNG decode differs from the image PIL wrote")
+        jpg_gap = float(np.abs(jpg.astype(int) - pil_jpg.astype(int)).mean())
+        check(jpg_gap < 2.0, f"runtime JPEG decode vs PIL mean gap "
+              f"{jpg_gap}")
+        rs = runtime.resize_bilinear_u8(img, 80, 120).astype(np.float32)
+        ref = F.interpolate(
+            torch.from_numpy(img.astype(np.float32)).permute(2, 0, 1)[None],
+            size=(80, 120), mode="bilinear", align_corners=False
+        )[0].permute(1, 2, 0).numpy()
+        rs_gap = float(np.abs(rs - ref).max())
+        check(rs_gap <= 1.0, f"runtime bilinear resize gap {rs_gap}")
+        log("library", f"native runtime built: PNG decode equal to PIL's "
+            f"image, JPEG mean gap to PIL {jpg_gap:.3g}, bilinear resize "
+            f"max gap to F.interpolate {rs_gap:.3g}")
+        rt = True
+    log("library", f"the phase took {time.perf_counter() - t0:.1f}s on "
+        f"{smi}")
+    return dict(errs=errs, runtime=rt)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4075,6 +4496,12 @@ def main() -> int:
         f"against {fb['step_ms']['f32']:.3f}, peaks "
         f"{fb['step_peak']['bf16']:.3f} / {fb['step_peak']['f32']:.3f} GiB "
         f"on {smi}")
+    t_new = time.perf_counter()
+    dp = phase_distributed(smi)
+    torch.cuda.empty_cache()
+    lib = phase_library(smi)
+    log("library", f"(distributed) and (library) took "
+        f"{time.perf_counter() - t_new:.1f}s")
 
     # the main path's launches: serve, the three eval modes, the train
     # steps at the defaults, the overflow step, the host-matcher steps,
@@ -4095,7 +4522,7 @@ def main() -> int:
         *(var[n]["req_launches"] for n in VARIANTS),
         *(var[n]["launches"] for n in VARIANTS),
         fpn["launches"], fpn_train["launches"], *fam["launches"],
-        *fb["launches"], *dd["launches"]]
+        *fb["launches"], *dd["launches"], *dp["launches"]]
     k1_launches = s["launches"] + sum(p["k1"] for p in paths)
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
@@ -4125,10 +4552,12 @@ def main() -> int:
     k1_path_err = max(s["max_abs_err"], fi["held"]["k1"], tt["held"]["k1"],
                       pt["held"]["k1"], pr["k1_err"], sv["held"]["k1"],
                       *(v3[v]["held"]["k1"] for v in V3_PRESETS),
-                      *(var[n]["held"]["k1"] for n in VARIANTS))
+                      *(var[n]["held"]["k1"] for n in VARIANTS),
+                      dp["held"]["k1"])
     k2_path_err = max(pt["held"]["k2"], pr["k2_err"],
                       *(v3[v]["held"]["k2"] for v in V3_PRESETS),
-                      *(var[n]["held"]["k2"] for n in VARIANTS))
+                      *(var[n]["held"]["k2"] for n in VARIANTS),
+                      dp["held"]["k2"])
     kernels = [
         row("dcnv3_sample", dcnv3.SOURCE, "dcnv3_sample_pallas_t5",
             k1_launches, max(k["max_abs_err"], k1_path_err), k[1]),
@@ -4204,7 +4633,15 @@ def main() -> int:
         + f"; FPN family K1/K2: requests {fpn['launches']['k1']}/"
         f"{fpn['launches']['k2']}, steps {fpn_train['launches']['k1']}/"
         f"{fpn_train['launches']['k2']}, MS-ResNet-104, cascade, eval and "
-        f"train CLIs {[(n['k1'], n['k2']) for n in fam['launches']]}")
+        f"train CLIs {[(n['k1'], n['k2']) for n in fam['launches']]}; "
+        f"data-parallel K1/K2: the one-rank NCCL CLI, then for the tiny "
+        f"model and the flagship the one-process reference and the two "
+        f"gloo ranks "
+        f"{[(n['k1'], n['k2']) for n in dp['launches']]}; library modules "
+        f"card vs CPU max|diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in lib["errs"].items())
+        + f"; native runtime built: {lib['runtime']}")
+    log("total", f"chip_smoke took {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4214,4 +4651,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(sys.argv[2:]))
     sys.exit(main())

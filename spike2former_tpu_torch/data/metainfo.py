@@ -145,6 +145,11 @@ DDD17 = DatasetMeta(
     splits={"train": ("images/training", "annotations/training"),
             "val": ("images/validation", "annotations/validation")})
 
+def ade_palette() -> list[list[int]]:
+    """The fixed ADE20K palette (mmseg ade.py METAINFO)."""
+    return [list(c) for c in ADE20K_PALETTE]
+
+
 DATASETS = {d.name: d for d in (ADE20K, CITYSCAPES, VOC2012,
                                 COCO_STUFF_164K, PASCAL_CONTEXT,
                                 PASCAL_CONTEXT_59, SYNAPSE, DRIVE, CHASE_DB1,

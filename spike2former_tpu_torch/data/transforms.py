@@ -1,6 +1,8 @@
 """Host-side train and eval transforms (port of
 ``spike2former_tpu/data/transforms.py``: the loaders, the ADE20K train
-pipeline with ``mosaic``, and the test pipeline).
+pipeline with ``mosaic``, the test pipeline, and the extra transforms no
+pipeline calls: ``random_rotate``, ``random_rot_flip``, ``random_cutout``
+and ``clahe``).
 
 The active ADE20K train pipeline
 (configs/Spike2Former/SDTv2_maskformer_DCNpixelDecoder_ade20k.py:168-180):
@@ -223,6 +225,158 @@ def photometric_distortion(sample: Sample, rng: np.random.Generator,
     out = dict(sample)
     out["image"] = np.clip(img, 0, 255).astype(np.uint8)
     return out
+
+
+def random_rotate(sample: Sample, rng: np.random.Generator,
+                  prob: float = 0.5, degree: float = 20.0,
+                  pad_val: int = 0, seg_pad_val: int = 255) -> Sample:
+    """RandomRotate (mmseg transforms.py:338): rotate image (bilinear) and
+    seg map (nearest) by a uniform angle in [-degree, degree] around the
+    center, filling exposed borders with pad values."""
+    if rng.uniform() >= prob:
+        return sample
+    angle = float(rng.uniform(-degree, degree))
+    out = dict(sample)
+    img = Image.fromarray(sample["image"])
+    out["image"] = np.asarray(
+        img.rotate(angle, resample=Image.BILINEAR,
+                   fillcolor=(pad_val,) * 3))
+    seg = sample.get("sem_seg")
+    if seg is not None:
+        seg_im = Image.fromarray(seg.astype(np.int32), "I")
+        out["sem_seg"] = np.asarray(
+            seg_im.rotate(angle, resample=Image.NEAREST,
+                          fillcolor=seg_pad_val), np.int32)
+    return out
+
+
+def random_rot_flip(sample: Sample, rng: np.random.Generator,
+                    rotate_prob: float = 0.5, flip_prob: float = 0.5,
+                    degree: tuple[float, float] = (-20.0, 20.0),
+                    seg_pad_val: int = 255) -> Sample:
+    """RandomRotFlip (mmseg transforms.py:876, the Synapse medical
+    recipe): with ``rotate_prob`` do a free-angle rotation; otherwise,
+    with ``flip_prob``, do a rot90 by k∈{0..3} plus a flip along a
+    random axis (the reference only rot-flips when the rotation branch
+    did not fire)."""
+    if rng.uniform() < rotate_prob:
+        angle = float(rng.uniform(min(degree), max(degree)))
+        return _rotate_exact(sample, angle, seg_pad_val)
+    if rng.uniform() < flip_prob:
+        out = dict(sample)
+        k = int(rng.integers(0, 4))
+        axis = int(rng.integers(0, 2))
+        img = np.flip(np.rot90(sample["image"], k), axis=axis)
+        out["image"] = np.ascontiguousarray(img)
+        seg = sample.get("sem_seg")
+        if seg is not None:
+            out["sem_seg"] = np.ascontiguousarray(
+                np.flip(np.rot90(seg, k), axis=axis))
+        return out
+    return sample
+
+
+def _rotate_exact(sample: Sample, angle: float, seg_pad_val: int) -> Sample:
+    """Rotate by a fixed angle (asymmetric-degree-range support for
+    random_rot_flip)."""
+    out = dict(sample)
+    img = Image.fromarray(sample["image"])
+    out["image"] = np.asarray(
+        img.rotate(angle, resample=Image.BILINEAR, fillcolor=(0, 0, 0)))
+    seg = sample.get("sem_seg")
+    if seg is not None:
+        seg_im = Image.fromarray(seg.astype(np.int32), "I")
+        out["sem_seg"] = np.asarray(
+            seg_im.rotate(angle, resample=Image.NEAREST,
+                          fillcolor=seg_pad_val), np.int32)
+    return out
+
+
+def random_cutout(sample: Sample, rng: np.random.Generator,
+                  prob: float = 0.5, n_holes: tuple[int, int] = (1, 3),
+                  cutout_ratio: tuple[float, float] = (0.1, 0.3),
+                  fill_in: tuple[int, int, int] = (0, 0, 0),
+                  seg_fill_in: int | None = 255) -> Sample:
+    """RandomCutOut (mmseg transforms.py RandomCutOut): erase 1-3 random
+    rectangles, filling the image with ``fill_in`` and (optionally) the
+    seg map with ignore."""
+    if rng.uniform() >= prob:
+        return sample
+    out = dict(sample)
+    img = sample["image"].copy()
+    seg = (None if sample.get("sem_seg") is None
+           else sample["sem_seg"].copy())
+    h, w = img.shape[:2]
+    for _ in range(int(rng.integers(n_holes[0], n_holes[1] + 1))):
+        ch = int(h * rng.uniform(*cutout_ratio))
+        cw = int(w * rng.uniform(*cutout_ratio))
+        y0 = int(rng.integers(0, max(h - ch, 0) + 1))
+        x0 = int(rng.integers(0, max(w - cw, 0) + 1))
+        img[y0:y0 + ch, x0:x0 + cw] = fill_in
+        if seg is not None and seg_fill_in is not None:
+            seg[y0:y0 + ch, x0:x0 + cw] = seg_fill_in
+    out["image"] = img
+    if seg is not None:
+        out["sem_seg"] = seg
+    return out
+
+
+def clahe(sample: Sample, clip_limit: float = 40.0,
+          tile_grid_size: tuple[int, int] = (8, 8)) -> Sample:
+    """CLAHE (mmseg transforms.py CLAHE / cv2.createCLAHE semantics):
+    per-channel contrast-limited adaptive histogram equalization —
+    per-tile clipped histograms with uniform redistribution of the
+    excess, bilinear interpolation of the tile mappings."""
+    img = sample["image"]
+    th, tw = tile_grid_size
+    h, w = img.shape[:2]
+    out = np.empty_like(img)
+    # tile boundaries (cv2 uses ceil-division tile sizes)
+    ys = np.linspace(0, h, th + 1).astype(int)
+    xs = np.linspace(0, w, tw + 1).astype(int)
+    # tile centers for interpolation
+    cy = (ys[:-1] + ys[1:]) / 2.0
+    cx = (xs[:-1] + xs[1:]) / 2.0
+
+    for c in range(img.shape[2]):
+        chan = img[..., c]
+        # per-tile clipped-equalization LUTs [th, tw, 256]
+        luts = np.empty((th, tw, 256), np.float32)
+        for i in range(th):
+            for j in range(tw):
+                tile = chan[ys[i]:ys[i + 1], xs[j]:xs[j + 1]]
+                hist = np.bincount(tile.reshape(-1), minlength=256
+                                   ).astype(np.float64)
+                n = tile.size
+                # cv2 scales clip_limit by tile_area/256
+                clip = max(clip_limit * n / 256.0, 1.0)
+                excess = np.clip(hist - clip, 0, None).sum()
+                hist = np.minimum(hist, clip) + excess / 256.0
+                cdf = hist.cumsum()
+                luts[i, j] = cdf / max(cdf[-1], 1.0) * 255.0
+
+        # bilinear interpolation of LUT outputs between tile centers
+        yy = np.arange(h, dtype=np.float64)
+        xx = np.arange(w, dtype=np.float64)
+        iy = np.clip(np.searchsorted(cy, yy) - 1, 0, th - 2)
+        ix = np.clip(np.searchsorted(cx, xx) - 1, 0, tw - 2)
+        fy = np.clip((yy - cy[iy]) / np.maximum(cy[iy + 1] - cy[iy], 1e-9),
+                     0.0, 1.0)[:, None]
+        fx = np.clip((xx - cx[ix]) / np.maximum(cx[ix + 1] - cx[ix], 1e-9),
+                     0.0, 1.0)[None, :]
+        iyg = iy[:, None]
+        ixg = ix[None, :]
+        v00 = luts[iyg, ixg, chan]
+        v01 = luts[iyg, ixg + 1, chan]
+        v10 = luts[iyg + 1, ixg, chan]
+        v11 = luts[iyg + 1, ixg + 1, chan]
+        val = ((1 - fy) * (1 - fx) * v00 + (1 - fy) * fx * v01
+               + fy * (1 - fx) * v10 + fy * fx * v11)
+        out[..., c] = np.clip(np.rint(val), 0, 255).astype(np.uint8)
+
+    res = dict(sample)
+    res["image"] = out
+    return res
 
 
 def mosaic(samples: list[Sample], rng: np.random.Generator,

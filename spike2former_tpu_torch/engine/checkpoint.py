@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from .convert import from_jax_variables
-from .convert_reference import convert_spike2former
+from .convert_reference import (convert_sdtv2_backbone,
+                                convert_sdtv3_backbone, convert_spike2former)
 
 if TYPE_CHECKING:
     from .train import TrainState
@@ -232,6 +233,33 @@ def load_torch_state_dict_raw(path: str) -> dict[str, np.ndarray]:
                              "not a tensor")
         out[k] = v.detach().numpy() if hasattr(v, "detach") else np.asarray(v)
     return out
+
+
+def load_reference_backbone(path: str, state_dict: dict[str, torch.Tensor],
+                            depths_stage3: int = 6, depths_stage4: int = 2,
+                            variant: str = "sdtv2"
+                            ) -> dict[str, torch.Tensor]:
+    """A reference checkpoint's backbone (the init_cfg Pretrained flow,
+    sdtv2.py:577-612) in a port model's ``state_dict``: the
+    ``backbone.*`` entries of a copy of ``state_dict`` replaced by the
+    checkpoint's (its ``backbone.`` prefix stripped when present),
+    carried over by ``convert_sdtv2_backbone`` or
+    ``convert_sdtv3_backbone`` (``variant`` 'sdtv3' or 'sdtv3mae').  The
+    backbone's keys must be the model's exactly."""
+    sd = {(k[len("backbone."):] if k.startswith("backbone.") else k): v
+          for k, v in load_torch_state_dict_raw(path).items()}
+    if variant == "sdtv2":
+        tree = convert_sdtv2_backbone(sd, depths_stage3, depths_stage4)
+    else:
+        tree = convert_sdtv3_backbone(sd, depths_stage3, depths_stage4,
+                                      mae=variant == "sdtv3mae")
+    backbone = {f"backbone.{k}": v
+                for k, v in from_jax_variables(tree).items()}
+    have = {k for k in state_dict if k.startswith("backbone.")}
+    if have != set(backbone):
+        raise KeyError(f"backbone keys differ: "
+                       f"{sorted(have ^ set(backbone))[:8]}")
+    return dict(state_dict, **backbone)
 
 
 def load_reference_model(path: str, *, variant: str = "sdtv2",

@@ -23,16 +23,28 @@ And so do the deformable encoder (``layer_<i>/gamma1``, ``gamma2``,
 token convs + BN, ``ffn``) and the Transformer and FPN pixel decoders
 (``encoder_attn_<i>``, ``encoder_ffn_<i>``, ``last_feat_conv``,
 ``output_<i>``, beside the DCN decoder's names).
+
+The library modules map the same way: a flax ``nn.LayerNorm``'s
+``scale`` becomes the torch LayerNorm's ``weight`` (the modules named
+``norm1``/``norm2`` in CycleMLP, ``query_norm`` in PEM cross-attention,
+and flax's own ``LayerNorm_<i>``); plain parameters (``alpha``,
+``gamma1``-``gamma3``, the spiking RNNs' ``hh_kernel`` [H, G*H] and
+``hh_bias``) carry across as they are; the RNNs' ``linear_ih`` Dense
+layers and an ``AnnSequential``'s auto-named ``layers_<i>`` (Dense or
+Conv) as above.
 Load the result with ``model.load_state_dict(sd, strict=True)``.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Iterator, Mapping
 
 import numpy as np
 import torch
 
 BN_LEAVES = ("scale", "bias", "mean", "var")
+# flax nn.LayerNorm modules of the JAX package, by name
+LAYER_NORM = re.compile(r"LayerNorm_\d+|norm\d+|query_norm")
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple, Any]]:
@@ -57,6 +69,8 @@ def from_jax_variables(variables: Mapping[str, Any]
                 mods = mods[:-1]
             # a copy: arrays a JAX step hands back are read-only
             arr = np.array(leaf, dtype=np.float32)
+            if name == "scale" and mods and LAYER_NORM.fullmatch(mods[-1]):
+                name = "weight"
             if name == "kernel":
                 name = "weight"
                 arr = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4

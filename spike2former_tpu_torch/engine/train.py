@@ -13,6 +13,15 @@ matcher), CE + focal + dice, backward (through the DCNv3 backward kernel
 on the card), global-norm clipping and the grouped AdamW update.  Unlike
 the JAX step, which returns a new state, the step updates the model and
 optimizer in place.
+
+Where a process group of more than one rank exists, each step is one
+data-parallel step of the global batch, every rank taking its own rows
+(``parallel/mesh.py``): the BN statistics, loss normalizers, point and
+dropout draws and logged metrics are the global batch's, the gradients
+are summed over the ranks before the clip, and after the step every
+rank holds the same parameters.  The FPN family's pixel losses run on
+the gathered logits, the same on every rank.  With ``accum_steps > 1``
+the global microbatch ``m`` is every rank's ``m``-th chunk.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ from ..losses.pixel import build_pixel_loss, pixel_accuracy
 from ..losses.point_sample import Draw, uniform_draw
 from ..models.fpn import Dropout
 from ..models.segmentor import preprocess
+from ..parallel.mesh import (all_reduce_grads, all_reduce_metrics,
+                             gather_rows, global_batch, global_draw)
 from .config import (Config, TrainConfig, build_model, compute_dtype,
                      get_config)
 from .optim import AdamW
@@ -111,6 +122,11 @@ def _step_fn(gt_of: Callable[..., GroundTruth], loss_kw: dict,
 
     def train_step(state: TrainState, images: torch.Tensor,
                    *targets: torch.Tensor):
+        with global_batch():
+            return _train_step(state, images, *targets)
+
+    def _train_step(state: TrainState, images: torch.Tensor,
+                    *targets: torch.Tensor):
         model = state.model.train()
         b = images.shape[0]
         if b % accum_steps:
@@ -123,14 +139,17 @@ def _step_fn(gt_of: Callable[..., GroundTruth], loss_kw: dict,
         for m, im in enumerate(images.chunk(accum_steps)):
             draw = None
             if num_points:
-                draw = (point_draw(state.step, m) if point_draw else
-                        uniform_draw(point_generator(seed, state.step, m,
-                                                     im.device)))
+                draw = global_draw(
+                    point_draw(state.step, m) if point_draw else
+                    uniform_draw(point_generator(seed, state.step, m,
+                                                 im.device)))
             per_mb.append(microbatch(model, im, [c[m] for c in chunks],
                                      draw))
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                    for k in per_mb[0]}
+        metrics = all_reduce_metrics(metrics)
         with record_function("optimizer"):
+            all_reduce_grads(model.parameters())
             metrics["grad_norm"] = state.optimizer.step()
         state.step += 1
         return state, metrics
@@ -255,13 +274,18 @@ def make_train_step_fpn(loss_decode=(("ce", 1.0),), seed: int = 0,
 
     def train_step(state: TrainState, images: torch.Tensor,
                    sem_seg: torch.Tensor):
+        with global_batch():
+            return _train_step(state, images, sem_seg)
+
+    def _train_step(state: TrainState, images: torch.Tensor,
+                    sem_seg: torch.Tensor):
         model = state.model.train()
         for p in model.parameters():
             p.grad = None
         drops = [m for m in model.modules() if isinstance(m, Dropout)]
         draw = draw_of(state.step, images.device)
         for m in drops:
-            m.draw = draw
+            m.draw = global_draw(draw, m.batch_axis)
         try:
             with record_function("forward"):
                 logits = model(preprocess(images))
@@ -269,6 +293,13 @@ def make_train_step_fpn(loss_decode=(("ce", 1.0),), seed: int = 0,
             for m in drops:
                 m.draw = None
         with record_function("pixel_loss"):
+            # the global batch's logits and labels on every rank: the
+            # losses' means, sorts and OHEM thresholds are the batch's
+            sem_seg = gather_rows(sem_seg)
+            if isinstance(logits, (list, tuple)):
+                logits = [gather_rows(stage) for stage in logits]
+            else:
+                logits = gather_rows(logits)
             if isinstance(logits, (list, tuple)):
                 total, metrics = torch.zeros((), device=images.device), {}
                 for i, stage in enumerate(logits):
@@ -286,6 +317,7 @@ def make_train_step_fpn(loss_decode=(("ce", 1.0),), seed: int = 0,
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total"] = total.detach()
         with record_function("optimizer"):
+            all_reduce_grads(model.parameters())
             metrics["grad_norm"] = state.optimizer.step()
         state.step += 1
         return state, metrics

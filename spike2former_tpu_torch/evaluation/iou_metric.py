@@ -1,5 +1,5 @@
-"""The IoU metric on the host (port of ``init_iou``, ``update_iou_np`` and
-``compute_iou`` of ``spike2former_tpu/evaluation/iou_metric.py``;
+"""The IoU metric (port of ``init_iou``, ``update_iou``, ``update_iou_np``
+and ``compute_iou`` of ``spike2former_tpu/evaluation/iou_metric.py``;
 reference: mmseg/evaluation/metrics/iou_metric.py:19-286): per-class
 intersection, union, prediction and label areas summed over the dataset,
 then mIoU, mAcc and aAcc."""
@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class IoUState(NamedTuple):
@@ -44,6 +45,32 @@ def update_iou_np(state: IoUState, pred: np.ndarray, label: np.ndarray,
         union=state.union + (area_p + area_l - area_i).astype(dt),
         pred_label=state.pred_label + area_p.astype(dt),
         label=state.label + area_l.astype(dt))
+
+
+def update_iou(state: IoUState, pred: torch.Tensor, label: torch.Tensor,
+               num_classes: int, ignore_index: int = 255) -> IoUState:
+    """``update_iou_np`` on tensors, on their device: pred and label [B,
+    H, W] int; the state's fields come back as float32 tensors there
+    (``compute_iou`` takes them once they are on the host)."""
+    valid = label != ignore_index
+    pred = torch.where(valid, pred, num_classes).long()
+    label = torch.where(valid, label, num_classes).long()
+
+    def hist(x):
+        return torch.bincount(x.reshape(-1), minlength=num_classes + 1
+                              )[:num_classes].float()
+
+    area_i = hist(torch.where(pred == label, pred, num_classes))
+    area_p, area_l = hist(pred), hist(label)
+
+    def acc(field, add):
+        return torch.as_tensor(field, dtype=torch.float32,
+                               device=add.device) + add
+
+    return IoUState(intersect=acc(state.intersect, area_i),
+                    union=acc(state.union, area_p + area_l - area_i),
+                    pred_label=acc(state.pred_label, area_p),
+                    label=acc(state.label, area_l))
 
 
 def compute_iou(state: IoUState) -> dict[str, np.ndarray | float]:

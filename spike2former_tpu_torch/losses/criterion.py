@@ -15,6 +15,12 @@ layer's ``[B, G, H, W]`` buffers are alive at a time.
 the JAX package; under the host matcher the GT axis stays at the full
 ``max_gt`` width.
 
+Inside ``parallel.global_batch()`` (a data-parallel step) the loss is
+each rank's share of the global batch's: ``num_total_masks`` and the
+class loss's weight sums are summed over the ranks, and the
+``compact_gt`` branch is taken where no rank's slot past it is valid, so
+the ranks' terms add up to the one-process loss of the whole batch.
+
 ``num_points > 0`` is the point-sampled Mask2Former recipe
 (``losses/point_sample.py``): the matching costs of each layer on one
 shared uniform point set per image, and the mask losses of each matched
@@ -37,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import resize_bilinear_hw, resize_nearest_torch
+from ..parallel.mesh import global_any, global_sum, synced
 from .losses import dice_loss, sigmoid_focal_loss, weighted_cross_entropy
 from .matcher import auction_match, hungarian_host, match_costs
 from .point_sample import (Draw, point_sample, point_sample_shared,
@@ -164,9 +171,10 @@ def classification_targets(matched_q: torch.Tensor, gt_labels: torch.Tensor,
 
 
 def _layer_loss(cls_scores, pred_at_gt, matched_q, gt: GroundTruth,
-                slot_ds, draws=None, *, num_classes: int, class_weight,
-                focal_weight: float, dice_weight: float, num_total_masks,
-                loss_at: str, point_cfg: tuple | None = None):
+                slot_ds, draws=None, cls_avg=None, *, num_classes: int,
+                class_weight, focal_weight: float, dice_weight: float,
+                num_total_masks, loss_at: str,
+                point_cfg: tuple | None = None):
     """Losses of one decoder layer, given its assignment.
 
     cls_scores [B, nq, K+1]; pred_at_gt [B, G, h, w] logits of the query
@@ -183,12 +191,15 @@ def _layer_loss(cls_scores, pred_at_gt, matched_q, gt: GroundTruth,
     the call so that the backward's recomputation sees the same): the
     ranking and the GT targets at bfloat16, the predictions at ``dtype``;
     dice over the points with ``avg_factor = num_total_masks`` and focal
-    with ``num_total_masks * num_points``."""
+    with ``num_total_masks * num_points``.  ``cls_avg`` is the class
+    loss's normalizer where it is not this call's weight sum (the global
+    batch's, under data parallelism)."""
     b, nq = cls_scores.shape[:2]
     g = gt.labels.shape[1]
     labels = classification_targets(matched_q, gt.labels, nq, num_classes)
     loss_cls = weighted_cross_entropy(
-        cls_scores.reshape(b * nq, -1), labels.reshape(-1), class_weight)
+        cls_scores.reshape(b * nq, -1), labels.reshape(-1), class_weight,
+        avg_factor=cls_avg)
     pair_w = (gt.valid & (matched_q >= 0)).float()       # [B, G]
     if point_cfg is not None:
         n_pts, osr, imp, pdt = point_cfg
@@ -228,18 +239,18 @@ def _layer_loss(cls_scores, pred_at_gt, matched_q, gt: GroundTruth,
 
 
 def _lazy_layer_loss(cls_scores, embeds_l, feats, matched_q, gt, slot_ds,
-                     draws=None, **kw):
+                     draws=None, cls_avg=None, **kw):
     safe_q = torch.where(matched_q >= 0, matched_q, 0)
     return _layer_loss(cls_scores, slot_logits(embeds_l, feats, safe_q),
-                       matched_q, gt, slot_ds, draws, **kw)
+                       matched_q, gt, slot_ds, draws, cls_avg, **kw)
 
 
 def _dense_layer_loss(cls_scores, masks_l, matched_q, gt, slot_ds,
-                      draws=None, **kw):
+                      draws=None, cls_avg=None, **kw):
     safe_q = torch.where(matched_q >= 0, matched_q, 0)
     idx = safe_q[:, :, None, None].expand(-1, -1, *masks_l.shape[-2:])
     return _layer_loss(cls_scores, masks_l.gather(1, idx), matched_q, gt,
-                       slot_ds, draws, **kw)
+                       slot_ds, draws, cls_avg, **kw)
 
 
 @torch.no_grad()
@@ -336,7 +347,7 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
         raise ValueError("num_points > 0 needs a draw of uniforms")
     gc = compact_gt
     if (gc and gc < gt.labels.shape[1] and matcher != "host"
-            and not bool(gt.valid[:, gc:].any())):
+            and not global_any(gt.valid[:, gc:].any())):
         small = GroundTruth(labels=gt.labels[:, :gc], valid=gt.valid[:, :gc],
                             dropped=gt.dropped,
                             slot_map=torch.clamp(gt.slot_map, max=gc))
@@ -350,7 +361,7 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
     dev = all_cls_scores.device
     class_weight = torch.tensor([1.0] * num_classes + [bg_class_weight],
                                 device=dev)
-    num_total = gt.valid.float().sum().clamp(min=1.0)
+    num_total = global_sum(gt.valid.float().sum()).clamp(min=1.0)
     num_layers = all_cls_scores.shape[0]
     lazy = isinstance(all_mask_preds, LazyMasks)
     h, w = (all_mask_preds.mask_hw if lazy else all_mask_preds.shape[-2:])
@@ -374,6 +385,15 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
         all_cls_scores, all_mask_preds, gt, slot_ds, matcher=matcher,
         focal_weight=focal_weight, dice_weight=dice_weight,
         point_coords=match_pts)
+    cls_avg = [None] * num_layers
+    if synced():
+        # the class loss's normalizers over the global batch, one
+        # all-reduce for every layer, outside the recomputed layer losses
+        nq = all_cls_scores.shape[2]
+        cls_avg = global_sum(torch.stack([
+            class_weight[classification_targets(
+                matched[li], gt.labels, nq, num_classes)].sum()
+            for li in range(num_layers)])).unbind()
     kw = dict(num_classes=num_classes, class_weight=class_weight,
               focal_weight=focal_weight, dice_weight=dice_weight,
               num_total_masks=num_total, loss_at=loss_at,
@@ -390,7 +410,7 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
         # recomputed in the backward: one layer's buffers alive at a time
         per_layer.append(checkpoint(
             fn, all_cls_scores[li], *mask_args, matched[li], gt, slot_ds,
-            draws, use_reentrant=False, **kw))
+            draws, cls_avg[li], use_reentrant=False, **kw))
     losses: dict[str, torch.Tensor] = {}
     for k, name in enumerate(("loss_cls", "loss_mask", "loss_dice")):
         losses[name] = per_layer[-1][k]

@@ -9,17 +9,20 @@ import torch
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            class_weight: torch.Tensor,
-                           sample_weight: torch.Tensor | None = None
+                           sample_weight: torch.Tensor | None = None,
+                           avg_factor: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """``F.cross_entropy(weight=class_weight)`` summed over
-    ``avg_factor = sum(class_weight[labels])``: logits [N, K+1], labels
-    [N]."""
+    ``avg_factor``, by default ``sum(class_weight[labels])``: logits
+    [N, K+1], labels [N]."""
     logp = torch.log_softmax(logits.float(), -1)
     nll = -logp.gather(-1, labels[:, None].long())[:, 0]
     w = class_weight[labels.long()]
     if sample_weight is not None:
         w = w * sample_weight
-    return (nll * w).sum() / w.sum().clamp(min=1e-12)
+    if avg_factor is None:
+        avg_factor = w.sum()
+    return (nll * w).sum() / avg_factor.clamp(min=1e-12)
 
 
 def focal_terms(pred: torch.Tensor, target: torch.Tensor,

@@ -50,6 +50,37 @@ def mask_cost_terms(mask_pred: torch.Tensor, alpha: float = 0.25,
     return p, nlogp * (alpha * qg), nlog1mp * ((1.0 - alpha) * pg)
 
 
+def focal_mask_cost(mask_pred: torch.Tensor, gt_masks: torch.Tensor,
+                    alpha: float = 0.25, gamma: float = 2.0,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """The sigmoid-focal mask cost: ``mask_cost_terms``' positive and
+    negative terms contracted with the GT masks and their complement, over
+    the pixel count.  mask_pred [nq, H, W] logits, gt_masks [G, H, W]
+    {0, 1} -> [nq, G]; the products take the logits' dtype and sum in
+    float32 (JAX matcher.py:75-92)."""
+    _, pos, neg = mask_cost_terms(mask_pred.reshape(mask_pred.shape[0], -1),
+                                  alpha, gamma, eps)
+    ct = pos.dtype
+    g = gt_masks.reshape(gt_masks.shape[0], -1).to(ct)
+    return ((pos.float() @ g.float().T) + (neg.float() @ (1 - g).float().T)
+            ) / pos.shape[1]
+
+
+def dice_mask_cost(mask_pred: torch.Tensor, gt_masks: torch.Tensor,
+                   eps: float = 1.0) -> torch.Tensor:
+    """The soft-dice cost of the sigmoided masks: [nq, H, W] x [G, H, W]
+    -> [nq, G] (JAX matcher.py:95-106)."""
+    nq = mask_pred.shape[0]
+    p = torch.sigmoid(mask_pred.float().reshape(nq, -1))
+    ct = (mask_pred.dtype if mask_pred.dtype in (torch.float32,
+                                                  torch.bfloat16)
+          else torch.float32)
+    g = gt_masks.reshape(gt_masks.shape[0], -1).to(ct)
+    num = 2 * (p.to(ct).float() @ g.float().T)
+    den = p.sum(1)[:, None] + g.float().sum(1)[None, :]
+    return 1.0 - (num + eps) / (den + eps)
+
+
 def match_costs(cls_logits: torch.Tensor, mask_pred: torch.Tensor,
                 gt_labels: torch.Tensor, gt_masks: torch.Tensor,
                 gt_valid: torch.Tensor, cls_weight: float = 1.0,

@@ -108,11 +108,13 @@ class Dropout(nn.Module):
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  It keeps
     where ``draw(shape, device)``'s uniforms in [0, 1) fall below
     ``1 - rate``; ``draw`` is set by the train step (``dropout_draw``), or
-    else torch's default generator draws."""
+    else torch's default generator draws.  ``batch_axis`` is the input's
+    batch axis, along which a data-parallel step's ranks split the draw
+    (1 for the heads' ``[T, B, ...]`` features)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, batch_axis: int = 1):
         super().__init__()
-        self.rate = rate
+        self.rate, self.batch_axis = rate, batch_axis
         self.draw: Callable | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import spike_op
 from ..ops.spike import multispike8, multispike_norm, qspike
+from ..parallel.mesh import batch_moments
 
 # kind -> (function, level D): a spike is k / D with k in 0..D, the packed
 # code of a spike-input site is k, and a site's firing rate is mean(y) * D
@@ -263,7 +264,9 @@ class BatchNorm(nn.Module):
     on a channel that is constant over the batch (a conv of all-zero
     spikes gives its bias) the one-pass form leaves f32 rounding noise of
     order ``bias^2 * 1e-7`` against ``eps = 1e-5``, which moves that
-    channel's gradient by up to a percent."""
+    channel's gradient by up to a percent.  Inside
+    ``parallel.global_batch()`` the statistics are the global batch's,
+    over every rank's rows (``parallel.batch_moments``)."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -276,8 +279,7 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         xf = x.float()
         if self.training:
-            var, mean = torch.var_mean(xf, tuple(range(x.dim() - 1)),
-                                       correction=0)
+            mean, var = batch_moments(xf)
             _update_running(self.mean, mean)
             _update_running(self.var, var)
         else:
@@ -310,7 +312,8 @@ class BNAndPad(nn.Module):
     updated running statistics are traced values of the batch's, so the
     pad value passes the batch statistics' gradient on (times ``1 -
     momentum``), where the reference's buffers pass none: the port follows
-    JAX."""
+    JAX.  Inside ``parallel.global_batch()`` the statistics are the global
+    batch's, as ``BatchNorm``'s."""
 
     def __init__(self, c: int, pad_pixels: int = 1, eps: float = 1e-5):
         super().__init__()
@@ -324,8 +327,7 @@ class BNAndPad(nn.Module):
         xf = x.float()
         ra_mean, ra_var = self.mean, self.var
         if self.training:
-            var, mean = torch.var_mean(xf, tuple(range(x.dim() - 1)),
-                                       correction=0)
+            mean, var = batch_moments(xf)
             _update_running(self.mean, mean)
             _update_running(self.var, var)
             # the updated statistics' values, with the batch's gradient

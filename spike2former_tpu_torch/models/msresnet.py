@@ -134,7 +134,8 @@ class MSResNet(nn.Module):
                 cin = features
         if num_classes > 0:
             self.Spike_0 = Spike(spike)
-            self.Dropout_0 = Dropout(0.2) if self.avgpool else None
+            self.Dropout_0 = (Dropout(0.2, batch_axis=0) if self.avgpool
+                              else None)
             self.fc = Linear(cin, num_classes, dtype=dtype)
 
     def forward(self, images: torch.Tensor, classify: bool = False):

@@ -106,6 +106,37 @@ def resize_bilinear_hw(x: torch.Tensor, out_hw: tuple[int, int]
     return y.reshape(*lead, *out_hw)
 
 
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]
+                                  ) -> torch.Tensor:
+    """Bilinear resize of ``[..., H, W, C]`` (channels-last) with
+    ``align_corners=True``: output pixel ``i`` samples input coordinate
+    ``i * (H - 1) / (oh - 1)`` (0 for a single output row), as JAX's
+    (resize.py:95-122)."""
+    *_, h, w, _ = x.shape
+    oh, ow = out_hw
+    dev = x.device
+
+    def grid(n_in, n_out):
+        if n_out == 1:
+            return torch.zeros(1, device=dev)
+        return torch.arange(n_out, dtype=torch.float32, device=dev) * (
+            (n_in - 1) / (n_out - 1))
+
+    ys, xs = grid(h, oh), grid(w, ow)
+    y0, x0 = ys.floor().long(), xs.floor().long()
+    y1, x1 = (y0 + 1).clamp(max=h - 1), (x0 + 1).clamp(max=w - 1)
+    wy = (ys - y0)[:, None, None]
+    wx = (xs - x0)[None, :, None]
+    ax = x.dim() - 3
+
+    def gather(yi, xi):
+        return x.index_select(ax, yi).index_select(ax + 1, xi)
+
+    top = gather(y0, x0) * (1 - wx) + gather(y0, x1) * wx
+    bot = gather(y1, x0) * (1 - wx) + gather(y1, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Resize ``[..., H, W, C]`` (channels-last)."""
     *lead, h, w, c = x.shape

@@ -67,3 +67,9 @@ def multispike8(x: torch.Tensor) -> torch.Tensor:
     """sdtv3MAE's ``Multispike``: ``floor(clamp(x, 0, 8) + 0.5) / 8``
     (round half up), gradient on the open interval ``0 < x < 8``."""
     return _MultiSpike8.apply(x)
+
+
+def spike_rate(y: torch.Tensor, d: float) -> torch.Tensor:
+    """The firing rate of a spike site's normalized output ``y`` at level
+    ``d``: ``mean(y) * d``, in float32 (tools/cal_firing_num.py:140-160)."""
+    return y.float().mean() * d

@@ -7,7 +7,8 @@ log and periodic val.
     python -m spike2former_tpu_torch.tools.train CONFIG --data-root DIR \\
         [--work-dir DIR] [--resume] [--cfg-options KEY=VALUE ...] \\
         [--log-interval N] [--eval-images N] [--vis-interval N] \\
-        [--device cpu]
+        [--device cpu] [--distributed --coordinator HOST:PORT \\
+         --num-processes N --process-id I]
 
 Batches come from ``data.loader.TrainLoader`` (the ADE20K train pipeline,
 seeded by ``train.seed``); weights are drawn from ``train.seed``.  Every
@@ -23,6 +24,17 @@ restarts from its seed and the best mIoU from -1.  The panoptic run takes
 its batches from ``data.panoptic.panoptic_train_batches`` (seeded by
 ``train.seed``, ``train.max_gt`` segments an image) and, as in the JAX
 package, has no periodic val.  Runs on the card unless ``--device cpu``.
+
+Data-parallel training (the reference's ``dist_train.sh``): start one
+process a rank with ``--distributed`` (or ``--coordinator``), the same
+``--coordinator``, ``--num-processes`` and each its ``--process-id``.
+``data.batch_size`` is the global batch; each rank loads its share
+(``TrainLoader``'s ``process_id``-strided share of each epoch, or for
+panoptic the batches seeded by ``train.seed + rank``) and the steps are
+the global batch's (``engine/train.py``).  The ranks talk over NCCL on the
+card and gloo with ``--device cpu``.  Rank 0 writes the checkpoints and
+``scalars.jsonl`` and runs the periodic val while the others wait;
+``--resume`` reads the same checkpoint on every rank.
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ from ..engine.config import Config, get_config
 from ..engine.logging import ScalarLogger
 from ..engine.train import (TrainState, init_trainer, is_panoptic,
                             scaled_base_lr)
+from ..parallel.mesh import barrier, distributed_init, replicate, shutdown
 from . import test as eval_cli
 
 
@@ -82,32 +95,42 @@ def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def _batch_source(cfg: Config):
-    """A context manager over the run's endless batches: the panoptic
-    batches of ``panoptic_train_batches``, or a ``TrainLoader`` (its
-    threads stop on exit)."""
+def _batch_source(cfg: Config, pid: int = 0, pcount: int = 1):
+    """A context manager over rank ``pid``'s endless batches, its share
+    of the global ``data.batch_size``: the panoptic batches of
+    ``panoptic_train_batches`` (seeded by ``train.seed + pid``), or a
+    ``TrainLoader`` (its threads stop on exit)."""
     t = cfg.train
+    if cfg.data.batch_size % pcount:
+        raise ValueError(f"data.batch_size {cfg.data.batch_size} does not "
+                         f"split into {pcount} processes")
+    local_bs = cfg.data.batch_size // pcount
     if is_panoptic(cfg):
         return contextlib.nullcontext(panoptic_train_batches(
             PanopticDataset(cfg.data.data_root, "train"),
-            cfg.data.batch_size, cfg.data.crop_size, t.max_gt, seed=t.seed))
+            local_bs, cfg.data.crop_size, t.max_gt, seed=t.seed + pid))
     return TrainLoader(
         make_dataset(cfg.data.dataset, cfg.data.data_root, "train",
                      cache=cfg.data.cache),
-        cfg.data.batch_size, cfg.data.crop_size, seed=t.seed,
-        num_workers=cfg.data.num_workers, mosaic_prob=cfg.data.mosaic_prob)
+        local_bs, cfg.data.crop_size, seed=t.seed,
+        num_workers=cfg.data.num_workers, process_id=pid,
+        process_count=pcount, mosaic_prob=cfg.data.mosaic_prob)
 
 
 def train(cfg: Config, work_dir: str, *, resume: bool = False,
           log_interval: int = 50, eval_images: int = 100,
           vis_interval: int = 0, device: str | torch.device | None = None,
-          state_dict: dict[str, torch.Tensor] | None = None) -> dict:
+          state_dict: dict[str, torch.Tensor] | None = None,
+          pid: int = 0, pcount: int = 1) -> dict:
     """The loop of the JAX package's ``tools/train.py``.  Weights come
     from ``state_dict`` when given (loaded strictly), else from
     ``cfg.train.seed``.  Returns the state, the logged metrics
     (``logs``: one dict of floats a log step, with ``step``) and each
-    val's mIoU (``vals``: (step, mIoU))."""
+    val's mIoU (``vals``: (step, mIoU)).  ``pid``/``pcount``: this
+    process's rank in a process group of ``pcount`` (``distributed_init``),
+    which the loop's steps span."""
     os.makedirs(work_dir, exist_ok=True)
+    lead = pid == 0
     tr = init_trainer(cfg, device=device, state_dict=state_dict)
     t = cfg.train
     if t.auto_scale_lr:
@@ -119,13 +142,14 @@ def train(cfg: Config, work_dir: str, *, resume: bool = False,
         if ckpt:
             restore_state(ckpt, state)
             print(f"resumed from {ckpt} at step {state.step}", flush=True)
+    replicate(state)
     start = state.step
     keep = t.max_keep_ckpts or None
     panoptic = is_panoptic(cfg)
-    slog = ScalarLogger(work_dir)
+    slog = ScalarLogger(work_dir) if lead else None
     logs, vals, best_miou = [], [], -1.0
     try:
-        with _batch_source(cfg) as loader, f32_precision():
+        with _batch_source(cfg, pid, pcount) as loader, f32_precision():
             batches = iter(loader)
             t0 = time.time()
             for i in range(start, t.total_iters):
@@ -147,13 +171,16 @@ def train(cfg: Config, work_dir: str, *, resume: bool = False,
                     print(f"iter {i + 1}/{t.total_iters} loss "
                           f"{m['total']:.4f} {parts} {dt:.3f}s/iter",
                           flush=True)
-                    slog.log(i + 1, sec_per_iter=dt, **m)
+                    if slog:
+                        slog.log(i + 1, sec_per_iter=dt, **m)
                     logs.append(dict(m, step=i + 1, sec_per_iter=dt))
                 if t.checkpoint_interval and (i + 1) % t.checkpoint_interval \
                         == 0:
-                    save_state(work_dir, state, i + 1, keep=keep)
+                    if lead:
+                        save_state(work_dir, state, i + 1, keep=keep)
+                    barrier()
                 if eval_images and t.val_interval and not panoptic \
-                        and (i + 1) % t.val_interval == 0:
+                        and (i + 1) % t.val_interval == 0 and lead:
                     miou = evaluate(cfg, state, tr.device, eval_images,
                                     vis_interval, os.path.join(
                                         work_dir, "vis", f"iter_{i + 1}"))
@@ -167,9 +194,12 @@ def train(cfg: Config, work_dir: str, *, resume: bool = False,
                         # retention and resume never touch it
                         save_state(os.path.join(work_dir, "best"), state,
                                    i + 1, keep=1)
-        save_state(work_dir, state, t.total_iters, wait=True, keep=keep)
+        if lead:
+            save_state(work_dir, state, t.total_iters, wait=True, keep=keep)
+        barrier()
     finally:
-        slog.close()
+        if slog:
+            slog.close()
     return dict(state=state, logs=logs, vals=vals)
 
 
@@ -191,15 +221,36 @@ def main(argv: list[str] | None = None) -> int:
                          "work_dir/vis/iter_N/ (0 disables)")
     ap.add_argument("--device", default=None,
                     help="torch device; the card when left out")
+    ap.add_argument("--distributed", action="store_true",
+                    help="data-parallel over processes (the reference's "
+                         "dist_train.sh): NCCL on the card, gloo on the CPU")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's store (every process the "
+                         "same); a free local port for one process")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
+
+    pid, pcount = 0, 1
+    if args.distributed or args.coordinator:
+        cpu = args.device is not None and torch.device(args.device).type \
+            == "cpu"
+        pid, pcount = distributed_init(
+            args.coordinator, args.num_processes, args.process_id,
+            backend="gloo" if cpu else None)
+        print(f"distributed: process {pid}/{pcount}, {pcount} global "
+              f"devices", flush=True)
 
     cfg = get_config(args.config, args.cfg_options)
     if args.data_root:
         cfg.data.data_root = args.data_root
-    train(cfg, args.work_dir or os.path.join(cfg.work_dir, cfg.name),
-          resume=args.resume, log_interval=args.log_interval,
-          eval_images=args.eval_images, vis_interval=args.vis_interval,
-          device=args.device)
+    try:
+        train(cfg, args.work_dir or os.path.join(cfg.work_dir, cfg.name),
+              resume=args.resume, log_interval=args.log_interval,
+              eval_images=args.eval_images, vis_interval=args.vis_interval,
+              device=args.device, pid=pid, pcount=pcount)
+    finally:
+        shutdown()
     return 0
 
 

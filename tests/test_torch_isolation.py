@@ -26,10 +26,11 @@ def _port_modules():
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """A subprocess whose import system refuses jax, flax, optax and
-    spike2former_tpu still imports every port module and chip_smoke, and
-    runs chip_smoke's reference-format state dict (which reads
-    ``tests/torch_golden.py``)."""
+    """A subprocess whose import system refuses jax, flax, optax,
+    spike2former_tpu and h5py (which only ``lava_exchange.export_hdf5``
+    imports, when it is called) still imports every port module and
+    chip_smoke, and runs chip_smoke's reference-format state dict (which
+    reads ``tests/torch_golden.py``)."""
     modules = _port_modules() + ["chip_smoke"]
     for name in ("ops.dcnv3", "ops.spike_op", "losses.losses",
                  "losses.matcher", "losses.criterion", "engine.train",
@@ -48,12 +49,16 @@ def test_port_and_chip_smoke_import_without_jax():
                  "models.fpn", "models.msresnet", "models.cascade",
                  "models.tebn", "losses.pixel", "ops.msda",
                  "models.deformable", "ops.dcnv3_grouped",
-                 "data.synthetic"):
+                 "data.synthetic", "parallel", "parallel.mesh",
+                 "models.spikeformer_lib", "models.cyclemlp", "ops.rnn",
+                 "ops.encoding", "ann2snn", "lava_exchange",
+                 "data.biomedical", "runtime"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
 
-        BLOCKED = ("jax", "jaxlib", "flax", "optax", "spike2former_tpu")
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "spike2former_tpu",
+                   "h5py")
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
