@@ -158,9 +158,13 @@ between the phases above (f32, full width, seeded images and weights):
       micro-batch sizes, peak memory, K1 6 launches a micro-batch); the
       same traffic again with each request's logits held to its
       bucket-padded image served alone (N=1, the same ``valid_hw``,
-      1e-3) and every K1 call held to its plain version at each N it was
-      handed; the same 64 one at a time (N=1: the micro-batched class
-      maps agree with these in >= 0.99 of pixels), and a loop of
+      1e-3), its future's class map held to its own logits (its row of
+      the batch its image, the map their argmax) and to the alone map
+      up to ties (>= 0.99 of pixels equal or within twice the request's
+      logit difference: random weights' class scores lie ~1e-6 apart),
+      and every K1 call held to its plain version at each N it was
+      handed; the same 64 one at a time (N=1; the micro-batched maps'
+      strict agreement with these reported), and a loop of
       ``inference_model`` (img/s beside the engine's); K1 timed at the
       largest micro-batch.  Every future must resolve with a class map;
   (tools) ``tools/benchmark.py`` for 20 forwards and 5 train steps at
@@ -284,6 +288,33 @@ last:
       whether the native image runtime builds here, and where it does, its
       decode and resize against PIL and ``F.interpolate``.
 
+K1 with a first output row, after the bf16 kernels, and tensor
+parallelism and row-sharded inference of slice sixteen, run last:
+
+  (k1 rows) K1 in f32 and bf16 on each half of the output rows of the ADE
+      32x32 and the Cityscapes 64x128 /16 maps (G=32, Cg=8; the second
+      banded), the whole map as value and the first row a kernel
+      argument, for 'random', 'far', 'zero' and 'integer' coordinates:
+      within 2e-5 of the plain version in f32 and one bf16 ulp in bf16,
+      and bitwise the whole map's launch's rows; each half's time (warm
+      and cold L2), its byte bound (the value rows its taps touch, its
+      coordinates and outputs), the ``F.grid_sample`` yardstick and the
+      whole map's launch beside it;
+  (tp) two gloo ranks on the one card (this script as ``--par-worker``),
+      model axis 2: the flagship at full width split (FFN hidden 1024 and
+      2048, the mask-embed MLP) serves a 512x512 image in f32 and bf16
+      and takes two train steps at 128x128, batch 2 (the second timed
+      and compared), against this process unsplit; four ranks take the tiny model's DP2 x TP2 step (within
+      2e-4 of one process);
+  (spatial) the flagship at 512x512 and the Cityscapes preset at its
+      whole 1024x2048 image, in f32 and bf16, in two row bands against
+      this process; the tiny model at 64x64 in four (within 2e-5).  At
+      full width the ranks are bitwise equal, >= 0.99 of the logits within
+      1e-3 of one process and >= 0.99 of the pixels' classes equal, the
+      worst element printed; K1 6 launches a rank and image (each f32
+      call held to its plain version), ms and peak GiB of every rank
+      beside one process's.
+
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero and prints no result; it also
@@ -316,6 +347,7 @@ from spike2former_tpu_torch.data.loader import TrainLoader
 from spike2former_tpu_torch.data.panoptic import PanopticDataset
 from spike2former_tpu_torch.data.transforms import test_pipeline
 from spike2former_tpu_torch.data.synthetic import (ADE_LIKE_SHAPES,
+                                                    CITYSCAPES_SHAPE,
                                                     COCO_LIKE_SHAPES,
                                                     confident_merge_inputs,
                                                     synthetic_batch,
@@ -342,6 +374,7 @@ from spike2former_tpu_torch.losses import matcher
 from spike2former_tpu_torch.losses.matcher import BIG_COST, auction_match
 from spike2former_tpu_torch.models.segmentor import Spike2Former, preprocess
 from spike2former_tpu_torch.ops import cuda_build, dcnv3, dcnv3_grouped
+from spike2former_tpu_torch.ops.resize import resize_bilinear
 from spike2former_tpu_torch import serving
 from spike2former_tpu_torch.profile_train import STAGES, sync_sites
 from spike2former_tpu_torch.serving import ServingEngine
@@ -2362,8 +2395,8 @@ def capture_dcn(store: dict):
     inside the block (the calls launch and count as usual)."""
     real_f, real_b = dcnv3.dcnv3_sample, dcnv3.dcnv3_sample_backward
 
-    def fwd(value, py, px, mask):
-        out = real_f(value, py, px, mask)
+    def fwd(value, py, px, mask, **kw):
+        out = real_f(value, py, px, mask, **kw)
         store.setdefault("k1", []).append(
             [t.detach().clone() for t in (value, py, px, mask, out)])
         return out
@@ -2783,7 +2816,7 @@ def phase_presets(gen, smi: str) -> dict:
 SERVE_SHAPES = ((512, 683), (683, 512), (512, 512), (384, 512))
 SERVE_REQUESTS, SERVE_THREADS = 64, 4
 SERVE_TOL = 1e-3      # a request's logits in a micro-batch against alone
-SERVE_AGREEMENT = 0.99  # the engine's class maps against inference_model's
+SERVE_AGREEMENT = 0.99  # a request's class map in its micro-batch vs alone
 EXPORT_TOL = 1e-6     # the exported program's logits against eager
 V3_PRESETS = {"sdtv3": "SDTv3_b_Spike2former_ade20k_512x512",
               "sdtv3mae": "SDTv3MAE_Spike2former_ade20k_512x512"}
@@ -2844,16 +2877,21 @@ def hold_batches(store: dict):
     """Inside the block, each of the engine's forwards is followed by
     each of its requests alone (N=1, the same bucket-padded image and
     ``valid_hw``); the largest logit difference and the batch sizes go
-    to ``store``."""
+    to ``store``, and the last forward's batch, logits and requests' alone
+    logits to its keys ``batch``, ``logits`` and ``alone`` (``hold_maps``
+    takes them)."""
     real = serving.whole_logits
 
     def wrapped(model, batch, valid_hw=None):
         logits = real(model, batch, valid_hw=valid_hw)
         store.setdefault("sizes", []).append(len(batch))
+        alones = []
         for i in range(len(batch)):
             alone = real(model, batch[i:i + 1], valid_hw=valid_hw[i:i + 1])
             err = (logits[i] - alone[0]).abs().max().item()
             store["err"] = max(store.get("err", 0.0), err)
+            alones.append(alone)
+        store.update(batch=batch, logits=logits, alone=alones)
         return logits
 
     serving.whole_logits = wrapped
@@ -2861,6 +2899,69 @@ def hold_batches(store: dict):
         yield store
     finally:
         serving.whole_logits = real
+
+
+def post_logits(logits: torch.Tensor, pad_shape: tuple[int, int],
+                ori_shape: tuple[int, int]) -> torch.Tensor:
+    """``postprocess_pred`` without its argmax: [1, H, W, C] logits
+    cropped to ``pad_shape`` and resized to ``ori_shape`` -> [h, w, C]."""
+    logits = logits[:, :pad_shape[0], :pad_shape[1]]
+    if tuple(logits.shape[1:3]) != tuple(ori_shape):
+        logits = resize_bilinear(logits, tuple(ori_shape))
+    return logits[0]
+
+
+@contextlib.contextmanager
+def hold_maps(store: dict, batches: dict):
+    """Inside the block and ``hold_batches(batches)``, after each of the engine's
+    forwards the class map that each request's future holds is held, and
+    the least share of each over the requests goes to ``store``:
+
+    * ``inputs``: its row of the batch is its own bucket-padded image;
+    * ``own``: pixels where the map is the argmax of that row's logits,
+      cropped and resized (``post_logits``);
+    * ``strict``: pixels where it equals the map of the request alone;
+    * ``ties``: pixels where it equals that map, or where the alone
+      logits of the two classes lie within twice the largest difference
+      between the request's logits in its micro-batch and alone: a tie
+      that this difference may decide either way.
+
+    A failure of the holding itself goes to ``store['errors']``."""
+    real = ServingEngine._process
+
+    def wrapped(self, reqs):
+        real(self, reqs)
+        try:
+            batch, logits, alone = (batches.pop(k)
+                                    for k in ("batch", "logits", "alone"))
+            with f32_precision(), torch.inference_mode():
+                for i, r in enumerate(reqs):
+                    got = torch.from_numpy(r.future.result(timeout=0)).to(
+                        logits.device).long()
+                    mine = post_logits(logits[i:i + 1], r.img_shape,
+                                       r.ori_shape)
+                    ref = post_logits(alone[i], r.img_shape, r.ori_shape)
+                    best = ref.argmax(-1)
+                    gap = (ref.gather(-1, best[..., None])
+                           - ref.gather(-1, got[..., None]))[..., 0]
+                    slack = 2 * (mine - ref).abs().max()
+                    shares = dict(
+                        inputs=float(np.array_equal(batch[i].cpu().numpy(),
+                                                    r.image)),
+                        own=(got == mine.argmax(-1)).float().mean().item(),
+                        strict=(got == best).float().mean().item(),
+                        ties=(gap <= slack).float().mean().item())
+                    for k, v in shares.items():
+                        store[k] = min(store.get(k, 1.0), v)
+                    store["n"] = store.get("n", 0) + 1
+        except Exception as e:  # noqa: BLE001 — checked by the caller
+            store.setdefault("errors", []).append(repr(e))
+
+    ServingEngine._process = wrapped
+    try:
+        yield store
+    finally:
+        ServingEngine._process = real
 
 
 def phase_serving(im, gen, smi: str) -> dict:
@@ -2891,21 +2992,36 @@ def phase_serving(im, gen, smi: str) -> dict:
         f"(size: count), K1 launches {launches['k1']} ({forwards} "
         f"micro-batches), peak {peak:.3f} GiB on {smi}")
 
-    # the same traffic held: each request against itself alone, and
-    # every K1 call against its plain version at each N it was handed
-    store, held = {}, {}
-    with ServingEngine(model=im, max_batch=16, bucket=128) as eng, \
-            hold_batches(held), capture_dcn(store):
+    # the same traffic held: each request against itself alone, its class
+    # map against its logits, and every K1 call against its plain version
+    # at each N it was handed
+    store, held, maps = {}, {}, {}
+    with hold_batches(held), hold_maps(maps, held), capture_dcn(store), \
+            ServingEngine(model=im, max_batch=16, bucket=128) as eng:
         checked, _ = run_engine(eng, imgs, SERVE_THREADS)
     check_futures(checked, imgs, "serving (held)")
+    check(not maps.get("errors") and maps.get("n") == len(imgs),
+          f"serving: {maps.get('n')} maps held, errors "
+          f"{maps.get('errors', [])[:3]}")
+    check(maps["inputs"] == 1.0, "serving: a micro-batch row is not its "
+          "request's image")
+    check(maps["own"] >= SERVE_AGREEMENT, f"serving: a future's class map "
+          f"is the argmax of its logits in {maps['own']:.4f} < "
+          f"{SERVE_AGREEMENT}")
+    check(maps["ties"] >= SERVE_AGREEMENT, f"serving: class maps in "
+          f"micro-batches vs alone agree (up to ties) in "
+          f"{maps['ties']:.4f} < {SERVE_AGREEMENT}")
     sizes = sorted(set(held["sizes"]))
     k1 = hold_captured(store, "serving", k1=6 * (len(held["sizes"])
                                                   + len(imgs)))
     check(held["err"] <= SERVE_TOL, f"serving: a request in its "
           f"micro-batch vs alone {held['err']:.3g} > {SERVE_TOL}")
     log("serving", f"each request in its micro-batch vs alone (N=1, same "
-        f"valid_hw): max|diff| {held['err']:.3g} (tol {SERVE_TOL}); K1 "
-        f"held at N in {sizes} (max|diff| {k1['k1']:.3g})")
+        f"valid_hw): max|diff| {held['err']:.3g} (tol {SERVE_TOL}); least "
+        f"class agreement {maps['strict']:.6f}, up to ties "
+        f"{maps['ties']:.6f} (tol {SERVE_AGREEMENT}); each future's map "
+        f"the argmax of its own logits in {maps['own']:.6f}; K1 held at N "
+        f"in {sizes} (max|diff| {k1['k1']:.3g})")
 
     zero_launches()
     with ServingEngine(model=im, max_batch=16, bucket=128) as eng:
@@ -2920,10 +3036,12 @@ def phase_serving(im, gen, smi: str) -> dict:
     loop_wall = time.perf_counter() - t
     loop_launches = read_launches()
     # the micro-batched maps against the same requests served alone (one
-    # at a time: N=1, the same bucket and valid_hw)
+    # at a time: N=1, the same bucket and valid_hw), reported only: the
+    # random weights' class scores are flat (the top two of a pixel lie
+    # ~1e-6 apart, less than a micro-batch moves the logits), so one
+    # request's map may flip whole with the batch the threads' timing
+    # made; the held run above gates this agreement up to such ties
     agree = min(float((a == b).mean()) for a, b in zip(preds, seq))
-    check(agree >= SERVE_AGREEMENT, f"serving: class maps in micro-batches "
-          f"vs alone agree in {agree:.4f} < {SERVE_AGREEMENT}")
     # inference_model pads to 32 without valid_hw: another input, and the
     # random weights' logits are flat, so this share is reported only
     loop_agree = float(np.mean([(a == b).mean() for a, b in zip(preds,
@@ -2932,8 +3050,9 @@ def phase_serving(im, gen, smi: str) -> dict:
         f"{seq_st['p50_ms']:.3f} ms, p99 {seq_st['p99_ms']:.3f} ms; "
         f"inference_model loop {len(imgs) / loop_wall:.3f} img/s; engine "
         f"(4 threads) / loop {loop_wall / wall:.3f}x; least class "
-        f"agreement micro-batched vs alone {agree:.6f} (tol "
-        f"{SERVE_AGREEMENT}); mean agreement with the loop's pad-32 maps "
+        f"agreement micro-batched vs alone {agree:.6f} (reported only; "
+        f"the held run gates it up to ties); mean agreement with the "
+        f"loop's pad-32 maps "
         f"{loop_agree:.4f} on {smi}")
 
     # K1 at the largest micro-batch on the 512x768 bucket's /16 map
@@ -2944,7 +3063,8 @@ def phase_serving(im, gen, smi: str) -> dict:
                 seq_img_s=len(imgs) / seq_wall, loop_img_s=len(imgs)
                 / loop_wall, p50=st["p50_ms"], p99=st["p99_ms"],
                 sizes=st["batch_sizes"], peak_gib=peak, agree=agree,
-                err=held["err"], held=k1, k1_max=(n_max, h, w, t_k1))
+                maps=maps, err=held["err"], held=k1,
+                k1_max=(n_max, h, w, t_k1))
 
 
 def phase_v3(variant: str, gen, smi: str) -> dict:
@@ -4174,6 +4294,435 @@ def ddp_compare(tag: str, tmp: str, smi: str) -> dict:
                 single_step_ms=single["step_ms"])
 
 
+# --- slice sixteen: tensor parallelism and row-sharded inference -----------
+
+PAR_TIMEOUT = 900        # seconds, for each rank's process
+TP_TINY_RTOL = 2e-4      # tiny widths, TP against one process (JAX's bound)
+SP_TINY_TOL = 2e-5       # tiny widths, row bands against one process (JAX's)
+# full width: at least FULL_AGREE of the logits within FULL_TOL of one
+# process, and of the pixels' classes equal (one flipped q8 level moves a
+# full-width model by percents: tests/torch_ddp_divergence.py)
+FULL_TOL, FULL_AGREE = 1e-3, 0.99
+K1_ROW_MAPS = ((32, 32), (64, 128))   # the ADE and Cityscapes /16 maps
+FLAGSHIP_HW = (512, 512)
+TP_STEP_HW = (128, 128)
+
+
+def k1_row_bytes(value, py, out_elems: int) -> int:
+    """The bytes K1 must move for output pixels whose taps are ``py``: the
+    value rows those taps touch (this run's data), read once; the
+    coordinates and mask; the output, written once."""
+    h = value.shape[1]
+    y0 = torch.floor(py)
+    rows = torch.cat([y0, y0 + 1]).long().flatten()
+    touched = int(torch.unique(rows[(rows >= 0) & (rows < h)]).numel())
+    per_row = value[0, 0].numel() * value.element_size()
+    return (touched * per_row * value.shape[0] + 3 * 4 * py.numel()
+            + out_elems * value.element_size())
+
+
+def k1_rows_timing(value, py, px, mask, rows, tag: str) -> dict:
+    """K1's time on one row band's output pixels of the whole map
+    ``value`` (``rows`` = (row0, out_rows), or None for the whole map's
+    launch), warm and cold L2, beside the plain version, the
+    ``F.grid_sample`` yardstick on the same inputs and the bounds."""
+    n, h, w, c = value.shape
+    g, p = py.shape[2], py.shape[3]
+    out_elems = n * py.shape[1] * c
+    flops = n * py.shape[1] * g * p * (4 * (c // g) * 2 + 16)
+    kw = {} if rows is None else dict(rows=rows)
+    # the yardstick on bf16 takes its coordinates in bf16, as (bf16
+    # kernels) times it
+    lib = [value] + [t.to(value.dtype) for t in (py, px, mask)]
+
+    def k1():
+        return dcnv3.dcnv3_sample(value, py, px, mask, **kw)
+
+    plan = dcnv3.tile_plan(n, h, w, py.shape[1], g, c // g, p,
+                           backward=False,
+                           out_rows=None if rows is None else rows[1])
+    t = dict(ms=median_ms(k1, reps=3), cold_ms=cuda_ms(k1, cold=True),
+             plain_ms=cuda_ms(lambda: dcnv3.dcnv3_sample_reference(
+                 value, py, px, mask), iters=10),
+             library_ms=cuda_ms(lambda: grid_sample_yardstick(*lib),
+                                iters=20),
+             bytes_ms=k1_row_bytes(value, py, out_elems)
+             / HBM_BYTES_PER_S * 1e3,
+             ops_ms=flops / F32_FLOPS_PER_S * 1e3, plan=plan)
+    log("k1 rows", f"{tag}: plan {plan}, kernel_ms={t['ms']:.5f} "
+        f"cold_l2_ms={t['cold_ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+        f"library_ms={t['library_ms']:.5f} "
+        f"byte_bound_us={t['bytes_ms'] * 1e3:.3f} "
+        f"op_bound_us={t['ops_ms'] * 1e3:.3f}")
+    return t
+
+
+def phase_k1_rows(gen) -> dict:
+    """(k1 rows): K1 in f32 and bf16 with a first output row, as row-
+    sharded inference hands it the whole /16 map and one band's output
+    rows: on each half of the ADE 32x32 and the Cityscapes 64x128 map
+    (banded: no group's map fits a block) for every kind of coordinates,
+    against the plain version (2e-5 in f32, one bf16 ulp in bf16) and
+    bitwise against that slice of the whole map's launch; then each
+    half's time beside the whole map's on 'random' coordinates."""
+    g, cg, p = 32, 8, 9
+    worst = worst_bf16 = 0.0
+    times = {}
+    for h, w in K1_ROW_MAPS:
+        half = h // 2
+        for kind in KINDS:
+            value, py, px, mask = sampler_inputs(1, h, w, g, cg, p, kind,
+                                                 gen)
+            for dt in (torch.float32, torch.bfloat16):
+                v = value.to(dt)
+                whole = dcnv3.dcnv3_sample(v, py, px, mask)
+                for row0 in (0, half):
+                    sl = slice(row0 * w, (row0 + half) * w)
+                    args = [t[:, sl].contiguous() for t in (py, px, mask)]
+                    got = dcnv3.dcnv3_sample(v, *args, rows=(row0, half))
+                    torch.cuda.synchronize()
+                    want = dcnv3.dcnv3_sample_reference(v, *args)
+                    err = (got.float() - want.float()).abs().max().item()
+                    check(bool(torch.isfinite(got).all()),
+                          f"k1 rows: non-finite out ({kind}, {h}x{w})")
+                    if dt == torch.float32:
+                        check(err <= KERNEL_TOL, f"k1 rows: {err:.3g} > "
+                              f"{KERNEL_TOL} ({kind}, {h}x{w}, row0 {row0})")
+                        worst = max(worst, err)
+                    else:
+                        check(within_one_bf16_ulp(got, want),
+                              f"k1 rows bf16: beyond one ulp ({kind}, "
+                              f"{h}x{w}, row0 {row0})")
+                        worst_bf16 = max(worst_bf16, err)
+                    check(torch.equal(got, whole[:, sl]), f"k1 rows: not "
+                          f"the whole map's rows ({kind}, {h}x{w})")
+                log("k1 rows", f"{h}x{w} {kind} {str(dt)[6:]}: both halves "
+                    f"within the gate, equal to the whole map's launch")
+        for dt in (torch.float32, torch.bfloat16):
+            value, py, px, mask = sampler_inputs(1, h, w, g, cg, p,
+                                                 "random", gen)
+            value = value.to(dt)
+            name = f"{h}x{w} {str(dt)[6:]}"
+            times[h, w, dt, None] = k1_rows_timing(
+                value, py, px, mask, None, f"{name} whole map")
+            for row0 in (0, half):
+                sl = slice(row0 * w, (row0 + half) * w)
+                args = [t[:, sl].contiguous() for t in (py, px, mask)]
+                times[h, w, dt, row0] = k1_rows_timing(
+                    value, *args, (row0, half), f"{name} rows "
+                    f"[{row0}, {row0 + half})")
+    return dict(max_abs_err=worst, bf16_err=worst_bf16, times=times)
+
+
+def par_forward(model, img: np.ndarray, mesh=None,
+                capture: bool = False) -> dict:
+    """``model.predict_logits`` of one image on the card (row-sharded
+    over ``mesh``'s data group when given), run once with the launches
+    counted (and, with ``capture``, every K1 call held to its plain
+    version), then timed twice; the logits, launches, host ms and peak
+    GiB."""
+    x = preprocess(torch.from_numpy(img[None]).cuda())
+
+    def run():
+        with torch.no_grad(), f32_precision():
+            if mesh is None:
+                return model.predict_logits(x)
+            with parallel.spatial_sharding(mesh):
+                band = model.predict_logits(parallel.shard_rows(x))
+                return parallel.gather_rows_h(band)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    store: dict = {}
+    with (capture_dcn(store) if capture else contextlib.nullcontext()):
+        logits = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    held = (hold_captured(store, "par", k1=launches["k1"])["k1"]
+            if capture else None)
+    del store
+    ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return dict(logits=logits.float().cpu(), launches=launches, ms=ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                held=held)
+
+
+def par_step(tr, batch, mesh=None, warmup=None) -> dict:
+    """One train step of ``tr`` on ``batch`` (this data rank's rows),
+    after a step on ``warmup`` where given; the step's metrics, the
+    logical post-step state (gathered over the model group), launches,
+    host ms and peak GiB."""
+    if warmup is not None:
+        api.train_steps(tr, [warmup])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t = time.perf_counter()
+    metrics = api.train_steps(tr, [batch])[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    sd = tr.state.model.state_dict()
+    if mesh is not None:
+        sd = parallel.gather_params_tp(sd, mesh)
+    return dict(metrics=metrics, launches=read_launches(), ms=ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                state={k: v.detach().cpu() for k, v in sd.items()})
+
+
+def par_images() -> dict:
+    """The seeded uint8 images of (tp) and (spatial)."""
+    rng = np.random.default_rng(11)
+    return {hw: rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for hw in (FLAGSHIP_HW, CITYSCAPES_SHAPE, (64, 64))}
+
+
+def par_batch(b: int, hw, seed: int = 13, **kw):
+    return synthetic_batch(np.random.default_rng(seed), b, hw, **kw)
+
+
+def par_two(mesh_of) -> dict:
+    """The two-rank cases of (tp) and (spatial), each built from seed 0
+    on every rank (``mesh_of(model_axis)`` gives the mesh; None: one
+    process).  Keys: ('tp', dtype), ('tp', 'step'), ('spatial', preset,
+    dtype)."""
+    imgs = par_images()
+    res = {}
+    mesh = mesh_of(2)
+    for tag, opts in (("f32", []), ("bf16", BF16_OPTS)):
+        im = api.init_model(PRESET, overrides=opts, seed=0)
+        if mesh is not None:
+            parallel.shard_params_tp(im.model, mesh)
+        res["tp", tag] = par_forward(im.model, imgs[FLAGSHIP_HW],
+                                     capture=tag == "f32")
+        del im
+        torch.cuda.empty_cache()
+    tr = api.init_trainer(PRESET, seed=0)
+    if mesh is not None:
+        parallel.shard_params_tp(tr.state, mesh)
+    res["tp", "step"] = par_step(tr, par_batch(2, TP_STEP_HW), mesh,
+                                 warmup=par_batch(2, TP_STEP_HW, seed=17))
+    del tr
+    torch.cuda.empty_cache()
+    mesh = mesh_of(1)
+    for preset, hw in ((PRESET, FLAGSHIP_HW),
+                       (CITYSCAPES, CITYSCAPES_SHAPE)):
+        for tag, opts in (("f32", []), ("bf16", BF16_OPTS)):
+            im = api.init_model(preset, overrides=opts, seed=0)
+            res["spatial", preset, tag] = par_forward(
+                im.model, imgs[hw], mesh, capture=tag == "f32")
+            del im
+            torch.cuda.empty_cache()
+    return res
+
+
+def par_four(mesh_of) -> dict:
+    """The four-rank cases: the tiny model's DP2 x TP2 step (each data
+    rank two rows of a global batch of 4) and its 64x64 forward in four
+    row bands."""
+    overrides, crop, synth = DDP_CONFIGS["tiny"]
+    res = {}
+    mesh = mesh_of(2)
+    tr = api.init_trainer(PRESET, overrides, seed=0)
+    batch = par_batch(4, (crop, crop), **synth)
+    if mesh is not None:
+        parallel.shard_params_tp(tr.state, mesh)
+        batch = parallel.shard_batch(batch)     # this data rank's rows
+    res["step"] = par_step(tr, batch, mesh)
+    del tr
+    im = api.init_model(PRESET, overrides=overrides, seed=0)
+    res["spatial"] = par_forward(im.model, par_images()[64, 64],
+                                 mesh_of(1), capture=True)
+    return res
+
+
+PAR_SETS = {"two": par_two, "four": par_four}
+
+
+def par_worker(argv: list[str]) -> int:
+    """One rank of (tp) / (spatial), started as ``chip_smoke.py
+    --par-worker COORD PID NPROC OUT SET``: joins a gloo group of
+    ``NPROC`` ranks on the one card, runs ``PAR_SETS[SET]`` and saves its
+    results to ``OUT``."""
+    coord, pid, nproc, out, which = argv
+    parallel.distributed_init(coord, int(nproc), int(pid), backend="gloo")
+    try:
+        torch.save(PAR_SETS[which](parallel.make_mesh), out)
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def par_launch(which: str, nproc: int, tmp: str) -> list:
+    """Run ``PAR_SETS[which]`` on ``nproc`` gloo ranks (this script as
+    ``--par-worker``); each rank's results."""
+    coord = f"localhost:{parallel.free_port()}"
+    outs = [os.path.join(tmp, f"{which}{i}.pt") for i in range(nproc)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--par-worker", coord,
+         str(i), str(nproc), outs[i], which], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(nproc)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=PAR_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0])
+    for i, (p, out) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"{which} rank {i} failed:\n{out[-3000:]}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def full_width_gate(tag: str, ranks: list, want: torch.Tensor) -> dict:
+    """The ranks' logits bitwise equal, finite, at least ``FULL_AGREE`` of
+    the elements within ``FULL_TOL`` of one process's and of the pixels'
+    classes equal; the worst element printed."""
+    got = ranks[0]
+    check(all(torch.equal(r, got) for r in ranks[1:]),
+          f"{tag}: the ranks' logits differ")
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+          f"{tag}: logits {tuple(got.shape)} against {tuple(want.shape)}")
+    d = (got - want).abs()
+    within = (d <= FULL_TOL).float().mean().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    i = int(d.argmax())
+    where = np.unravel_index(i, tuple(d.shape))
+    log("par", f"{tag}: {within:.6f} of the logits within {FULL_TOL} of one "
+        f"process, class agreement {agree:.6f}; worst element "
+        f"{tuple(int(k) for k in where)}: {got.flatten()[i].item():.6g} "
+        f"against {want.flatten()[i].item():.6g}")
+    check(within >= FULL_AGREE and agree >= FULL_AGREE,
+          f"{tag}: {within:.6f} within {FULL_TOL}, agreement {agree:.6f} "
+          f"(need {FULL_AGREE})")
+    return dict(within=within, agree=agree, gap=d.max().item())
+
+
+def phase_tp_spatial(smi: str) -> dict:
+    """(tp) and (spatial): two gloo ranks on the one card against this
+    process (``par_two``), then four (``par_four``).
+
+    (tp), model axis 2: the flagship at full width split (its FFNs' 1024
+    and 2048 hidden channels and the mask-embed MLP) serves a 512x512
+    image in f32 and bf16, and takes a train step at 128x128, batch 2,
+    each rank with the whole batch; the tiny model's DP2 x TP2 step on
+    four ranks.  (spatial), data axis 2: the flagship at 512x512 and
+    ``CITYSCAPES`` at its whole 1024x2048 image, in f32 and bf16, in two
+    row bands; the tiny model at 64x64 in four.  Full width: the ranks
+    bitwise equal and ``full_width_gate``; tiny: within ``TP_TINY_RTOL``
+    / ``SP_TINY_TOL`` of one process.  K1 (and K2) launches, ms and peak
+    GiB of every rank and of one process."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        two = par_launch("two", 2, tmp)
+        four = par_launch("four", 4, tmp)
+    t_ranks = time.perf_counter() - t0
+    one = par_two(lambda _: None)
+    one4 = par_four(lambda _: None)
+    out = dict(launches=[], bf16_launches=[], k1_err=0.0)
+
+    def record(name, rs, single):
+        out["launches"] += [r["launches"] for r in rs] + [single["launches"]]
+        held = [r["held"] for r in rs + [single] if r.get("held") is not None]
+        out["k1_err"] = max([out["k1_err"]] + held)
+        log("par", f"{name}: K1/K2 launches a rank "
+            f"{[(r['launches']['k1'], r['launches']['k2']) for r in rs]} "
+            f"(one process {single['launches']['k1']}/"
+            f"{single['launches']['k2']}; bf16 "
+            f"{[r['launches']['k1_bf16'] for r in rs]}); ms a rank "
+            f"{[fmt_ms(np.atleast_1d(r['ms'])) for r in rs]} against "
+            f"{fmt_ms(np.atleast_1d(single['ms']))}; peak GiB a rank "
+            f"{[round(r['peak_gib'], 3) for r in rs]} against "
+            f"{single['peak_gib']:.3f} on {smi}")
+
+    for key in (("tp", "f32"), ("tp", "bf16")):
+        rs = [r[key] for r in two]
+        out[key] = full_width_gate(f"(tp) {key[1]} 512x512",
+                                   [r["logits"] for r in rs],
+                                   one[key]["logits"])
+        for r in rs + [one[key]]:
+            check(r["launches"]["k1"] == 6, f"(tp) {key}: K1 "
+                  f"{r['launches']}")
+        record(f"(tp) {key[1]} request", rs, one[key])
+    rs = [r["tp", "step"] for r in two]
+    single = one["tp", "step"]
+    check(rs[0]["metrics"] == rs[1]["metrics"],
+          "(tp) step: the ranks' metrics differ")
+    check(all(torch.equal(v, rs[1]["state"][k])
+              for k, v in rs[0]["state"].items()),
+          "(tp) step: the ranks' gathered parameters differ")
+    check(all(np.isfinite(v) for v in rs[0]["metrics"].values()),
+          f"(tp) step: metrics {rs[0]['metrics']}")
+    gaps = {k: abs(rs[0]["metrics"][k] - w) / max(abs(w), 1e-6)
+            for k, w in single["metrics"].items()}
+    pgap = max(float((rs[0]["state"][k] - w).abs().max())
+               for k, w in single["state"].items())
+    worst_k = max(gaps, key=gaps.get)
+    out["step"] = dict(metric_gap=gaps[worst_k],
+                       grad_norm_gap=gaps["grad_norm"], param_gap=pgap)
+    for r in rs + [single]:
+        check((r["launches"]["k1"], r["launches"]["k2"]) == (6, 6),
+              f"(tp) step: K1/K2 {r['launches']}")
+    log("par", f"(tp) second step at {TP_STEP_HW}, batch 2, model axis 2 "
+        f"against one process: largest metric rel gap {gaps[worst_k]:.3g} "
+        f"({worst_k}), total {rs[0]['metrics']['total']:.7g} / "
+        f"{single['metrics']['total']:.7g}, grad_norm "
+        f"{rs[0]['metrics']['grad_norm']:.7g} / "
+        f"{single['metrics']['grad_norm']:.7g}, largest post-step "
+        f"parameter gap {pgap:.3g}; ranks bitwise equal")
+    record("(tp) step", rs, single)
+
+    for preset in (PRESET, CITYSCAPES):
+        for tag in ("f32", "bf16"):
+            key = ("spatial", preset, tag)
+            rs = [r[key] for r in two]
+            hw = tuple(one[key]["logits"].shape[1:3])
+            out[key] = full_width_gate(f"(spatial) {preset} {tag} {hw}",
+                                       [r["logits"] for r in rs],
+                                       one[key]["logits"])
+            for r in rs + [one[key]]:
+                check(r["launches"]["k1"] == 6, f"(spatial) {key}: K1 "
+                      f"{r['launches']}")
+            record(f"(spatial) {preset} {tag} {hw}", rs, one[key])
+
+    rs = [r["step"] for r in four]
+    single = one4["step"]
+    worst = max(abs(rs[0]["metrics"][k] - w) / max(abs(w), 1e-6)
+                for k, w in single["metrics"].items())
+    check(all(r["metrics"] == rs[0]["metrics"] for r in rs[1:]),
+          "(tp) tiny DP2 x TP2: the ranks' metrics differ")
+    check(all(torch.equal(v, r["state"][k]) for r in rs[1:]
+              for k, v in rs[0]["state"].items()),
+          "(tp) tiny DP2 x TP2: the ranks' gathered parameters differ")
+    check(worst <= TP_TINY_RTOL, f"(tp) tiny DP2 x TP2 against one "
+          f"process: {worst:.3g} > {TP_TINY_RTOL}")
+    pgap = max(float((rs[0]["state"][k] - w).abs().max())
+               for k, w in single["state"].items())
+    log("par", f"(tp) tiny DP2 x TP2 step (each process's first) on four "
+        f"ranks against one process: largest metric rel gap {worst:.3g} (tol {TP_TINY_RTOL}),"
+        f" largest post-step parameter gap {pgap:.3g}")
+    record("(tp) tiny DP2 x TP2 step", rs, single)
+    out["tiny_step"] = worst
+    rs = [r["spatial"] for r in four]
+    single = one4["spatial"]
+    gap = max(float((r["logits"] - single["logits"]).abs().max())
+              for r in rs)
+    check(gap <= SP_TINY_TOL, f"(spatial) tiny 64x64 on four ranks: "
+          f"{gap:.3g} > {SP_TINY_TOL}")
+    log("par", f"(spatial) tiny 64x64 in four row bands against one "
+        f"process: max|diff| {gap:.3g} (tol {SP_TINY_TOL})")
+    record("(spatial) tiny 64x64", rs, single)
+    out["tiny_spatial"] = gap
+    log("par", f"(tp) and (spatial) took {time.perf_counter() - t0:.1f}s "
+        f"(ranks {t_ranks:.1f}s)")
+    return out
+
+
 LIB_TOL = 1e-4           # |card - CPU| <= LIB_TOL * (1 + |CPU|)
 LIB_AGREE = 1.0          # share of the elements within LIB_TOL
 # spiking modules at their full sizes: the float32 sums of thousands of
@@ -4393,6 +4942,9 @@ def main() -> int:
     gk = phase_grouped(gen)
     kb = phase_bf16_kernels(gen)
     gb = phase_grouped_bf16(gen)
+    t = time.perf_counter()
+    kr = phase_k1_rows(gen)
+    log("k1 rows", f"the phase took {time.perf_counter() - t:.1f}s")
 
     t = time.perf_counter()
     im = api.init_model(PRESET, seed=0)
@@ -4502,6 +5054,8 @@ def main() -> int:
     lib = phase_library(smi)
     log("library", f"(distributed) and (library) took "
         f"{time.perf_counter() - t_new:.1f}s")
+    torch.cuda.empty_cache()
+    par = phase_tp_spatial(smi)
 
     # the main path's launches: serve, the three eval modes, the train
     # steps at the defaults, the overflow step, the host-matcher steps,
@@ -4522,7 +5076,8 @@ def main() -> int:
         *(var[n]["req_launches"] for n in VARIANTS),
         *(var[n]["launches"] for n in VARIANTS),
         fpn["launches"], fpn_train["launches"], *fam["launches"],
-        *fb["launches"], *dd["launches"], *dp["launches"]]
+        *fb["launches"], *dd["launches"], *dp["launches"],
+        *par["launches"]]
     k1_launches = s["launches"] + sum(p["k1"] for p in paths)
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
@@ -4532,7 +5087,7 @@ def main() -> int:
                     for i in (0, 1)]
     # the bf16 paths: the bf16 requests and both bf16 train runs
     bf16_paths = [bs["launches"], bt["bf16"]["launches"],
-                  bt["bf16+remat+packed"]["launches"]]
+                  bt["bf16+remat+packed"]["launches"], *par["launches"]]
     k1_bf16 = sum(p["k1_bf16"] for p in bf16_paths)
     k2_bf16 = sum(p["k2_bf16"] for p in bf16_paths)
 
@@ -4553,7 +5108,7 @@ def main() -> int:
                       pt["held"]["k1"], pr["k1_err"], sv["held"]["k1"],
                       *(v3[v]["held"]["k1"] for v in V3_PRESETS),
                       *(var[n]["held"]["k1"] for n in VARIANTS),
-                      dp["held"]["k1"])
+                      dp["held"]["k1"], kr["max_abs_err"], par["k1_err"])
     k2_path_err = max(pt["held"]["k2"], pr["k2_err"],
                       *(v3[v]["held"]["k2"] for v in V3_PRESETS),
                       *(var[n]["held"]["k2"] for n in VARIANTS),
@@ -4575,8 +5130,8 @@ def main() -> int:
         gk["times"][GROUPED_BACKWARD, "train"]))
     # the bf16 forms: K1 at the serve shape, K2 at the train shape
     kernels.append(row("dcnv3_sample[bf16]", dcnv3.SOURCE,
-                       "dcnv3_sample_pallas_t5", k1_bf16, kb["k1_err"],
-                       kb["k1", 1]))
+                       "dcnv3_sample_pallas_t5", k1_bf16,
+                       max(kb["k1_err"], kr["bf16_err"]), kb["k1", 1]))
     kernels.append(row("dcnv3_sample_bwd[bf16]", dcnv3.BWD_SOURCE,
                        "dcnv3_sample_pallas_t5_bwd", k2_bf16, kb["k2_err"],
                        kb["k2", 6]))
@@ -4640,7 +5195,15 @@ def main() -> int:
         f"{[(n['k1'], n['k2']) for n in dp['launches']]}; library modules "
         f"card vs CPU max|diff| "
         + ", ".join(f"{k} {v:.3g}" for k, v in lib["errs"].items())
-        + f"; native runtime built: {lib['runtime']}")
+        + f"; native runtime built: {lib['runtime']}"
+        + "; K1 on a row band (ms, bound ms, grid_sample ms) "
+        + "; ".join(f"{h}x{w} {str(dt)[6:]} "
+                    f"{'whole' if r0 is None else f'row0 {r0}'}: "
+                    f"{t['ms']:.5f}, {max(t['bytes_ms'], t['ops_ms']):.5f}, "
+                    f"{t['library_ms']:.5f}"
+                    for (h, w, dt, r0), t in kr["times"].items())
+        + f"; (tp)/(spatial) K1/K2 launches "
+        f"{[(n['k1'], n['k2'], n['k1_bf16']) for n in par['launches']]}")
     log("total", f"chip_smoke took {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -4653,4 +5216,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(ddp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--par-worker"]:
+        sys.exit(par_worker(sys.argv[2:]))
     sys.exit(main())

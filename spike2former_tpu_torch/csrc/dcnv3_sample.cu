@@ -58,7 +58,11 @@
 //     block, and stages a pair's maps once when its range enters it; with
 //     fewer (serve: 32), one block an SM takes a band of one group's
 //     output pixels (4 bands at serve), each staging the whole map;
-//   - outputs go out as 16-byte stores (Cg % 4 == 0).
+//   - outputs go out as 16-byte stores (Cg % 4 == 0);
+//   - for a row band of the whole map (spatially sharded inference: the
+//     output pixels sit on map rows [row0, row0 + out_rows), the value map
+//     is whole), a band stages the rows its own pixels sit on, plus the
+//     halo (block_tile); the whole map when it fits, as before.
 // The plans were chosen by measurement at the flagship shapes, on an NVIDIA
 // H100 80GB HBM3 at a 700 W power limit (PERF.md §6, the design steps): at
 // serve one group a block in 4 bands took 0.01165 ms against 0.01451 for
@@ -112,7 +116,7 @@ dcnv3_sample_kernel(const T* __restrict__ value,
                     const float* __restrict__ mask,
                     T* __restrict__ out, int n_img, int howo, int groups,
                     int points, int h, int w, int gb, int bands, int rows,
-                    int halo) {
+                    int halo, int row0, int out_rows) {
   constexpr int V = CG >= 4 ? 4 : CG;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -139,7 +143,7 @@ dcnv3_sample_kernel(const T* __restrict__ value,
     t.y_lo = 0;
     t.y_hi = h;
   } else {
-    t = block_tile(howo, h, gb, bands, rows, halo);
+    t = block_tile(howo, h, gb, bands, rows, halo, row0, out_rows);
     const int unit = t.n * chunks + t.g0 / gb;
     lo = unit * per_unit + t.o_lo * gb;
     hi = unit * per_unit + t.o_hi * gb;
@@ -214,7 +218,8 @@ template <typename T, int CG>
 cudaError_t launch(const T* value, const float* py, const float* px,
                    const float* mask, T* out, int n, int howo, int groups,
                    int points, int h, int w, int gb, int bands, int rows,
-                   int halo, int device, cudaStream_t stream) {
+                   int halo, int row0, int out_rows, int device,
+                   cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(tile_stride(gb, CG)) * rows * w +
                        kThreads<CG> / 32 * 3 * 32 * points) * sizeof(float);
   int sms = 0, per_sm = 0;
@@ -226,15 +231,15 @@ cudaError_t launch(const T* value, const float* py, const float* px,
     grid = dim3(min((n * howo * groups + 31) / 32, max(1, per_sm) * sms));
   dcnv3_sample_kernel<T, CG><<<grid, kThreads<CG>, smem, stream>>>(
       value, py, px, mask, out, n, howo, groups, points, h, w, gb, bands,
-      rows, halo);
+      rows, halo, row0, out_rows);
   return cudaGetLastError();
 }
 
 template <typename T>
 int entry(const void* value, const void* py, const void* px, const void* mask,
           void* out, int n, int howo, int groups, int points, int h, int w,
-          int cg, int gb, int bands, int rows, int halo, int device,
-          void* stream) {
+          int cg, int gb, int bands, int rows, int halo, int row0,
+          int out_rows, int device, void* stream) {
   const auto* v = static_cast<const T*>(value);
   const auto* y = static_cast<const float*>(py);
   const auto* x = static_cast<const float*>(px);
@@ -243,13 +248,14 @@ int entry(const void* value, const void* py, const void* px, const void* mask,
   auto s = static_cast<cudaStream_t>(stream);
   if (n * howo * groups == 0) return cudaSuccess;
   if (gb < 1 || groups % gb || bands < 0 || rows < 0 || halo < 0 ||
-      (bands == 0 && rows < h))
+      (bands == 0 && rows < h) || row0 < 0 || out_rows < 1 ||
+      row0 + out_rows > h)
     return cudaErrorInvalidValue;
   switch (cg) {
 #define DCNV3_CASE(CG)                                                      \
   case CG:                                                                  \
     return launch<T, CG>(v, y, x, m, o, n, howo, groups, points, h, w, gb,  \
-                         bands, rows, halo, device, s);
+                         bands, rows, halo, row0, out_rows, device, s);
     DCNV3_CASE(1)
     DCNV3_CASE(2)
     DCNV3_CASE(4)
@@ -267,24 +273,27 @@ int entry(const void* value, const void* py, const void* px, const void* mask,
 // Plain C entry points, loaded with ctypes: value and out f32 or bf16,
 // py/px/mask f32.  Launch on `stream` of CUDA device `device`, the current
 // one, and do not synchronise; return the cudaError_t of the launch.
-// (gb, bands, rows, halo) is the tile plan of ops/dcnv3.py:tile_plan.
+// (gb, bands, rows, halo) is the tile plan of ops/dcnv3.py:tile_plan;
+// the output pixels sit on map rows [row0, row0 + out_rows) (0 and h for
+// the whole map).
 extern "C" int dcnv3_sample_f32(const void* value, const void* py,
                                 const void* px, const void* mask, void* out,
                                 int n, int howo, int groups, int points,
                                 int h, int w, int cg, int gb, int bands,
-                                int rows, int halo, int device,
-                                void* stream) {
+                                int rows, int halo, int row0, int out_rows,
+                                int device, void* stream) {
   return entry<float>(value, py, px, mask, out, n, howo, groups, points, h,
-                      w, cg, gb, bands, rows, halo, device, stream);
+                      w, cg, gb, bands, rows, halo, row0, out_rows, device,
+                      stream);
 }
 
 extern "C" int dcnv3_sample_bf16(const void* value, const void* py,
                                  const void* px, const void* mask, void* out,
                                  int n, int howo, int groups, int points,
                                  int h, int w, int cg, int gb, int bands,
-                                 int rows, int halo, int device,
-                                 void* stream) {
+                                 int rows, int halo, int row0, int out_rows,
+                                 int device, void* stream) {
   return entry<__nv_bfloat16>(value, py, px, mask, out, n, howo, groups,
-                              points, h, w, cg, gb, bands, rows, halo,
-                              device, stream);
+                              points, h, w, cg, gb, bands, rows, halo, row0,
+                              out_rows, device, stream);
 }

@@ -35,9 +35,13 @@ struct Tile {
 
 // Block (band, group chunk, image) of a plan of `bands` bands of output
 // pixels, `rows` staged rows and `halo` rows above a band (halo + 1 below,
-// the floor tap's next row): the whole map when rows >= h.
+// the floor tap's next row): the whole map when rows >= h.  The output
+// pixels sit on map rows [row0, row0 + out_rows) in row-major order (K1 on
+// a row band of the whole map, spatially sharded inference; 0 and h
+// otherwise), so pixel o's nominal map row is row0 + o * out_rows / howo.
 __device__ __forceinline__ Tile block_tile(int howo, int h, int gb,
-                                           int bands, int rows, int halo) {
+                                           int bands, int rows, int halo,
+                                           int row0, int out_rows) {
   Tile t;
   const int ob = (howo + bands - 1) / bands;
   t.n = blockIdx.z;
@@ -49,14 +53,22 @@ __device__ __forceinline__ Tile block_tile(int howo, int h, int gb,
     t.y_hi = h;
     return t;
   }
-  // nominal map row of output pixel o (o / w when HoWo = H*W)
-  const int r_lo = static_cast<int>(static_cast<long long>(t.o_lo) * h / howo);
+  const int r_lo =
+      row0 + static_cast<int>(static_cast<long long>(t.o_lo) * out_rows /
+                              howo);
   const int r_hi =
-      static_cast<int>(static_cast<long long>(max(t.o_hi - 1, t.o_lo)) * h /
-                       howo);
+      row0 + static_cast<int>(
+                 static_cast<long long>(max(t.o_hi - 1, t.o_lo)) *
+                 out_rows / howo);
   t.y_lo = max(0, r_lo - halo);
   t.y_hi = max(t.y_lo, min(min(h, r_hi + halo + 2), t.y_lo + rows));
   return t;
+}
+
+// The same for output pixels over the whole map (o / w when HoWo = H*W).
+__device__ __forceinline__ Tile block_tile(int howo, int h, int gb,
+                                           int bands, int rows, int halo) {
+  return block_tile(howo, h, gb, bands, rows, halo, 0, h);
 }
 
 // v[0:V] = src[0:V], one vector load (V = 4: 16 bytes).

@@ -27,6 +27,8 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from ..parallel.mesh import current_mesh, world
+from ..parallel.tp import gather_params_tp
 from .convert import from_jax_variables
 from .convert_reference import (convert_sdtv2_backbone,
                                 convert_sdtv3_backbone, convert_spike2former)
@@ -79,14 +81,26 @@ def save_state(work_dir: str, state: TrainState, step: int, *,
 
     The host copy is made before this returns; the file is written in the
     background unless ``wait``.  ``keep``: retain only the newest ``keep``
-    checkpoints (mmengine's ``max_keep_ckpts``), this one counted."""
+    checkpoints (mmengine's ``max_keep_ckpts``), this one counted.
+
+    Under tensor parallelism (``parallel.tp.shard_params_tp``) every rank
+    calls it: the shards are gathered over the model group first, so the
+    file equals a one-process checkpoint and loads into a model of any
+    TP size (load, then shard), as orbax's logical arrays do; the world's
+    rank 0 writes it."""
     global _WRITER
     wait_for_saves()
-    os.makedirs(work_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(work_dir, f"ckpt_{step}"))
-    obj = _host_copy({"step": int(step),
-                      "model": state.model.state_dict(),
-                      "optimizer": state.optimizer.state_dict()})
+    model_sd = state.model.state_dict()
+    opt_sd = state.optimizer.state_dict()
+    if current_mesh().model_size > 1:
+        model_sd = gather_params_tp(model_sd)
+        opt_sd = gather_params_tp(opt_sd)
+        if world()[0]:
+            return path
+    os.makedirs(work_dir, exist_ok=True)
+    obj = _host_copy({"step": int(step), "model": model_sd,
+                      "optimizer": opt_sd})
     if _WRITER is None:
         _WRITER = ThreadPoolExecutor(1, thread_name_prefix="ckpt-writer")
     _PENDING.append(_WRITER.submit(_write, obj, path))

@@ -19,6 +19,11 @@ decay.  The update is the JAX package's own arithmetic:
 
 Moments are updated with ``torch._foreach_*`` ops, a few launches per
 group rather than per parameter.
+
+Under tensor parallelism (``parallel/tp.py``) each rank updates its
+shards, and the clip's global norm is the logical parameters': the
+squares of the split gradients summed over the model group, each
+replicated one counted once.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ import re
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.tp import tp_sharded
 
 
 def poly_warmup_schedule(base_lr: float = 1e-3, warmup_iters: int = 1500,
@@ -116,7 +124,17 @@ class AdamW:
         norm of the gradients before clipping."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        split = [tp_sharded(p) for p in self.params]
+        if any(split):
+            sq = norms.square()
+            mask = torch.tensor(split, device=sq.device)
+            shards = torch.where(mask, sq, 0.0).sum()
+            group = next(p.tp_group for p, s in zip(self.params, split) if s)
+            dist.all_reduce(shards, group=group)
+            norm = torch.sqrt(shards + torch.where(mask, 0.0, sq).sum())
+        else:
+            norm = torch.linalg.vector_norm(norms)
         scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-16),
                             max=1.0)
         grads = torch._foreach_mul(grads, scale)

@@ -22,6 +22,14 @@ are summed over the ranks before the clip, and after the step every
 rank holds the same parameters.  The FPN family's pixel losses run on
 the gathered logits, the same on every rank.  With ``accum_steps > 1``
 the global microbatch ``m`` is every rank's ``m``-th chunk.
+
+These reductions run over the data group of the process's mesh
+(``parallel.make_mesh``; the world without one).  Under tensor
+parallelism (``parallel.shard_params_tp`` of the ``TrainState``) the
+ranks of a model group take the same rows, compute the split FFNs
+together and each update their own shards: gradients and metrics are
+still summed over the data group only, and the clip reads the logical
+norm (``engine/optim.py``).
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import spatial
 from .layers import (BatchNorm, Linear, RepConv, Spike, conv2d, conv_nhwc,
                      fold_t, unfold_t)
 
@@ -55,6 +56,11 @@ class SpikeMHA(nn.Module):
     The contractions take the spikes in their dtype with f32 sums, scaled
     in f32 and rounded to the spikes' dtype before the next product, as
     JAX's (attention.py:129-144): they run on f32 copies of bf16 spikes.
+
+    ``key_bands``: the keys and values are this rank's band of the pixel
+    tokens inside ``parallel.spatial_sharding()``; both associations' f32
+    sums over the keys are summed over the bands before they are scaled
+    or rounded, and ``factored`` reads the global key count.
     """
 
     def __init__(self, embed_dims: int, num_heads: int = 8,
@@ -72,22 +78,26 @@ class SpikeMHA(nn.Module):
         self.Conv_0 = Linear(embed_dims, embed_dims, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(embed_dims)
 
-    def forward(self, query, key, value, attn_mask=None):
+    def forward(self, query, key, value, attn_mask=None,
+                key_bands: bool = False):
         q = self.Spike_0(self.q(query))
         k = self.Spike_1(self.k(key))
         v = self.Spike_2(self.v(value))
         dt = q.dtype
         qh, kh, vh = (_split_heads(y, self.num_heads).float()
                       for y in (q, k, v))
+        bands = spatial.bands() if key_bands else None
+        n_keys = key.shape[-2] * (bands.size if bands else 1)
+        total = spatial.all_sum_ if bands else (lambda t: t)
         if (self.factored and attn_mask is None
-                and key.shape[-2] >= self.factored_min_kv):
-            kv = (kh.transpose(-1, -2) @ vh) / (self.embed_dims ** 0.5)
+                and n_keys >= self.factored_min_kv):
+            kv = total(kh.transpose(-1, -2) @ vh) / (self.embed_dims ** 0.5)
             out = (qh @ kv.to(dt).float()).to(dt)
         else:
             scores = (qh @ kh.transpose(-1, -2)) / (self.embed_dims ** 0.5)
             if attn_mask is not None:
                 scores = scores.masked_fill(attn_mask, 0.0)
-            out = (scores.to(dt).float() @ vh).to(dt)
+            out = total(scores.to(dt).float() @ vh).to(dt)
         out = self.Spike_3(_merge_heads(out))
         return self.BatchNorm_0(self.Conv_0(out))
 
@@ -119,16 +129,24 @@ class MSDAFFN(nn.Module):
         xf, t = fold_t(x)
         xf = self.Spike_0(xf)
         shape = xf.shape
-        spatial = xf.dim() == 4
+        is_map = xf.dim() == 4
         if self.compat:
             tb, c = shape[0], shape[-1]
-            # spatial: a real permute in and back (identity on the tokens);
+            # map: a real permute in and back (identity on the tokens);
             # tokens: a reshape in, so (token, channel) pairs are shuffled
-            xf = (xf.reshape(tb, -1, c) if spatial
+            xf = (xf.reshape(tb, -1, c) if is_map
                   else xf.reshape(tb, c, -1).transpose(1, 2))
         xf = self.BatchNorm_0(self.Conv_0(xf))
         xf = self.BatchNorm_1(self.Conv_1(self.Spike_1(xf)))
         if self.compat:
+            if is_map and spatial.bands() is not None:
+                # the reshape mixes the whole map's pixels: this band's
+                # rows of the whole map's reinterpretation
+                tb, hb, w, c = shape
+                r0, _ = spatial.rows(hb)
+                whole = spatial.gather_rows_h(xf, 1)
+                return unfold_t(whole.transpose(1, 2).reshape(
+                    tb, -1, w, c).narrow(1, r0, hb), t)
             xf = xf.transpose(1, 2).reshape(shape)
         return unfold_t(xf, t)
 

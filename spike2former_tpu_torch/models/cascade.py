@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear
+from ..parallel import spatial
 from .fpn import ConvBNT, FPNHead, FPNNeck, Neuron, build_backbone
 from .layers import conv2d, conv_nhwc, fold_t, unfold_t
 
@@ -78,6 +79,7 @@ class CascadeSegmentor(nn.Module):
                 num_classes, neck_channels, head_channels, neuron, dtype))
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
+        spatial.refuse("the FPN family")
         """Each stage's logits at the finest stride, averaged over T:
         the training contract (each stage gets its own decode loss)."""
         feats = self.neck(self.backbone(images))

@@ -5,6 +5,12 @@ and a Q-IF spike on the sampling mask in place of softmax
 (modules/dcnv3.py:213-215).  Layout [T, B, H, W, C].  The sampler takes
 the value map in the compute dtype and the offsets and mask in float32
 (``ops/dcnv3.py:dcnv3_core``).
+
+Inside ``parallel.spatial_sharding()`` the offsets may sample anywhere in
+the map, so the value map is gathered whole and the sampler computes this
+band's output rows from it (K1 with its first row); ``compat``'s
+reinterpreting reshapes mix the whole map's pixels, so the offsets and
+mask are gathered, reshaped, and this band's rows kept.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.dcnv3 import dcnv3_core
+from ..parallel import spatial
 from .layers import (BatchNorm, SepConv, Spike, conv2d, conv_nhwc, fold_t,
                      unfold_t)
 
@@ -50,15 +57,28 @@ class DCNv3(nn.Module):
         x1f = self.Spike_1(self.dw_bn(conv_nhwc(self.dw_conv, x1f)))
         offset = self.offset_bn(conv_nhwc(self.offset_conv, x1f))
         mask = self.mask_bn(conv_nhwc(self.mask_conv, x1f))
+        bands = spatial.bands()
+        r0 = spatial.rows(h)[0] if bands else 0
         if self.compat:
             # Reference quirk: the offset/mask heads run channels-first and
             # their outputs are reinterpreted channels-last by a plain
             # reshape, a fixed shuffle that trained weights encode.
-            tb = offset.shape[0]
-            offset = offset.permute(0, 3, 1, 2).reshape(tb, h, w, -1)
-            mask = mask.permute(0, 3, 1, 2).reshape(tb, h, w, -1)
+            offset, mask = (_reinterpret(y, h) for y in (offset, mask))
         mask = self.Spike_2(mask)
 
-        out = dcnv3_core(fold_t(value)[0], offset, mask, group=self.group,
-                         group_channels=self.channels // self.group)
+        value = spatial.gather_rows_h(fold_t(value)[0], 1)
+        out = dcnv3_core(value, offset, mask, group=self.group,
+                         group_channels=self.channels // self.group,
+                         row0=r0)
         return self.output_proj(unfold_t(out, t))
+
+
+def _reinterpret(y: torch.Tensor, h: int) -> torch.Tensor:
+    """[TB, h, W, C] channels-last read as channels-first and reshaped
+    back to [TB, h, W, C]; inside ``parallel.spatial_sharding()`` of the whole
+    map, keeping this band's ``h`` rows."""
+    if spatial.bands() is None:
+        return y.permute(0, 3, 1, 2).reshape(y.shape)
+    whole = spatial.gather_rows_h(y, 1)
+    return whole.permute(0, 3, 1, 2).reshape(whole.shape).narrow(
+        1, spatial.rows(h)[0], h)

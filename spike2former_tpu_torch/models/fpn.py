@@ -21,6 +21,7 @@ from torch import nn
 from ..ops.neuron import (multistep_eif, multistep_if, multistep_lif,
                           multistep_plif)
 from ..ops.resize import resize_bilinear, resize_nearest_torch
+from ..parallel import spatial
 from .layers import ConvBN, Spike, conv2d, conv_nhwc, fold_t, unfold_t
 from .sdtv2 import SpikingMetaFormer
 
@@ -217,6 +218,7 @@ class FPNSegmentor(nn.Module):
                             strides, neuron, dtype=dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
+        spatial.refuse("the FPN family")
         """images [B, H, W, 3] normalized -> logits at the finest level's
         stride [B, h, w, num_classes], in training mode with ``train()``."""
         return self.head(self.neck(self.backbone(images)))

@@ -37,6 +37,13 @@ The spike kinds (``SPIKE_FNS``, with the level D of each) are ``qspike``
 ``remat`` (``checkpoint``) recomputes a block in the backward.  The
 recomputation must not move BN running statistics a second time (flax's
 ``nn.remat`` keeps one update): it runs under ``frozen_running_stats``.
+
+Under tensor parallelism (``parallel/tp.py``) a ``Linear`` split by
+``shard_params_tp`` is column- or row-parallel over its model group
+(``Linear.tp``).  Inside ``parallel.spatial_sharding()`` every activation
+is a row band: ``conv_nhwc`` takes the halo rows a kernel taller than one row
+reads from the neighbouring bands, and ``BNAndPad`` writes its pad value
+only at the map's top and bottom.
 """
 from __future__ import annotations
 
@@ -50,7 +57,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import spike_op
 from ..ops.spike import multispike8, multispike_norm, qspike
+from ..parallel import spatial
 from ..parallel.mesh import batch_moments
+from ..parallel.tp import COLUMN, copy_to_model, reduce_from_model
 
 # kind -> (function, level D): a spike is k / D with k in 0..D, the packed
 # code of a spike-input site is k, and a site's firing rate is mean(y) * D
@@ -94,7 +103,15 @@ class Conv2d(nn.Conv2d):
 class Linear(nn.Linear):
     """``nn.Linear`` (float32 parameters) over the last axis that computes
     in ``compute_dtype``, as flax's ``nn.Dense`` and width-1 ``nn.Conv``
-    with ``dtype=``; ``spike_input`` and ``packed`` as ``Conv2d``."""
+    with ``dtype=``; ``spike_input`` and ``packed`` as ``Conv2d``.
+
+    ``tp`` (set by ``parallel.tp.shard_params_tp``): None, or
+    ``(kind, group)``: column-parallel (this rank's output rows; the
+    input's gradient summed over the model group) or row-parallel (this
+    rank's input columns; the float32 partial products summed over the
+    group, then rounded to the compute dtype, then the bias)."""
+
+    tp = None
 
     def __init__(self, cin: int, cout: int, bias: bool = True, *,
                  dtype: torch.dtype = torch.float32,
@@ -107,6 +124,11 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.tp is not None:
+            kind, group = self.tp
+            if kind != COLUMN:
+                return self._row_parallel(x, group)
+            x = copy_to_model(x, group)
         fused = _bias_fused(dt)
         if self.packed and torch.is_grad_enabled():
             out = spike_op.spike_linear(x, self.weight,
@@ -117,6 +139,20 @@ class Linear(nn.Linear):
                            self.bias.to(dt) if fused and self.bias is not None
                            else None)
         return out if fused or self.bias is None else out + self.bias.to(dt)
+
+    def _row_parallel(self, x, group):
+        """This rank's share of the product, exact products of the
+        compute-dtype operands summed in float32 (the one-process layer's
+        accumulator), summed over ``group``, rounded, plus the bias."""
+        dt = self.compute_dtype
+        w = self.weight if dt == torch.float32 else self.weight.to(dt).float()
+        if self.packed and torch.is_grad_enabled():
+            part = spike_op.spike_linear(x, w, None, torch.float32,
+                                         self.code_scale)
+        else:
+            part = F.linear(x.to(dt).float(), w)
+        out = reduce_from_model(part, group).to(dt)
+        return out if self.bias is None else out + self.bias.to(dt)
 
 
 def _bias_fused(dt: torch.dtype) -> bool:
@@ -135,21 +171,49 @@ def set_packed_residuals(model: nn.Module, enabled: bool) -> None:
             m.packed = enabled
 
 
-def conv_nhwc(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW ``Conv2d`` to an NHWC tensor in its compute dtype."""
+def conv_nhwc(conv: Conv2d, x: torch.Tensor, halo: bool = True
+              ) -> torch.Tensor:
+    """Apply an NCHW ``Conv2d`` to an NHWC tensor in its compute dtype.
+    Inside ``parallel.spatial_sharding()`` (``halo``: unless the caller
+    has put the rows around the band in ``x`` itself) a kernel taller than
+    one row reads its halo from the neighbouring bands and zero rows only
+    at the map's top and bottom (``_spatial_rows``)."""
     dt = conv.compute_dtype
     fused = _bias_fused(dt)
     bias = conv.bias if fused else None
+    padding = conv.padding
+    if halo and spatial.bands() is not None and conv.kernel_size[0] > 1:
+        x = _spatial_rows(conv, x)
+        padding = (0, conv.padding[1])
     if conv.packed and torch.is_grad_enabled():
         out = spike_op.spike_conv(
             x, conv.weight, bias, dt, conv.code_scale, stride=conv.stride,
-            padding=conv.padding, dilation=conv.dilation, groups=conv.groups)
+            padding=padding, dilation=conv.dilation, groups=conv.groups)
     else:
         out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
                        None if bias is None else bias.to(dt), conv.stride,
-                       conv.padding, conv.dilation,
+                       padding, conv.dilation,
                        conv.groups).permute(0, 2, 3, 1)
     return out if fused or conv.bias is None else out + conv.bias.to(dt)
+
+
+def _spatial_rows(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The rows of the whole map that ``conv`` (kernel k, stride s, pad
+    p, dilation d) reads for this band's output rows, as one tensor: the
+    p rows above the band and the ``d(k-1) - p - s + 1`` below it from the
+    neighbours (zeros off the map), or the band cut by as many rows where
+    that is negative; an unpadded convolution of it gives the band's
+    ``H_band / s`` output rows."""
+    k, s = conv.kernel_size[0], conv.stride[0]
+    p, d = conv.padding[0], conv.dilation[0]
+    band = x.shape[1]
+    if band % s:
+        raise ValueError(f"a band of {band} rows does not split into "
+                         f"stride {s}")
+    below = d * (k - 1) - p - s + 1
+    if below < 0:
+        x, below = x[:, :band + below], 0
+    return spatial.halo(x, 1, p, below)[0]
 
 
 def conv2d(cin: int, cout: int, k: int = 1, stride: int = 1, pad: int = 0,
@@ -340,9 +404,16 @@ class BNAndPad(nn.Module):
         p = self.p
         pad_value = (self.bias.detach() - ra_mean * self.scale.detach()
                      * torch.rsqrt(ra_var + self.eps)).to(y.dtype)
+        if spatial.bands() is not None:
+            # a row band: the neighbours' BN'd rows, the pad value only at
+            # the map's top and bottom
+            y = spatial.halo(y, 1, p, p, edge=pad_value)[0]
+            p_h = 0
+        else:
+            p_h = p
         n, h, w, c = y.shape
-        out = pad_value.expand(n, h + 2 * p, w + 2 * p, c).clone()
-        out[:, p:h + p, p:w + p] = y
+        out = pad_value.expand(n, h + 2 * p_h, w + 2 * p, c).clone()
+        out[:, p_h:h + p_h, p:w + p] = y
         return out
 
 
@@ -362,7 +433,7 @@ class RepConv(nn.Module):
     def forward(self, x):
         x = conv_nhwc(self.Conv_0, x)
         x = self.BNAndPad_0(x)
-        x = conv_nhwc(self.Conv_1, x)
+        x = conv_nhwc(self.Conv_1, x, halo=False)   # BNAndPad's halo
         x = conv_nhwc(self.Conv_2, x)
         return self.BatchNorm_0(x)
 

@@ -35,6 +35,7 @@ from torch import nn
 
 from ..losses.criterion import LazyMasks
 from ..ops.resize import resize_bilinear_hw
+from ..parallel import spatial
 from .attention import SpikeMLP3
 from .dab_detr import DABDetrDecoder
 from .layers import BatchNorm, Linear, Spike
@@ -169,6 +170,10 @@ class MaskFormerHead(nn.Module):
         exact-shape forward up to the convolutions' halo across the
         padding edge."""
         c = self.c
+        if self.decoder == "dab":
+            spatial.refuse("the DAB-DETR decoder")
+        if self.masked_attention:
+            spatial.refuse("the Mask2Former mode (masked_attention)")
         mask_features, memory, multi_scale = self.pixel_decoder(feats)
         t, b = memory.shape[:2]
         nq = self.query_feat.shape[0]

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear, resize_nearest_torch
+from ..parallel import spatial
 from .attention import MSDAFFN, SpikeMHA
 from .dcn import DCNv3
 from .layers import (BatchNorm, ConvBN, SepConv, Spike, conv2d, conv_nhwc,
@@ -149,6 +150,7 @@ class TransformerEncoderPixelDecoder(nn.Module):
         _add_bilinear_fpn(self, in_channels, c, out_channels, dtype)
 
     def forward(self, feats: Sequence[torch.Tensor]):
+        spatial.refuse("the Transformer-encoder pixel decoder")
         t, b, h, w, _ = feats[-1].shape
         c = self.feat_channels
         xf = self.encoder_in_proj(self.in_spike(fold_t(feats[-1])[0]))
@@ -194,6 +196,7 @@ class FPNPixelDecoder(nn.Module):
                                    dtype=dtype)
 
     def forward(self, feats: Sequence[torch.Tensor]):
+        spatial.refuse("the FPN pixel decoder")
         t = feats[-1].shape[0]
         y = self.last_feat_conv(self.last_spike(fold_t(feats[-1])[0]))
         outs = []

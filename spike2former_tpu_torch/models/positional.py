@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from ..parallel import spatial
+
 
 def sine_positional_encoding(mask: torch.Tensor, num_feats: int = 128,
                              temperature: float = 10000.0,
@@ -33,6 +35,14 @@ def sine_positional_encoding(mask: torch.Tensor, num_feats: int = 128,
 
 def sine_pe_for_shape(h: int, w: int, num_feats: int = 128,
                       device: torch.device | str = "cpu") -> torch.Tensor:
-    """All-valid-mask PE for (h, w): [h, w, 2*num_feats]."""
-    mask = torch.zeros((1, h, w), dtype=torch.float32, device=device)
-    return sine_positional_encoding(mask, num_feats)[0]
+    """All-valid-mask PE for (h, w): [h, w, 2*num_feats]; inside
+    ``parallel.spatial_sharding()``, for a row band of ``h`` rows, the
+    whole map's PE's rows of the band."""
+    bands = spatial.bands()
+    rows = h * (bands.size if bands else 1)
+    mask = torch.zeros((1, rows, w), dtype=torch.float32, device=device)
+    pe = sine_positional_encoding(mask, num_feats)[0]
+    if bands is None:
+        return pe
+    r0, _ = spatial.rows(h)
+    return pe[r0:r0 + h]

@@ -15,6 +15,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..parallel import spatial
 from .layers import (BatchNorm, ConvBN, DownSampling, MSConvBlock, MSMLP,
                      RepConv, SepConv, Spike, fold_t, remat, unfold_t)
 
@@ -26,8 +27,13 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the second product in f32, scaled, then rounded to ``dtype``.  A bf16
     product on the card accumulates in f32 and rounds once, which is the
     first; the second runs on f32 copies, so the scale comes before the
-    rounding."""
-    kv = k.transpose(-1, -2) @ v
+    rounding.  Inside ``parallel.spatial_sharding()`` the f32 sums over this
+    band's tokens are summed over the bands before the rounding."""
+    if spatial.bands() is not None:
+        kv = spatial.all_sum_(k.float().transpose(-1, -2) @ v.float())
+        kv = kv.to(k.dtype)
+    else:
+        kv = k.transpose(-1, -2) @ v
     return ((q.float() @ kv.float()) * scale).to(dtype)
 
 
@@ -280,6 +286,8 @@ class SpikingMetaFormer(nn.Module):
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
         """images: [B, H, W, 3] -> 4 pyramid levels [T, B, h, w, c]."""
+        if self.variant != "sdtv2":
+            spatial.refuse(f"the {self.variant} backbone")
         t_eff = 1 if self.collapse_t else self.T
         x = images[None].expand((t_eff,) + tuple(images.shape))
         x = self.block("conv1_1", self.down1_1(x))

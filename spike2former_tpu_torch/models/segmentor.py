@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear_hw
+from ..parallel import spatial
 from .layers import set_packed_residuals
 from .maskformer_head import MaskFormerHead, semantic_inference
 from .sdtv2 import SpikingMetaFormer
@@ -72,13 +73,19 @@ class Spike2Former(nn.Module):
         ``lazy_masks`` returns the masks as ``LazyMasks``.  ``valid_hw``
         [B, 2]: the valid extents of bucket-padded inputs (see
         ``MaskFormerHead``)."""
+        if valid_hw is not None:
+            spatial.refuse("valid_hw")
         return self.head(self.backbone(images), valid_hw=valid_hw)
 
     def predict_logits(self, images: torch.Tensor,
                        valid_hw: torch.Tensor | None = None) -> torch.Tensor:
         """Whole-image semantic logits at input resolution [B, H, W, ncls],
         in the model's dtype: the upsample and the semantic einsum run in
-        it, as JAX's ``predict_logits`` (segmentor.py:118-123)."""
+        it, as JAX's ``predict_logits`` (segmentor.py:118-123).  Inside
+        ``parallel.spatial_sharding()`` ``images`` is this rank's row band
+        (``parallel.spatial.shard_rows``) and so are the logits
+        (``gather_rows_h`` joins them); SDTv2 backbones with the DETR
+        decoder, unmasked, without ``valid_hw``."""
         cls_scores, mask_preds = self(images, valid_hw)
         mask = resize_bilinear_hw(mask_preds[-1].to(self.dtype),
                                   tuple(images.shape[1:3]))

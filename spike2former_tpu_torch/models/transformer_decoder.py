@@ -24,9 +24,12 @@ class DetrDecoderLayer(nn.Module):
 
     def forward(self, query, key, value, query_pos, key_pos,
                 cross_attn_mask=None, self_attn_mask=None):
-        """query [T,B,nq,C]; key/value [T,B,nk,C]; *_pos [B,n,C]."""
+        """query [T,B,nq,C]; key/value [T,B,nk,C]; *_pos [B,n,C].  Inside
+        ``parallel.spatial_sharding()`` the keys and values are this band's
+        pixel tokens."""
         query = query + self.cross_attn(query + query_pos, key + key_pos,
-                                         value, attn_mask=cross_attn_mask)
+                                         value, attn_mask=cross_attn_mask,
+                                         key_bands=True)
         q = query + query_pos
         query = query + self.self_attn(q, q, query, attn_mask=self_attn_mask)
         return query + self.ffn(query)

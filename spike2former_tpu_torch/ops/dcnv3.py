@@ -201,17 +201,40 @@ def _coord_floats(cg: int, p: int, backward: bool) -> int:
     return _warps(cg, backward) * 3 * 32 * p
 
 
-def _band_rows(h: int, howo: int, bands: int, halo: int) -> int:
+def _band_rows(h: int, howo: int, bands: int, halo: int,
+               out_rows: int | None = None) -> int:
     """Map rows a band's taps are expected to hit: the rows of its output
-    pixels (output pixel o sits on row o*H // HoWo), ``halo`` above and
-    ``halo + 1`` below (the floor tap's next row)."""
+    pixels (output pixel o sits on row ``row0 + o*out_rows // HoWo`` when
+    the pixels cover map rows ``[row0, row0 + out_rows)``, by default the
+    whole map: o*H // HoWo), ``halo`` above and ``halo + 1`` below (the
+    floor tap's next row)."""
     ob = -(-howo // bands)
-    return min(h, (ob - 1) * h // howo + 3 + 2 * halo)
+    out_rows = h if out_rows is None else out_rows
+    return min(h, (ob - 1) * out_rows // howo + 3 + 2 * halo)
+
+
+def staged_rows(plan: TilePlan, h: int, howo: int, band: int,
+                row0: int = 0, out_rows: int | None = None
+                ) -> tuple[int, int]:
+    """The map rows ``[y_lo, y_hi)`` that block ``band`` of ``plan`` stages
+    for output pixels on map rows ``[row0, row0 + out_rows)``: the
+    arithmetic of ``block_tile`` in ``csrc/dcnv3_tile.cuh``, for the
+    tests."""
+    out_rows = h if out_rows is None else out_rows
+    if plan.rows >= h:
+        return 0, h
+    ob = -(-howo // plan.bands)
+    o_lo = band * ob
+    o_hi = min(howo, o_lo + ob)
+    r_lo = row0 + o_lo * out_rows // howo
+    r_hi = row0 + max(o_hi - 1, o_lo) * out_rows // howo
+    y_lo = max(0, r_lo - plan.halo)
+    return y_lo, max(y_lo, min(h, r_hi + plan.halo + 2, y_lo + plan.rows))
 
 
 @functools.cache
 def tile_plan(n: int, h: int, w: int, howo: int, g: int, cg: int, p: int,
-              *, backward: bool) -> TilePlan:
+              *, backward: bool, out_rows: int | None = None) -> TilePlan:
     """Choose the tile of K1 (``backward`` False) or K2 for value
     [N, H, W, G*Cg] and HoWo output pixels.
 
@@ -233,7 +256,11 @@ def tile_plan(n: int, h: int, w: int, howo: int, g: int, cg: int, p: int,
     Plans are kept per shape: the wrappers ask on every launch.  They
     hold for both feature dtypes: the bf16 kernels convert the value tile
     to f32 while staging it, so a staged channel takes 4 bytes either way
-    (the ``* 4`` of ``smem_bytes``)."""
+    (the ``* 4`` of ``smem_bytes``).
+
+    ``out_rows`` (K1): the output pixels cover ``out_rows`` map rows (a
+    row band of spatially sharded inference; by default all H), so a
+    band's rows are counted on its pixels' true rows."""
     budget = BWD_SMEM_BYTES if backward else FWD_SMEM_BYTES
     groups = 2 if (not backward and n * g >= NUM_SMS and g % 2 == 0
                    and TilePlan(2, 0, h, 0).smem_bytes(w, cg, p, False)
@@ -251,18 +278,18 @@ def tile_plan(n: int, h: int, w: int, howo: int, g: int, cg: int, p: int,
     # one item a thread, at least two bands
     bands = max(1, min(2, howo), min(h, howo, math.ceil(
         howo * groups / (_warps(cg, backward) * 32))))
-    return TilePlan(groups, *_banded(h, howo, bands, fit))
+    return TilePlan(groups, *_banded(h, howo, bands, fit, out_rows))
 
 
-def _banded(h: int, howo: int, bands: int, fit: int) -> tuple[int, int,
-                                                               int]:
+def _banded(h: int, howo: int, bands: int, fit: int,
+            out_rows: int | None = None) -> tuple[int, int, int]:
     """``(bands, rows, halo)`` for a map of which at most ``fit`` rows fit
     a block: from ``bands`` bands and ``HALO_ROWS`` of halo, more bands
     (up to one a map row or output pixel) until a band's rows
     (``_band_rows``) fit, then fewer halo rows, then nothing staged."""
     halo = HALO_ROWS
     while True:
-        rows = _band_rows(h, howo, bands, halo)
+        rows = _band_rows(h, howo, bands, halo, out_rows)
         if rows <= fit:
             return bands, rows, halo
         if bands < min(h, howo):
@@ -281,14 +308,15 @@ GROUPED_BWD_SOURCE = "dcnv3_sample_grouped_bwd.cu"
 CHANNELS_PER_GROUP = (1, 2, 4, 8, 16, 32)
 # each library's entry points by the features' dtype: (name, tensor
 # pointers, ints); the ints are (n, howo, groups, points, h, w, cg), then
-# the tile plan (K1's and K2's TilePlan; the grouped pair's GroupedPlan,
+# the tile plan (K1's and K2's TilePlan, then K1's first map row and
+# count of map rows of its output pixels; the grouped pair's GroupedPlan,
 # and the grouped forward's layout flag, then its bf16 entry's column
 # rounding flag) and the device index; the stream comes last.  The bf16
 # entries of K2 and K7 take an f32 accumulator beside the feature
 # gradient.
 _ENTRY = {
-    (SOURCE, torch.float32): ("dcnv3_sample_f32", 5, 12),
-    (SOURCE, torch.bfloat16): ("dcnv3_sample_bf16", 5, 12),
+    (SOURCE, torch.float32): ("dcnv3_sample_f32", 5, 14),
+    (SOURCE, torch.bfloat16): ("dcnv3_sample_bf16", 5, 14),
     (BWD_SOURCE, torch.float32): ("dcnv3_sample_bwd_f32", 9, 12),
     (BWD_SOURCE, torch.bfloat16): ("dcnv3_sample_bwd_bf16", 10, 12),
     (GROUPED_SOURCE, torch.float32): ("dcnv3_sample_grouped_f32", 5, 12),
@@ -380,24 +408,27 @@ def _check_kernel_args(value: torch.Tensor, py: torch.Tensor,
 @torch.library.custom_op("spike2former::dcnv3_sample", mutates_args=(),
                          device_types="cuda")
 def dcnv3_sample_op(value: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, row0: int = 0,
+                    out_rows: int = -1) -> torch.Tensor:
     """K1 as a PyTorch operator (``torch.ops.spike2former.dcnv3_sample``)
     on CUDA tensors: the ctypes launch is opaque to ``torch.export`` and
     ``torch.compile``, so they see this operator, whose fake form gives
     the output's shape, and an exported program holds one call of it
     per DCN layer.  Its gradient is K2's (``dcnv3_sample_backward``):
     ``value``'s in ``value.dtype``, the coordinates' and mask's in
-    float32."""
-    return _K1.launch(value, py, px, mask)
+    float32.  ``row0``, ``out_rows``: the map rows the output pixels sit
+    on (``out_rows`` -1: the whole map), for K1's tiles."""
+    rows = None if out_rows < 0 else (row0, out_rows)
+    return _K1.launch(value, py, px, mask, rows=rows)
 
 
 @dcnv3_sample_op.register_fake
-def _(value, py, px, mask):
+def _(value, py, px, mask, row0=0, out_rows=-1):
     return value.new_empty((value.shape[0], py.shape[1], value.shape[3]))
 
 
 def _op_setup_context(ctx, inputs, output):
-    ctx.save_for_backward(*inputs)
+    ctx.save_for_backward(*inputs[:4])
 
 
 def _op_backward(ctx, dout):
@@ -406,7 +437,7 @@ def _op_backward(ctx, dout):
     dout = dout.to(saved[0].dtype).contiguous()
     if dout.data_ptr() % 16:  # a contiguous view at an odd offset
         dout = dout.clone()
-    return tuple(dcnv3_sample_backward(*saved, dout))
+    return (*dcnv3_sample_backward(*saved, dout), None, None)
 
 
 dcnv3_sample_op.register_autograd(_op_backward,
@@ -428,22 +459,36 @@ class _DCNv3Sample:
         self.bf16_launches = 0
 
     def __call__(self, value: torch.Tensor, py: torch.Tensor,
-                 px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+                 px: torch.Tensor, mask: torch.Tensor,
+                 rows: tuple[int, int] | None = None) -> torch.Tensor:
+        """``rows`` ``(row0, out_rows)``: the output pixels sit on map rows
+        ``[row0, row0 + out_rows)`` in row-major order (a row band of the
+        whole map ``value``), by default all H: where K1 stages its bands.
+        It does not change the result."""
         if not value.is_cuda:
             return dcnv3_sample_reference(value, py, px, mask)
-        return dcnv3_sample_op(value, py, px, mask)
+        if rows is None:
+            return dcnv3_sample_op(value, py, px, mask)
+        return dcnv3_sample_op(value, py, px, mask, *rows)
 
     def launch(self, value: torch.Tensor, py: torch.Tensor,
-               px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+               px: torch.Tensor, mask: torch.Tensor,
+               rows: tuple[int, int] | None = None) -> torch.Tensor:
         """Launch the forward kernel (no autograd) with ``tile_plan``'s
-        tile."""
+        tile for output pixels on the map rows ``rows`` (``__call__``)."""
         n, h, w, c, howo, g, p = _check_kernel_args(
             value, py, ("px", px), ("mask", mask))
-        plan = tile_plan(n, h, w, howo, g, c // g, p, backward=False)
+        row0, out_rows = (0, h) if rows is None else rows
+        if row0 < 0 or out_rows < 1 or row0 + out_rows > h:
+            raise ValueError(f"output rows [{row0}, {row0 + out_rows}) are "
+                             f"not in a map of {h} rows")
+        plan = tile_plan(n, h, w, howo, g, c // g, p, backward=False,
+                         out_rows=None if rows is None else out_rows)
         out = torch.empty((n, howo, c), dtype=value.dtype,
                           device=value.device)
         _launch(SOURCE, (value, py, px, mask, out),
-                (n, howo, g, p, h, w, c // g, *plan, value.device.index))
+                (n, howo, g, p, h, w, c // g, *plan, row0, out_rows,
+                 value.device.index))
         self.launches += 1
         self.bf16_launches += value.dtype == torch.bfloat16
         return out
@@ -500,21 +545,33 @@ def dcnv3_core(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, *,
                kernel_h: int = 3, kernel_w: int = 3, stride_h: int = 1,
                stride_w: int = 1, pad_h: int = 1, pad_w: int = 1,
                dilation_h: int = 1, dilation_w: int = 1, group: int = 32,
-               group_channels: int = 8, offset_scale: float = 1.0
-               ) -> torch.Tensor:
+               group_channels: int = 8, offset_scale: float = 1.0,
+               row0: int = 0) -> torch.Tensor:
     """Deformable group sampling, equivalent to ``dcnv3_core_pytorch``.
 
     x [N, H, W, G*Cg]; offset [N, Ho, Wo, G*P*2] per-point (x, y) offsets;
     mask [N, Ho, Wo, G*P] (spiked, not softmaxed) -> [N, Ho, Wo, G*Cg].
+
+    ``row0``: the offsets and mask are output rows ``[row0, row0 + Ho)``
+    of the whole map's (a row band of spatially sharded inference), and
+    ``x`` is the whole map: the reference points are the whole padded
+    map's rows ``[row0, row0 + Ho)``, normalized by its size, and K1 stages
+    the map rows those pixels sit on.  The result is those rows of the
+    whole map's output.
     """
     n, h, w, _ = x.shape
     p = kernel_h * kernel_w
     # Coordinates live in padded space as in the reference, then shift to
     # the unpadded map: a tap on the pad ring samples zero either way.
     h_pad, w_pad = h + 2 * pad_h, w + 2 * pad_w
-    ref, h_out, w_out = _reference_points(
+    ref, h_all, w_out = _reference_points(
         h_pad, w_pad, kernel_h, kernel_w, dilation_h, dilation_w,
         stride_h, stride_w)
+    h_out = offset.shape[1]
+    if row0 < 0 or row0 + h_out > h_all:
+        raise ValueError(f"output rows [{row0}, {row0 + h_out}) are not in "
+                         f"the map's {h_all}")
+    ref = ref[row0 * w_out:(row0 + h_out) * w_out]
     grid = _dilation_grid(h_pad, w_pad, kernel_h, kernel_w, dilation_h,
                           dilation_w)
     base = torch.as_tensor(
@@ -529,5 +586,9 @@ def dcnv3_core(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, *,
     px = (loc[..., 0] * w_pad - 0.5 - pad_w).contiguous()
     py = (loc[..., 1] * h_pad - 0.5 - pad_h).contiguous()
     m = mask.reshape(n, hw_out, group, p).float().contiguous()
-    out = dcnv3_sample(x.contiguous(), py, px, m)
+    # the map rows the output rows sit on, for K1's tiles
+    rows = (None if h_out == h_all
+            else (row0 * h // h_all, max(1, h_out * h // h_all)))
+    out = (dcnv3_sample(x.contiguous(), py, px, m) if rows is None
+           else dcnv3_sample(x.contiguous(), py, px, m, rows=rows))
     return out.reshape(n, h_out, w_out, group * group_channels)

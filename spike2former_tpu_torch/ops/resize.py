@@ -8,6 +8,11 @@ float32.  In a lower precision (a bf16 model's activations and logits) the
 bilinear resizes compute what JAX's do in that dtype, rounding where they
 round (``_resize_lowp``): the spikes after an upsample turn on its last
 bit.
+
+Inside ``parallel.spatial_sharding()`` the two bilinear resizes take a row band
+and upsample it by a power of two with one halo row from each
+neighbouring band (``_band_resize``): the rows they give are the whole
+map's, bit for bit.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel import spatial
 
 
 @functools.lru_cache(maxsize=64)
@@ -58,25 +65,27 @@ def _half_pixel_grid(n_in: int, n_out: int, device: torch.device,
             i0, torch.clamp(i0 + 1, max=n_in - 1), (s - i0).to(dtype)))
 
 
-def _resize_lowp(x: torch.Tensor, out_hw: tuple[int, int], ax: int
-                 ) -> torch.Tensor:
+def _resize_lowp(x: torch.Tensor, out_hw: tuple[int, int], ax: int,
+                 whole: tuple[int, int] | None = None) -> torch.Tensor:
     """Bilinear resize of axes ``ax``, ``ax + 1`` of ``x`` in its own
     dtype, as the JAX package computes it there: a pure upscale is
     ``jax.image.resize``, one product per axis with the weights in
     ``x.dtype``, f32 sums rounded after each, the axes in the order that
     its einsum takes (the one of fewer operations; H first on a tie);
     anything else is its gather with the fractions in ``x.dtype`` and each
-    product and sum rounded (ops/resize.py:34-52, 72-90)."""
+    product and sum rounded (ops/resize.py:34-52, 72-90).  ``whole``:
+    the (input, output) heights whose order a row band follows."""
     ax = ax % x.dim()
     h, w = x.shape[ax], x.shape[ax + 1]
     oh, ow = out_hw
+    wh, woh = whole or (h, oh)
     dev, dt = x.device, x.dtype
     if oh >= h and ow >= w:
         def along(t, n_out, a):
             wm = _linear_weights(t.shape[a], n_out, dev, dt)
             return (t.movedim(a, -1) @ wm).movedim(-1, a)
 
-        if oh * w * (h + ow) <= h * ow * (w + oh):
+        if woh * w * (wh + ow) <= wh * ow * (w + woh):
             return along(along(x, oh, ax), ow, ax + 1)
         return along(along(x, ow, ax + 1), oh, ax)
     y0, y1, wy = _half_pixel_grid(h, oh, dev, dt)
@@ -93,14 +102,40 @@ def _resize_lowp(x: torch.Tensor, out_hw: tuple[int, int], ax: int
     return top * (1 - wy) + bot * wy
 
 
+def _band_resize(x: torch.Tensor, out_hw: tuple[int, int], ax: int,
+                 resize) -> torch.Tensor:
+    """``resize`` of this rank's row band (axis ``ax``) inside
+    ``parallel.spatial_sharding()``: the band with one row of each neighbouring
+    band (none at the map's top and bottom, where the resize clamps),
+    upsampled by the band's factor, a power of two (its half-pixel grid
+    is then exact), and cut to the band's output rows."""
+    ax = ax % x.dim()
+    h, oh = x.shape[ax], out_hw[0]
+    f = oh // h
+    if oh != f * h or f & (f - 1):
+        raise ValueError(f"a band of {h} rows resized to {oh}: spatial "
+                         "sharding upsamples by powers of two")
+    size = spatial.bands().size
+    ext, top = spatial.halo(x, ax, 1, 1, edge="none")
+    y = resize(ext, (ext.shape[ax] * f, out_hw[1]), (h * size, oh * size))
+    return y.narrow(ax, top * f, oh)
+
+
 def resize_bilinear_hw(x: torch.Tensor, out_hw: tuple[int, int]
                        ) -> torch.Tensor:
     """Resize the LAST TWO axes (``[..., H, W]``, channels-first)."""
+    if spatial.bands() is not None and x.shape[-2] != out_hw[0]:
+        return _band_resize(x, out_hw, -2, _resize_hw)
+    return _resize_hw(x, out_hw)
+
+
+def _resize_hw(x: torch.Tensor, out_hw: tuple[int, int],
+               whole: tuple[int, int] | None = None) -> torch.Tensor:
     *lead, h, w = x.shape
     if (h, w) == tuple(out_hw):
         return x
     if x.dtype != torch.float32:
-        return _resize_lowp(x, out_hw, -2)
+        return _resize_lowp(x, out_hw, -2, whole)
     y = F.interpolate(x.reshape(-1, 1, h, w), size=tuple(out_hw),
                       mode="bilinear", align_corners=False)
     return y.reshape(*lead, *out_hw)
@@ -139,11 +174,18 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Resize ``[..., H, W, C]`` (channels-last)."""
+    if spatial.bands() is not None and x.shape[-3] != out_hw[0]:
+        return _band_resize(x, out_hw, -3, _resize_hwc)
+    return _resize_hwc(x, out_hw)
+
+
+def _resize_hwc(x: torch.Tensor, out_hw: tuple[int, int],
+                whole: tuple[int, int] | None = None) -> torch.Tensor:
     *lead, h, w, c = x.shape
     if (h, w) == tuple(out_hw):
         return x
     if x.dtype != torch.float32:
-        return _resize_lowp(x, out_hw, -3)
+        return _resize_lowp(x, out_hw, -3, whole)
     y = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
     y = F.interpolate(y, size=tuple(out_hw), mode="bilinear",
                       align_corners=False)

@@ -21,10 +21,17 @@ process group of more than one rank exists):
 * gradients (``all_reduce_grads``): summed in one flat buffer before the
   global-norm clip; the logged metrics are the global ones.
 
-``make_mesh``, ``batch_sharding``, ``replicated`` and ``spatial_sharding``
-have no meaning in torch (there is no sharded array type whose layout a
-compiler partitions): the process group is the mesh, ``shard_batch``
-gives a rank its rows and ``replicate`` broadcasts rank 0's state.
+``make_mesh(model_axis)`` is JAX's ``make_mesh`` for process groups: the
+world's ranks as a ``data`` x ``model`` grid, each model group
+``model_axis`` consecutive ranks, as JAX's ``reshape(n // model_axis,
+model_axis)`` lays the devices out.  What a sharded array type and its
+compiler do in JAX is written out in the layers: every reduction above
+runs over the mesh's data group (the world without a mesh, or with
+``model_axis=1``: the default group, as before meshes); the model group
+carries the tensor-parallel FFNs (``parallel/tp.py``) and the data group
+the row bands of spatially sharded inference (``parallel/spatial.py``).
+``shard_batch`` gives a data rank its rows and ``replicate`` broadcasts
+the first data rank's state over its data group.
 """
 from __future__ import annotations
 
@@ -32,12 +39,71 @@ import contextlib
 import datetime
 import os
 import socket
+from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable
 
 import torch
 import torch.distributed as dist
 
-_ACTIVE = [False]   # inside ``global_batch()``; read by every thread
+
+@dataclass
+class Mesh:
+    """The world's ranks as a ``data`` x ``model`` grid: this rank's data
+    group (the ranks that hold the same model shard) and model group (the
+    ranks that share one data rank), with its place and the size of each.
+    A group of None is the default group (``data``) or no group
+    (``model``, size 1).  ``layout`` is filled by
+    ``tp.shard_params_tp``: the sharded tensors' names, each with its
+    split axis and logical size."""
+
+    data: Any = None
+    model: Any = None
+    data_rank: int = 0
+    data_size: int = 1
+    model_rank: int = 0
+    model_size: int = 1
+    layout: dict = field(default_factory=dict)
+
+
+_MESH = [None]      # the mesh of ``make_mesh``; None: the world as data
+_ACTIVE = [None]    # the mesh inside ``global_batch()``; every thread
+
+
+def make_mesh(model_axis: int = 1) -> Mesh:
+    """The ``('data', 'model')`` groups of the world (JAX ``make_mesh``):
+    model groups of ``model_axis`` consecutive ranks, data groups of the
+    ranks ``model_axis`` apart.  Every rank calls it, in the same order
+    (``new_group`` is collective); it becomes the process's mesh
+    (``current_mesh``), which the reductions of ``global_batch()`` read.
+    With ``model_axis=1`` the data group is the default group itself."""
+    rank, n = world()
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"{n} ranks do not split into model groups of "
+                         f"{model_axis}")
+    mesh = Mesh(data_rank=rank // model_axis, data_size=n // model_axis,
+                model_rank=rank % model_axis, model_size=model_axis)
+    if model_axis > 1:
+        for i in range(n // model_axis):
+            g = dist.new_group(list(range(i * model_axis,
+                                          (i + 1) * model_axis)))
+            if i == mesh.data_rank:
+                mesh.model = g
+        if n > model_axis:
+            for j in range(model_axis):
+                g = dist.new_group(list(range(j, n, model_axis)))
+                if j == mesh.model_rank:
+                    mesh.data = g
+    _MESH[0] = mesh
+    return mesh
+
+
+def current_mesh() -> Mesh:
+    """The mesh ``make_mesh`` made last in this process, or the world as
+    one data axis."""
+    if _MESH[0] is not None:
+        return _MESH[0]
+    rank, n = world()
+    return Mesh(data_rank=rank, data_size=n)
 
 
 def distributed_init(coordinator_address: str | None = None,
@@ -100,20 +166,22 @@ def barrier() -> None:
 
 
 def shutdown() -> None:
-    """Leave the process group, if there is one."""
+    """Leave the process group, if there is one, and forget the mesh."""
+    _MESH[0] = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
 
 @contextlib.contextmanager
 def global_batch():
-    """Inside the block, where a process group of more than one rank
-    exists, the reductions below run over every rank's rows.  The flag
-    is process-wide: the autograd engine runs a card's backward, and with
-    it the recomputations of checkpointed blocks, on a thread of its
-    own."""
+    """Inside the block, where the data axis of ``current_mesh()`` has
+    more than one rank, the reductions below run over every data rank's
+    rows.  The flag is process-wide: the autograd engine runs a card's
+    backward, and with it the recomputations of checkpointed blocks, on a
+    thread of its own."""
+    mesh = current_mesh()
     prev = _ACTIVE[0]
-    _ACTIVE[0] = world()[1] > 1
+    _ACTIVE[0] = mesh if mesh.data_size > 1 else None
     try:
         yield
     finally:
@@ -121,20 +189,26 @@ def global_batch():
 
 
 def synced() -> bool:
-    """Whether the reductions run over every rank now."""
-    return _ACTIVE[0]
+    """Whether the reductions run over every data rank now."""
+    return _ACTIVE[0] is not None
+
+
+def _data() -> Mesh:
+    return _ACTIVE[0] or current_mesh()
 
 
 def _all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks in place; returns it."""
-    dist.all_reduce(t)
+    """Sum ``t`` over the data group in place; returns it."""
+    dist.all_reduce(t, group=_data().data)
     return t
 
 
 def _all_gather(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t``, concatenated along axis 0 in rank order."""
-    parts = [torch.empty_like(t) for _ in range(world()[1])]
-    dist.all_gather(parts, t.contiguous())
+    """Every data rank's ``t``, concatenated along axis 0 in rank
+    order."""
+    mesh = _data()
+    parts = [torch.empty_like(t) for _ in range(mesh.data_size)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.data)
     return torch.cat(parts)
 
 
@@ -191,7 +265,7 @@ def global_draw(draw: Callable, axis: int = 0) -> Callable:
     outside ``global_batch()``."""
     if not synced():
         return draw
-    rank, size = world()
+    rank, size = _data().data_rank, _data().data_size
 
     def local(shape, *args):
         shape = tuple(shape)
@@ -211,7 +285,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        ctx.rank, ctx.n = world()[0], x.shape[0]
+        ctx.rank, ctx.n = _data().data_rank, x.shape[0]
         return _all_gather(x)
 
     @staticmethod
@@ -233,15 +307,32 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def all_reduce_grads(params: Iterable[torch.Tensor]) -> None:
-    """Sum the ``.grad`` of ``params`` over the ranks inside
+    """Sum the ``.grad`` of ``params`` over the data ranks inside
     ``global_batch()``, as one flat buffer (parameters without a gradient
-    stay so: every rank runs the same graph)."""
-    if not synced():
-        return
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    flat = _all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    stay so: every rank runs the same graph).  Under tensor parallelism
+    the gradients of the parameters every rank of a model group holds
+    whole are then its first rank's on every rank (one broadcast): the
+    ranks compute the same gradient, but the card's atomics (the DCN
+    sampler's backward, cuDNN's weight gradients) sum it in another
+    order on each, and the replicas must stay bitwise equal."""
+    params = [p for p in params if p.grad is not None]
+    if synced() and params:
+        _copy_flat_([p.grad for p in params], _all_reduce_)
+    mesh = current_mesh()
+    whole = [p.grad for p in params if getattr(p, "tp_axis", None) is None]
+    if mesh.model_size > 1 and whole:
+        src = dist.get_global_rank(mesh.model, 0)
+
+        def first_rank(t):
+            dist.broadcast(t, src, group=mesh.model)
+            return t
+
+        _copy_flat_(whole, first_rank)
+
+
+def _copy_flat_(grads: list[torch.Tensor], collective) -> None:
+    """``collective`` on one flat buffer of ``grads``, copied back."""
+    flat = collective(torch.cat([g.reshape(-1) for g in grads]))
     parts = flat.split([g.numel() for g in grads])
     torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(parts, grads)])
 
@@ -258,11 +349,16 @@ def all_reduce_metrics(metrics: dict[str, torch.Tensor]
     return dict(zip(metrics, flat.unbind()))
 
 
-def shard_batch(batch: Any, pid: int, pcount: int) -> Any:
+def shard_batch(batch: Any, pid: int | None = None,
+                pcount: int | None = None) -> Any:
     """Rank ``pid``'s rows of a global batch (a tensor, an array or a
     tuple of them, split along axis 0 into ``pcount`` equal blocks): the
     per-rank loader's convention, which the one-process run on the whole
-    batch is held to."""
+    batch is held to.  By default the data rank and size of
+    ``current_mesh()``: the ranks of a model group take the same rows."""
+    if pid is None or pcount is None:
+        mesh = current_mesh()
+        pid, pcount = mesh.data_rank, mesh.data_size
     if isinstance(batch, (tuple, list)):
         return type(batch)(shard_batch(b, pid, pcount) for b in batch)
     n = batch.shape[0]
@@ -274,14 +370,19 @@ def shard_batch(batch: Any, pid: int, pcount: int) -> Any:
 
 @torch.no_grad()
 def replicate(module_or_state: Any) -> Any:
-    """Rank 0's parameters and buffers (an ``nn.Module``, a ``TrainState``
-    or a dict of tensors) on every rank, broadcast in place; returns its
-    argument.  Nothing without a process group."""
-    if world()[1] <= 1:
+    """The first data rank's parameters and buffers (an ``nn.Module``, a
+    ``TrainState`` or a dict of tensors) on every rank of its data group
+    (``current_mesh()``'s: the world without tensor parallelism),
+    broadcast in place; returns its argument.  Nothing without a process
+    group."""
+    mesh = current_mesh()
+    if mesh.data_size <= 1:
         return module_or_state
+    src = (0 if mesh.data is None
+           else dist.get_global_rank(mesh.data, 0))
     obj = getattr(module_or_state, "model", module_or_state)
     tensors = (list(obj.state_dict().values())
                if isinstance(obj, torch.nn.Module) else list(obj.values()))
     for t in tensors:
-        dist.broadcast(t, 0)
+        dist.broadcast(t, src, group=mesh.data)
     return module_or_state

@@ -1099,3 +1099,41 @@ def test_msda_and_deformable_encoder_card_match_cpu(cuda):
         got = enc.to(cuda)(q.to(cuda), shapes)
     assert (got.cpu() - q).abs().max() > 0.1
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "far", "zero", "integer"])
+def test_k1_with_a_first_row_matches_plain_on_the_banded_map(cuda, dtype,
+                                                             kind):
+    """K1 on each half of the output rows of the Cityscapes /16 map
+    (64x128, G=32, Cg=8: banded, as no group's map fits a block), the
+    value map whole and the first row a kernel argument, as spatially
+    sharded inference hands it: within 2e-5 of the plain version in f32,
+    one bf16 ulp in bf16; the two halves together are the whole map's
+    launch."""
+    from chip_smoke import sampler_inputs, within_one_bf16_ulp
+
+    n, h, w, g, cg, p = 1, 64, 128, 32, 8, 9
+    gen = torch.Generator().manual_seed(7)
+    value, py, px, mask = sampler_inputs(n, h, w, g, cg, p, kind, gen,
+                                         device=cuda)
+    value = value.to(getattr(torch, dtype))
+    whole = dcnv3.dcnv3_sample(value, py, px, mask)
+    half = h // 2
+    for row0 in (0, half):
+        sl = slice(row0 * w, (row0 + half) * w)
+        args = [t[:, sl].contiguous() for t in (py, px, mask)]
+        plan = dcnv3.tile_plan(n, h, w, half * w, g, cg, p, backward=False,
+                               out_rows=half)
+        assert 0 < plan.rows < h
+        before = dcnv3.dcnv3_sample.launches
+        got = dcnv3.dcnv3_sample(value, *args, rows=(row0, half))
+        torch.cuda.synchronize()
+        assert dcnv3.dcnv3_sample.launches == before + 1
+        want = dcnv3.dcnv3_sample_reference(value, *args)
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+        else:
+            assert within_one_bf16_ulp(got.cpu(), want.cpu())
+        assert torch.equal(got, whole[:, sl])
+

@@ -50,6 +50,7 @@ def test_port_and_chip_smoke_import_without_jax():
                  "models.tebn", "losses.pixel", "ops.msda",
                  "models.deformable", "ops.dcnv3_grouped",
                  "data.synthetic", "parallel", "parallel.mesh",
+                 "parallel.tp", "parallel.spatial",
                  "models.spikeformer_lib", "models.cyclemlp", "ops.rnn",
                  "ops.encoding", "ann2snn", "lava_exchange",
                  "data.biomedical", "runtime"):
