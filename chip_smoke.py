@@ -314,6 +314,19 @@ parallelism and row-sharded inference of slice sixteen, run last:
       worst element printed; K1 6 launches a rank and image (each f32
       call held to its plain version), ms and peak GiB of every rank
       beside one process's.
+  (spatial families) two gloo ranks on the one card against this
+      process, as (spatial): ``SDTV3_CITY`` at full width on its whole
+      1024x2048 image in f32 and bf16; then, in one launch, the flagship's
+      bucketed eval of a 683x512 image (``valid_hw``), its Mask2Former
+      and DAB-DETR forms, the panoptic preset (its merge, on confident
+      weights) and SDTv3-MAE at 512x512, and the FPN family's 19M preset
+      in bf16, MS-ResNet-18 (bands at /32) and the cascade in bf16 at
+      512x512.
+      The ranks bitwise equal, >= 0.99 of the logits within 1e-3 of one
+      process and >= 0.99 of the classes (panoptic: of ``sem`` and
+      ``inst``) equal; K1 6 launches a rank and image on every MaskFormer
+      path, each call held to its plain version (bf16: within one ulp);
+      ms and peak GiB a rank beside one process's.
 
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -362,7 +375,8 @@ from spike2former_tpu_torch.engine.checkpoint import load_reference_model
 from spike2former_tpu_torch.engine.config import TestConfig, get_config
 from spike2former_tpu_torch.engine.train import make_train_step_fpn
 from spike2former_tpu_torch.engine.logging import read_scalars
-from spike2former_tpu_torch.engine.inference import (postprocess_pred,
+from spike2former_tpu_torch.engine.inference import (bucket_hw,
+                                                      postprocess_pred,
                                                       whole_panoptic,
                                                       slide_origins,
                                                       whole_logits)
@@ -2425,11 +2439,13 @@ def hold_captured(store: dict, tag: str, k1: int, k2: int = 0,
           f"calls, expected {k1} and {k2}")
     worst = dict(k1=0.0, k2=0.0, shapes=set())
     for value, py, px, mask, out in store.get("k1", []):
-        err = (out - dcnv3.dcnv3_sample_reference(value, py, px, mask)
-               ).abs().max().item()
-        check(bool(torch.isfinite(out).all()) and err <= KERNEL_TOL,
-              f"{tag}: K1 at {tuple(value.shape)} vs plain {err:.3g} > "
-              f"{KERNEL_TOL}")
+        plain = dcnv3.dcnv3_sample_reference(value, py, px, mask)
+        err = (out.float() - plain.float()).abs().max().item()
+        close = (within_one_bf16_ulp(out, plain)
+                 if value.dtype == torch.bfloat16 else err <= KERNEL_TOL)
+        check(bool(torch.isfinite(out).all()) and close,
+              f"{tag}: K1 at {tuple(value.shape)} {value.dtype} vs plain "
+              f"{err:.3g} (tol {KERNEL_TOL} in f32, one ulp in bf16)")
         worst["k1"] = max(worst["k1"], err)
         worst["shapes"].add(("K1", tuple(value.shape)))
     for value, py, px, mask, dout, *got in store.get("k2", []):
@@ -4415,20 +4431,23 @@ def phase_k1_rows(gen) -> dict:
 
 
 def par_forward(model, img: np.ndarray, mesh=None,
-                capture: bool = False) -> dict:
+                capture: bool = False, valid_hw=None) -> dict:
     """``model.predict_logits`` of one image on the card (row-sharded
-    over ``mesh``'s data group when given), run once with the launches
-    counted (and, with ``capture``, every K1 call held to its plain
-    version), then timed twice; the logits, launches, host ms and peak
-    GiB."""
+    over ``mesh``'s data group when given, in bands of the model's
+    ``band_stride``; ``valid_hw`` the image's valid extent), run once
+    with the launches counted (and, with ``capture``, every K1 call held
+    to its plain version), then timed twice; the logits, launches, host
+    ms and peak GiB."""
     x = preprocess(torch.from_numpy(img[None]).cuda())
+    vhw = None if valid_hw is None else torch.tensor([valid_hw]).cuda()
 
     def run():
         with torch.no_grad(), f32_precision():
             if mesh is None:
-                return model.predict_logits(x)
+                return model.predict_logits(x, vhw)
             with parallel.spatial_sharding(mesh):
-                band = model.predict_logits(parallel.shard_rows(x))
+                band = model.predict_logits(
+                    parallel.shard_rows(x, stride=model.band_stride), vhw)
                 return parallel.gather_rows_h(band)
 
     torch.cuda.synchronize()
@@ -4719,6 +4738,184 @@ def phase_tp_spatial(smi: str) -> dict:
     record("(spatial) tiny 64x64", rs, single)
     out["tiny_spatial"] = gap
     log("par", f"(tp) and (spatial) took {time.perf_counter() - t0:.1f}s "
+        f"(ranks {t_ranks:.1f}s)")
+    return out
+
+
+# --- slice seventeen: row-sharded inference of every model family -----------
+
+SDTV3_CITY = "SDTv3_b_Spike2former_Cityscapes_512x1024"
+FAM_BUCKET = (683, 512)        # a keep-ratio eval image, in its 128 bucket
+FAM_HW = (512, 512)
+# name -> (preset, overrides, capture K1): the second launch's models
+FAM_MODELS = {
+    "sdtv3mae": (V3_PRESETS["sdtv3mae"], [], True),
+    "m2f": (PRESET, VARIANTS["m2f"], True),
+    "dab": (PRESET, VARIANTS["dab"], True),
+    "fpn bf16": (FPN_PRESET, BF16_OPTS, False),
+    "msresnet18": ("fpn_msresnet18_512x512_ade20k", [], False),
+    # in f32 the cascade's own logits move as much under another
+    # summation order (cuDNN off: 0.0072 within 1e-3, classes 0.999) as
+    # under bands (tests/torch_spatial_sensitivity.py); in bf16 the bands
+    # are bitwise one process's
+    "cascade bf16": ("cascade_fpn_sdtv2_512x512_ade20k", BF16_OPTS, False),
+}
+
+
+def fam_images() -> dict:
+    """The seeded uint8 images of (spatial families): the Cityscapes
+    image, the 512x512 one and the bucketed one padded to its bucket
+    (zeros, as the eval pads)."""
+    rng = np.random.default_rng(19)
+    imgs = {hw: rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for hw in (CITYSCAPES_SHAPE, FAM_HW, FAM_BUCKET)}
+    bh, bw = bucket_hw(*FAM_BUCKET)
+    imgs["bucket"] = np.pad(imgs.pop(FAM_BUCKET),
+                            ((0, bh - FAM_BUCKET[0]),
+                             (0, bw - FAM_BUCKET[1]), (0, 0)))
+    return imgs
+
+
+def par_panoptic(model, img: np.ndarray, mesh=None) -> dict:
+    """``whole_panoptic`` of one image as ``par_forward`` runs
+    ``predict_logits`` (every K1 call held); ``sem`` and ``inst``
+    gathered."""
+    x = torch.from_numpy(img[None]).cuda()
+
+    def run():
+        if mesh is None:
+            return whole_panoptic(model, x, num_things=80)
+        with parallel.spatial_sharding(mesh):
+            sem, inst = whole_panoptic(model, parallel.shard_rows(x),
+                                       num_things=80)
+            return parallel.gather_rows_h(sem), parallel.gather_rows_h(inst)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    store: dict = {}
+    with capture_dcn(store):
+        sem, inst = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    held = hold_captured(store, "par", k1=launches["k1"])["k1"]
+    del store
+    ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return dict(sem=sem.cpu(), inst=inst.cpu(), launches=launches, ms=ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                held=held)
+
+
+def fam_cityscapes(mesh_of) -> dict:
+    """``SDTV3_CITY`` at full width on its whole image, f32 and bf16."""
+    img = fam_images()[CITYSCAPES_SHAPE]
+    res = {}
+    for tag, opts in (("f32", []), ("bf16", BF16_OPTS)):
+        im = api.init_model(SDTV3_CITY, overrides=opts, seed=0)
+        res[tag] = par_forward(im.model, img, mesh_of(1), capture=True)
+        del im
+        torch.cuda.empty_cache()
+    return res
+
+
+def fam_models(mesh_of) -> dict:
+    """The bucketed eval, ``FAM_MODELS`` and the panoptic merge, each
+    built from seed 0."""
+    imgs = fam_images()
+    mesh = mesh_of(1)
+    im = api.init_model(PRESET, seed=0)
+    res = {"bucketed": par_forward(im.model, imgs["bucket"], mesh,
+                                   capture=True, valid_hw=FAM_BUCKET)}
+    del im
+    for name, (preset, opts, capture) in FAM_MODELS.items():
+        im = api.init_model(preset, overrides=opts, seed=0)
+        res[name] = par_forward(im.model, imgs[FAM_HW], mesh,
+                                capture=capture)
+        del im
+        torch.cuda.empty_cache()
+    im = api.init_model(PANOPTIC, seed=0)
+    head = im.model.head
+    with torch.no_grad():
+        # confident queries, as confident_tiny_model's, and the 80 thing
+        # classes favoured: on the 512x512 image the merge keeps two
+        # thing instances that cover it (random weights' are all void)
+        head.query_feat.copy_(2.0 * torch.randn(
+            head.query_feat.shape, generator=torch.Generator().manual_seed(
+                119)))
+        head.cls_embed.weight.mul_(16.0)
+        head.cls_embed.bias[:80] += 20.0
+        head.mask_embed.Dense_2.weight.mul_(32.0)
+    res["panoptic"] = par_panoptic(im.model, imgs[FAM_HW], mesh)
+    return res
+
+
+PAR_SETS.update(fam_cityscapes=fam_cityscapes, fam_models=fam_models)
+
+
+def phase_spatial_families(smi: str) -> dict:
+    """(spatial families): two gloo ranks on the one card against this
+    process, ``fam_cityscapes`` and then ``fam_models`` (one launch
+    each); the gates of (spatial), K1's 6 launches a rank and image on
+    every MaskFormer path (none on the FPN family's), ms and peak GiB a
+    rank beside one process's."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = {which: par_launch(which, 2, tmp)
+                 for which in ("fam_cityscapes", "fam_models")}
+    t_ranks = time.perf_counter() - t0
+    one = {"fam_cityscapes": fam_cityscapes(lambda _: None),
+           "fam_models": fam_models(lambda _: None)}
+    out = dict(launches=[], k1_err=0.0, k1_bf16_err=0.0)
+    for which, results in one.items():
+        for name, single in results.items():
+            rs = [r[name] for r in ranks[which]]
+            what = (f"(spatial families) {SDTV3_CITY} {name} "
+                    f"{CITYSCAPES_SHAPE}" if which == "fam_cityscapes"
+                    else f"(spatial families) {name}")
+            if name == "panoptic":
+                for key in ("sem", "inst"):
+                    check(all(torch.equal(r[key], rs[0][key])
+                              for r in rs[1:]),
+                          f"{what}: the ranks' {key} differ")
+                    same = (rs[0][key] == single[key]).float().mean().item()
+                    check(same >= FULL_AGREE, f"{what}: {key} equal on "
+                          f"{same:.6f} of the pixels (need {FULL_AGREE})")
+                    out[name, key] = same
+                check(bool((single["sem"] >= 0).any()),
+                      f"{what}: one process's merge is all void")
+                log("par", f"{what}: sem/inst equal to one process on "
+                    f"{out[name, 'sem']:.6f}/{out[name, 'inst']:.6f} of "
+                    f"the pixels; one process: "
+                    f"{(single['sem'] >= 0).float().mean().item():.4f} of "
+                    f"the pixels not void, "
+                    f"{len(torch.unique(single['inst'])) - 1} instances")
+            else:
+                out[name] = full_width_gate(
+                    what, [r["logits"] for r in rs], single["logits"])
+            maskformer = "held" in single and single["held"] is not None
+            for r in rs + [single]:
+                check(r["launches"]["k1"] == (6 if maskformer else 0),
+                      f"{what}: K1 {r['launches']}")
+            out["launches"] += [r["launches"] for r in rs] + [
+                single["launches"]]
+            held = [r["held"] for r in rs + [single]
+                    if r.get("held") is not None]
+            err = "k1_bf16_err" if name == "bf16" else "k1_err"
+            out[err] = max([out[err]] + held)
+            log("par", f"{what}: K1 launches a rank "
+                f"{[r['launches']['k1'] for r in rs]} (bf16 "
+                f"{[r['launches']['k1_bf16'] for r in rs]}; one process "
+                f"{single['launches']['k1']}); ms a rank "
+                f"{[fmt_ms(np.atleast_1d(r['ms'])) for r in rs]} against "
+                f"{fmt_ms(np.atleast_1d(single['ms']))}; peak GiB a rank "
+                f"{[round(r['peak_gib'], 3) for r in rs]} against "
+                f"{single['peak_gib']:.3f} on {smi}")
+    log("par", f"(spatial families) took {time.perf_counter() - t0:.1f}s "
         f"(ranks {t_ranks:.1f}s)")
     return out
 
@@ -5056,6 +5253,8 @@ def main() -> int:
         f"{time.perf_counter() - t_new:.1f}s")
     torch.cuda.empty_cache()
     par = phase_tp_spatial(smi)
+    torch.cuda.empty_cache()
+    sfam = phase_spatial_families(smi)
 
     # the main path's launches: serve, the three eval modes, the train
     # steps at the defaults, the overflow step, the host-matcher steps,
@@ -5077,7 +5276,7 @@ def main() -> int:
         *(var[n]["launches"] for n in VARIANTS),
         fpn["launches"], fpn_train["launches"], *fam["launches"],
         *fb["launches"], *dd["launches"], *dp["launches"],
-        *par["launches"]]
+        *par["launches"], *sfam["launches"]]
     k1_launches = s["launches"] + sum(p["k1"] for p in paths)
     k2_launches = sum(p["k2"] for p in paths)
     grouped = [s["grouped"][i] + sum(p["grouped"][i] for p in paths)
@@ -5087,7 +5286,8 @@ def main() -> int:
                     for i in (0, 1)]
     # the bf16 paths: the bf16 requests and both bf16 train runs
     bf16_paths = [bs["launches"], bt["bf16"]["launches"],
-                  bt["bf16+remat+packed"]["launches"], *par["launches"]]
+                  bt["bf16+remat+packed"]["launches"], *par["launches"],
+                  *sfam["launches"]]
     k1_bf16 = sum(p["k1_bf16"] for p in bf16_paths)
     k2_bf16 = sum(p["k2_bf16"] for p in bf16_paths)
 
@@ -5108,7 +5308,8 @@ def main() -> int:
                       pt["held"]["k1"], pr["k1_err"], sv["held"]["k1"],
                       *(v3[v]["held"]["k1"] for v in V3_PRESETS),
                       *(var[n]["held"]["k1"] for n in VARIANTS),
-                      dp["held"]["k1"], kr["max_abs_err"], par["k1_err"])
+                      dp["held"]["k1"], kr["max_abs_err"], par["k1_err"],
+                      sfam["k1_err"])
     k2_path_err = max(pt["held"]["k2"], pr["k2_err"],
                       *(v3[v]["held"]["k2"] for v in V3_PRESETS),
                       *(var[n]["held"]["k2"] for n in VARIANTS),
@@ -5131,7 +5332,8 @@ def main() -> int:
     # the bf16 forms: K1 at the serve shape, K2 at the train shape
     kernels.append(row("dcnv3_sample[bf16]", dcnv3.SOURCE,
                        "dcnv3_sample_pallas_t5", k1_bf16,
-                       max(kb["k1_err"], kr["bf16_err"]), kb["k1", 1]))
+                       max(kb["k1_err"], kr["bf16_err"],
+                           sfam["k1_bf16_err"]), kb["k1", 1]))
     kernels.append(row("dcnv3_sample_bwd[bf16]", dcnv3.BWD_SOURCE,
                        "dcnv3_sample_pallas_t5_bwd", k2_bf16, kb["k2_err"],
                        kb["k2", 6]))
@@ -5203,7 +5405,9 @@ def main() -> int:
                     f"{t['library_ms']:.5f}"
                     for (h, w, dt, r0), t in kr["times"].items())
         + f"; (tp)/(spatial) K1/K2 launches "
-        f"{[(n['k1'], n['k2'], n['k1_bf16']) for n in par['launches']]}")
+        f"{[(n['k1'], n['k2'], n['k1_bf16']) for n in par['launches']]}"
+        + f"; (spatial families) K1 launches (f32, bf16) "
+        f"{[(n['k1'], n['k1_bf16']) for n in sfam['launches']]}")
     log("total", f"chip_smoke took {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

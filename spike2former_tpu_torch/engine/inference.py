@@ -17,6 +17,7 @@ from ..device import f32_precision
 from ..evaluation.tta import panoptic_inference
 from ..models.segmentor import preprocess
 from ..ops.resize import resize_bilinear, resize_bilinear_hw
+from ..parallel import spatial
 
 
 @torch.inference_mode()
@@ -44,7 +45,10 @@ def whole_panoptic(model: nn.Module, images_u8: torch.Tensor,
     logits resized bilinearly to the input, all in full float32
     (``f32_precision``).  As in the JAX package no ``valid_hw`` is passed:
     the padding of a bucketed input takes part in the forward as image
-    content."""
+    content.  Inside ``parallel.spatial_sharding()`` ``images_u8`` is this
+    rank's row band (``shard_rows``), as for ``predict_logits``, and so
+    are ``sem`` and ``inst``: the merge is per pixel, on the band's
+    upsampled mask logits, and ``gather_rows_h`` joins the maps."""
     with f32_precision():
         cls_scores, mask_preds = model(preprocess(images_u8))
         mask = resize_bilinear_hw(mask_preds[-1].float(),
@@ -85,6 +89,7 @@ def slide_logits(model: nn.Module, images_u8: torch.Tensor,
     package stacks them) and run as batched forwards of ``window_batch``
     crops, by default about eight 512x512 equivalents; the logits are
     summed in f32 and divided by each pixel's window count."""
+    spatial.refuse("slide inference")
     b, h, w, _ = images_u8.shape
     ch, cw = min(crop_size[0], h), min(crop_size[1], w)
     x = preprocess(images_u8)

@@ -47,7 +47,9 @@ def panoptic_inference(cls_scores: torch.Tensor, mask_preds: torch.Tensor,
     cls_scores [B, nq, K+1]; mask_preds [B, nq, H, W] logits.  Returns
     (sem [B, H, W] int32, the winner's class or -1, inst [B, H, W] int32,
     the winning query + 1 where its class is a thing, else 0).  Ties go to
-    the first class and the first query, as ``jnp.argmax``'s do."""
+    the first class and the first query, as ``jnp.argmax``'s do.  Every
+    pixel's answer reads only that pixel's logits, so a row band of
+    ``mask_preds`` gives that band of the maps."""
     probs = torch.softmax(cls_scores.float(), -1)[..., :-1]
     labels = probs.argmax(-1)                              # [B, nq]
     scores = probs.gather(-1, labels[..., None])[..., 0]

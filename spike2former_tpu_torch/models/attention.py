@@ -58,9 +58,13 @@ class SpikeMHA(nn.Module):
     JAX's (attention.py:129-144): they run on f32 copies of bf16 spikes.
 
     ``key_bands``: the keys and values are this rank's band of the pixel
-    tokens inside ``parallel.spatial_sharding()``; both associations' f32
-    sums over the keys are summed over the bands before they are scaled
-    or rounded, and ``factored`` reads the global key count.
+    tokens inside ``parallel.spatial_sharding()`` (the queries are the
+    same on every rank); both associations' f32 sums over the keys are
+    summed over the bands before they are scaled or rounded, and
+    ``factored`` reads the global key count.  ``token_bands``: queries,
+    keys and values are all this band's pixel tokens (self-attention over
+    the map): every query reads every key, so the keys' and values'
+    spikes are gathered whole and the band's queries attend to them.
     """
 
     def __init__(self, embed_dims: int, num_heads: int = 8,
@@ -79,15 +83,17 @@ class SpikeMHA(nn.Module):
         self.BatchNorm_0 = BatchNorm(embed_dims)
 
     def forward(self, query, key, value, attn_mask=None,
-                key_bands: bool = False):
+                key_bands: bool = False, token_bands: bool = False):
         q = self.Spike_0(self.q(query))
         k = self.Spike_1(self.k(key))
         v = self.Spike_2(self.v(value))
+        if token_bands:
+            k, v = (spatial.gather_rows_h(y, -2) for y in (k, v))
         dt = q.dtype
         qh, kh, vh = (_split_heads(y, self.num_heads).float()
                       for y in (q, k, v))
         bands = spatial.bands() if key_bands else None
-        n_keys = key.shape[-2] * (bands.size if bands else 1)
+        n_keys = k.shape[-2] * (bands.size if bands else 1)
         total = spatial.all_sum_ if bands else (lambda t: t)
         if (self.factored and attn_mask is None
                 and n_keys >= self.factored_min_kv):
@@ -214,6 +220,7 @@ class LinearSpikeMHA(nn.Module):
         return unfold_t(yf.reshape(tb, h * w, c), t)
 
     def forward(self, query, key, value):
+        spatial.refuse("LinearSpikeMHA")
         q = self.Spike_0(self.q(query))
         if self.mode == "CA":
             k = self._rep(key, self.k_rep, self.Spike_1, self.Spike_2)
@@ -288,6 +295,7 @@ class PEMCrossAttention(nn.Module):
 
     def forward(self, tgt, memory, memory_mask=None, pos=None,
                 query_pos=None):
+        spatial.refuse("PEMCrossAttention")
         if pos is not None:
             memory = memory + pos
         if query_pos is not None:
@@ -349,6 +357,7 @@ class SpikeMultiheadAttention(nn.Module):
 
     def forward(self, query, key, value, query_pos=None, key_pos=None,
                 attn_mask=None):
+        spatial.refuse("SpikeMultiheadAttention")
         if query_pos is not None:
             query = query + query_pos
         if key_pos is not None and self.attn_type != "LinearCA":

@@ -15,7 +15,6 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear
-from ..parallel import spatial
 from .fpn import ConvBNT, FPNHead, FPNNeck, Neuron, build_backbone
 from .layers import conv2d, conv_nhwc, fold_t, unfold_t
 
@@ -71,6 +70,7 @@ class CascadeSegmentor(nn.Module):
         self.backbone, chans, strides = build_backbone(
             variant, embed_dim, backbone_heads, T, depths_stage3,
             depths_stage4, dtype)
+        self.band_stride = strides[-1]
         self.neck = FPNNeck(chans, neck_channels, neuron, dtype)
         self.stage0 = FPNHead(num_classes, neck_channels, head_channels,
                               strides, neuron, dtype=dtype)
@@ -79,9 +79,11 @@ class CascadeSegmentor(nn.Module):
                 num_classes, neck_channels, head_channels, neuron, dtype))
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
-        spatial.refuse("the FPN family")
         """Each stage's logits at the finest stride, averaged over T:
-        the training contract (each stage gets its own decode loss)."""
+        the training contract (each stage gets its own decode loss).
+        Inside ``parallel.spatial_sharding()`` a row band's, as
+        ``FPNSegmentor``'s: each refinement embeds the previous stage's
+        band of logits."""
         feats = self.neck(self.backbone(images))
         outs = [self.stage0(feats)]
         for i in range(1, self.num_stages):

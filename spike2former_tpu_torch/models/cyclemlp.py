@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .layers import Linear
 
 
@@ -70,6 +71,7 @@ class CycleMLP(nn.Module):
         self.proj = Linear(dim, dim, dtype=dtype)
 
     def forward(self, x):
+        spatial.refuse("CycleMLP")
         h, w, ch = self.sfc_h(x), self.sfc_w(x), self.mlp_c(x)
         a = (h + w + ch).mean((1, 2))                            # [B, C]
         a = self.re_fc2(F.gelu(self.re_fc1(a)))

@@ -26,6 +26,7 @@ import math
 import torch
 from torch import nn
 
+from ..parallel import spatial
 from .attention import MSDAFFN
 from .layers import BatchNorm, Linear, Spike, fold_t, unfold_t
 
@@ -84,7 +85,12 @@ class ConditionalSpikeAttention(nn.Module):
     Cross-attention: q, k = [content | position] per head (a score feature
     dim of 2C), with ``qpos_proj`` added in the first layer only
     (``is_first``).  Spiked q, k and v, scores over sqrt(that dim), masked
-    scores zeroed (utils.py:685-735)."""
+    scores zeroed (utils.py:685-735).
+
+    Inside ``parallel.spatial_sharding()`` the cross-attention's keys are
+    this band's pixel tokens: each score is the band's own, and the f32
+    sum of the scores times the values over the keys is summed over the
+    bands before it is rounded, so every rank gets the same queries."""
 
     def __init__(self, embed_dims: int, num_heads: int = 8,
                  cross: bool = False, is_first: bool = False,
@@ -144,6 +150,8 @@ class ConditionalSpikeAttention(nn.Module):
             scores = scores.masked_fill(attn_mask, 0.0)
         out = torch.einsum("tbhnm,tbmhc->tbnhc",
                            scores.to(v.dtype).float(), v.float())
+        if self.cross:
+            out = spatial.all_sum_(out)
         out = out.reshape(t, b, nq, c).to(query.dtype)
         outf, _ = fold_t(out)
         outf = self.BatchNorm_0(self.out_proj(self.Spike_3(outf)))

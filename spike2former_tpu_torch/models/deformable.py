@@ -11,6 +11,12 @@ through a spike instead of a softmax; the sampling is ``ops/msda.py``.
 with layer-scale (1e-6) residuals.  No preset builds these modules, in
 either package.  Tokens are ``[T, B, N, C]``; submodules carry the flax
 names, so ``engine/convert.py:from_jax_variables`` maps JAX's variables.
+
+Inside ``parallel.spatial_sharding()`` the tokens are this rank's row
+band of each level (``spatial_shapes`` the bands' shapes), concatenated
+level by level: the sampling may read anywhere in every level, so each
+level's value map is gathered whole, and the reference points and the
+offsets' normalisation are the whole maps'.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.msda import ms_deform_attn
+from ..parallel import spatial
 from .attention import MSDAFFN, TokenConvBN
 from .layers import Spike, unfold_t
 
@@ -40,10 +47,49 @@ def encoder_reference_points(spatial_shapes: Sequence[tuple[int, int]],
     return ref[:, None].expand(-1, len(spatial_shapes), -1)
 
 
+def _whole_shapes(spatial_shapes: Sequence[tuple[int, int]]
+                  ) -> list[tuple[int, int]]:
+    """The levels' whole shapes: ``spatial_shapes`` outside
+    ``parallel.spatial_sharding()``, the bands' heights times their count
+    inside it."""
+    b = spatial.bands()
+    return [(h * (b.size if b else 1), w) for h, w in spatial_shapes]
+
+
+def _gather_levels(val: torch.Tensor,
+                   spatial_shapes: Sequence[tuple[int, int]]
+                   ) -> torch.Tensor:
+    """[B, sum(h*w), ...] tokens of the levels' row bands -> the whole
+    levels' [B, sum(H*W), ...] (every band's rows of each level, in
+    order)."""
+    parts, start = [], 0
+    for h, w in spatial_shapes:
+        lvl = val[:, start:start + h * w]
+        start += h * w
+        lvl = spatial.gather_rows_h(lvl.unflatten(1, (h, w)), 1)
+        parts.append(lvl.flatten(1, 2))
+    return torch.cat(parts, 1)
+
+
+def _band_tokens(x: torch.Tensor,
+                 spatial_shapes: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """Of the whole levels' tokens ``x`` [sum(H*W), ...], this rank's row
+    band of each level, in order."""
+    parts, start = [], 0
+    for h, w in spatial_shapes:
+        r0, r1 = spatial.rows(h)
+        parts.append(x[start + r0 * w:start + r1 * w])
+        start += h * spatial.bands().size * w
+    return torch.cat(parts, 0)
+
+
 class SpikeMSDeformAttention(nn.Module):
     """query [T, B, Nq, C], value [T, B, Nv, C]; reference_points [Nq, L, 2]
     or [T*B, Nq, L, 2] normalized (x, y); ``spatial_shapes`` the levels'
-    (H, W) in the value's order -> [T, B, Nq, C]."""
+    (H, W) in the value's order -> [T, B, Nq, C].  Inside
+    ``parallel.spatial_sharding()`` the value is the levels' row bands
+    (``spatial_shapes`` theirs), each gathered whole, and the reference
+    points are the queries' own, normalized by the whole maps."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 4, num_points: int = 4,
@@ -68,6 +114,9 @@ class SpikeMSDeformAttention(nn.Module):
             query = query + query_pos
         val = self.Spike_0(self.value_proj(value))
         val = val.reshape(t * b, value.shape[2], h, c // h)
+        if spatial.bands() is not None:
+            val = _gather_levels(val, spatial_shapes)
+            spatial_shapes = _whole_shapes(spatial_shapes)
         off = self.sampling_offsets(query).reshape(t * b, nq, h, lv, p, 2)
         wgt = self.Spike_1(self.attention_weights(query)
                            * self.embed_dims ** -0.5)
@@ -124,7 +173,11 @@ class SpikeDeformableEncoder(nn.Module):
                 feedforward_channels, spike=spike, dtype=dtype))
 
     def forward(self, query, spatial_shapes, query_pos=None):
-        ref = encoder_reference_points(spatial_shapes, query.device)
+        ref = encoder_reference_points(_whole_shapes(spatial_shapes),
+                                       query.device)
+        if spatial.bands() is not None:
+            # the band's tokens of each level
+            ref = _band_tokens(ref, spatial_shapes)
         for i in range(self.num_layers):
             query = getattr(self, f"layer_{i}")(query, ref, spatial_shapes,
                                                 query_pos)

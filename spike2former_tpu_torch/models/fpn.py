@@ -21,7 +21,6 @@ from torch import nn
 from ..ops.neuron import (multistep_eif, multistep_if, multistep_lif,
                           multistep_plif)
 from ..ops.resize import resize_bilinear, resize_nearest_torch
-from ..parallel import spatial
 from .layers import ConvBN, Spike, conv2d, conv_nhwc, fold_t, unfold_t
 from .sdtv2 import SpikingMetaFormer
 
@@ -213,14 +212,21 @@ class FPNSegmentor(nn.Module):
         self.backbone, chans, strides = build_backbone(
             variant, embed_dim, backbone_heads, T, depths_stage3,
             depths_stage4, dtype)
+        # the coarsest level's stride: the unit of a row band
+        self.band_stride = strides[-1]
         self.neck = FPNNeck(chans, neck_channels, neuron, dtype)
         self.head = FPNHead(num_classes, neck_channels, head_channels,
                             strides, neuron, dtype=dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        spatial.refuse("the FPN family")
         """images [B, H, W, 3] normalized -> logits at the finest level's
-        stride [B, h, w, num_classes], in training mode with ``train()``."""
+        stride [B, h, w, num_classes], in training mode with ``train()``.
+        Inside ``parallel.spatial_sharding()`` ``images`` is this rank's
+        row band (``shard_rows`` at ``band_stride``) and so are the
+        logits: the neurons, BNs and the mean over T are elementwise, the
+        convolutions take their halos (``conv_nhwc``), the nearest
+        top-down is a repetition of the band's rows and the bilinear
+        upsamples take one halo row (``ops/resize.py``)."""
         return self.head(self.neck(self.backbone(images)))
 
     def predict_logits(self, images: torch.Tensor,

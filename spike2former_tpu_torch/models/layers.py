@@ -177,13 +177,17 @@ def conv_nhwc(conv: Conv2d, x: torch.Tensor, halo: bool = True
     Inside ``parallel.spatial_sharding()`` (``halo``: unless the caller
     has put the rows around the band in ``x`` itself) a kernel taller than
     one row reads its halo from the neighbouring bands and zero rows only
-    at the map's top and bottom (``_spatial_rows``)."""
+    at the map's top and bottom (``_spatial_rows``); a one-row kernel's
+    row padding goes to the first band's top and the last band's bottom
+    only (``_edge_rows``)."""
     dt = conv.compute_dtype
     fused = _bias_fused(dt)
     bias = conv.bias if fused else None
     padding = conv.padding
-    if halo and spatial.bands() is not None and conv.kernel_size[0] > 1:
-        x = _spatial_rows(conv, x)
+    if halo and spatial.bands() is not None and (conv.kernel_size[0] > 1
+                                                 or conv.padding[0]):
+        x = (_spatial_rows(conv, x) if conv.kernel_size[0] > 1
+             else _edge_rows(conv, x))
         padding = (0, conv.padding[1])
     if conv.packed and torch.is_grad_enabled():
         out = spike_op.spike_conv(
@@ -214,6 +218,18 @@ def _spatial_rows(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
     if below < 0:
         x, below = x[:, :band + below], 0
     return spatial.halo(x, 1, p, below)[0]
+
+
+def _edge_rows(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The band of a one-row kernel with row padding p (stride 1): the map
+    it pads has p zero rows above the first band and below the last, so
+    those bands give p output rows more than the others."""
+    if conv.stride[0] != 1:
+        raise ValueError("a strided one-row convolution with row padding "
+                         "has no row-sharded form")
+    b, p = spatial.bands(), conv.padding[0]
+    return F.pad(x, (0, 0, 0, 0, p if b.rank == 0 else 0,
+                     p if b.rank == b.size - 1 else 0))
 
 
 def conv2d(cin: int, cout: int, k: int = 1, stride: int = 1, pad: int = 0,

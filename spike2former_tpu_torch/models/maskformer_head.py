@@ -52,11 +52,19 @@ def mask2former_attn_mask(mask_pred: torch.Tensor, hw: tuple[int, int],
     the logit is below 0 (sigmoid < 0.5), except in a query's row that
     would mask every key, which stays open; ``pad_mask`` ([B, 1, 1, hw],
     True = padding) is ORed in.  Returns [B, 1, nq, h*w] bool, True =
-    masked."""
+    masked.  Inside ``parallel.spatial_sharding()`` ``mask_pred`` and
+    ``hw`` are this rank's row bands and so is the mask; whether a query
+    masks every key is decided over every band's keys (one all-reduce of
+    the open keys' counts)."""
     b, nq = mask_pred.shape[:2]
     m = resize_bilinear_hw(mask_pred.float(), tuple(hw))
     am = (m < 0.0).reshape(b, nq, -1)
-    am = (am & ~am.all(-1, keepdim=True))[:, None]
+    if spatial.bands() is None:
+        all_masked = am.all(-1, keepdim=True)
+    else:
+        open_keys = (~am).sum(-1, keepdim=True, dtype=torch.int32)
+        all_masked = spatial.all_sum_(open_keys) == 0
+    am = (am & ~all_masked)[:, None]
     return am if pad_mask is None else am | pad_mask
 
 
@@ -168,12 +176,16 @@ class MaskFormerHead(nn.Module):
         the sine PE's normalisation and masked out of the cross-attention
         keys (their scores zeroed), so the valid region matches an
         exact-shape forward up to the convolutions' halo across the
-        padding edge."""
+        padding edge.
+
+        Inside ``parallel.spatial_sharding()`` ``feats`` are this rank's
+        row bands, and so are the mask logits: the pad mask is built for
+        each level's whole map from the replicated ``valid_hw`` and the
+        band keeps its rows of it and of the PE (whose column sums run
+        over the whole map), so a band of padding only is masked whole;
+        the decoders sum their cross-attention over every band's keys,
+        and the queries stay equal on every rank."""
         c = self.c
-        if self.decoder == "dab":
-            spatial.refuse("the DAB-DETR decoder")
-        if self.masked_attention:
-            spatial.refuse("the Mask2Former mode (masked_attention)")
         mask_features, memory, multi_scale = self.pixel_decoder(feats)
         t, b = memory.shape[:2]
         nq = self.query_feat.shape[0]
@@ -191,12 +203,16 @@ class MaskFormerHead(nn.Module):
                 continue
             stride = input_h // h
             vh, vw = (-(-valid_hw.to(lvl.device).long() // stride)).unbind(1)
-            pad = ((torch.arange(h, device=lvl.device)[None, :, None]
+            rows = spatial.band_rows(h)
+            whole_h = h if rows is None else h * spatial.bands().size
+            pad = ((torch.arange(whole_h, device=lvl.device)[None, :, None]
                     >= vh[:, None, None])
                    | (torch.arange(w, device=lvl.device)[None, None, :]
-                      >= vw[:, None, None]))                 # [B, h, w]
-            pes.append(sine_positional_encoding(pad, c // 2).reshape(
-                b, h * w, c))
+                      >= vw[:, None, None]))           # [B, whole h, w]
+            pes.append(sine_positional_encoding(pad, c // 2, rows=rows)
+                       .reshape(b, h * w, c))
+            if rows is not None:
+                pad = pad[:, rows[0]:rows[1]]
             key_masks.append(pad.reshape(b, 1, 1, h * w))
 
         query = self.query_feat.expand(t, b, nq, c)

@@ -21,7 +21,6 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear, resize_nearest_torch
-from ..parallel import spatial
 from .attention import MSDAFFN, SpikeMHA
 from .dcn import DCNv3
 from .layers import (BatchNorm, ConvBN, SepConv, Spike, conv2d, conv_nhwc,
@@ -150,7 +149,10 @@ class TransformerEncoderPixelDecoder(nn.Module):
         _add_bilinear_fpn(self, in_channels, c, out_channels, dtype)
 
     def forward(self, feats: Sequence[torch.Tensor]):
-        spatial.refuse("the Transformer-encoder pixel decoder")
+        """Inside ``parallel.spatial_sharding()`` ``feats`` and the outputs
+        are this rank's row bands: the encoder's queries are the band's
+        /16 tokens with the band's rows of the PE, and each attends to
+        every band's keys and values (``SpikeMHA``'s ``token_bands``)."""
         t, b, h, w, _ = feats[-1].shape
         c = self.feat_channels
         xf = self.encoder_in_proj(self.in_spike(fold_t(feats[-1])[0]))
@@ -159,7 +161,7 @@ class TransformerEncoderPixelDecoder(nn.Module):
         pe = pe.expand(b, h * w, c)
         for i in range(self.num_encoder_layers):
             tokens = tokens + getattr(self, f"encoder_attn_{i}")(
-                tokens + pe, tokens + pe, tokens)
+                tokens + pe, tokens + pe, tokens, token_bands=True)
             tokens = tokens + getattr(self, f"encoder_ffn_{i}")(tokens)
         memory = tokens.reshape(t, b, h, w, c)
         y = self.encoder_out_proj(fold_t(memory)[0])
@@ -173,7 +175,15 @@ class FPNPixelDecoder(nn.Module):
     lateral 1x1 conv + BN plus the nearest-upsampled coarser map, spiked
     into a 3x3 conv + BN, then a spiked 1x1 mask head with a 1 px zero
     padding (as the JAX module pads it: the mask features come out 2 px
-    larger each way).  ``memory`` is the /16 input itself."""
+    larger each way).  ``memory`` is the /16 input itself.
+
+    Inside ``parallel.spatial_sharding()`` ``feats`` and the outputs are
+    this rank's row bands.  The mask head's padding rows lie above the
+    map's first row and below its last, so the first band's mask
+    features have one row more at its top and the last band's one more
+    at its bottom (on two ranks both bands have ``h + 1`` rows; on more,
+    the middle bands ``h``): joined in rank order they are the whole
+    map's ``H + 2`` rows."""
 
     def __init__(self, in_channels: Sequence[int] = (32, 64, 128, 360),
                  feat_channels: int = 256, out_channels: int = 256,
@@ -196,7 +206,6 @@ class FPNPixelDecoder(nn.Module):
                                    dtype=dtype)
 
     def forward(self, feats: Sequence[torch.Tensor]):
-        spatial.refuse("the FPN pixel decoder")
         t = feats[-1].shape[0]
         y = self.last_feat_conv(self.last_spike(fold_t(feats[-1])[0]))
         outs = []

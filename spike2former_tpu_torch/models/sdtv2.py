@@ -102,7 +102,13 @@ class CSWinSpikeAttention(nn.Module):
     axis), or one global branch when ``last_stage``, with the
     softmax-free ``q (k^T v) * (2 scale)`` form.  The output projection
     computes in float32 and takes no packed residual, as JAX's does.
-    Input/output [T, B, H, W, C]."""
+    Input/output [T, B, H, W, C].
+
+    Inside ``parallel.spatial_sharding()`` (``_band_stripes``) a stripe
+    of the whole map's rows may span several bands, and a band may
+    straddle two stripes: each rank sums ``k^T v`` over its rows of every
+    stripe they overlap, in float32, into one slot tensor of every
+    stripe, which one all-reduce completes before the rounding."""
 
     def __init__(self, dim: int, num_heads: int = 8, dtype=torch.float32,
                  lamda_ratio: int = 4, split_num: int = 2,
@@ -140,21 +146,60 @@ class CSWinSpikeAttention(nn.Module):
         out = out.transpose(1, 2).reshape(tb, h_num, w_num, hs, ws, cvb)
         return out.permute(0, 1, 3, 2, 4, 5).reshape(tb, hh, ww, cvb)
 
+    def _band_stripes(self, q, k, v, h_num: int, w_num: int, heads: int):
+        """``_stripes`` of this rank's row band of q, k and v."""
+        tb, hh, ww, cb = q.shape
+        cvb = v.shape[-1]
+        r0, r1 = spatial.rows(hh)
+        whole = hh * spatial.bands().size
+        if whole % h_num or ww % w_num:
+            raise ValueError(f"a {whole}x{ww} map does not split into "
+                             f"{h_num}x{w_num} stripes")
+        hs, ws = whole // h_num, ww // w_num
+
+        def part(y, ch):
+            # [TB, n, W, ch] rows of one stripe row -> [TB*w_num, heads,
+            # n*ws, ch/heads]
+            n = y.shape[1]
+            y = y.reshape(tb, n, w_num, ws, ch).transpose(1, 2)
+            return y.reshape(tb * w_num, n * ws, heads,
+                             ch // heads).transpose(1, 2)
+
+        # the stripe rows this band overlaps, in its own rows
+        spans = [(s, max(r0, s * hs) - r0, min(r1, (s + 1) * hs) - r0)
+                 for s in range(h_num)]
+        spans = [(s, lo, hi) for s, lo, hi in spans if lo < hi]
+        kv = q.new_zeros((h_num, tb * w_num, heads, cb // heads,
+                          cvb // heads), dtype=torch.float32)
+        for s, lo, hi in spans:
+            kv[s] = (part(k[:, lo:hi], cb).float().transpose(-1, -2)
+                     @ part(v[:, lo:hi], cvb).float())
+        kv = spatial.all_sum_(kv).to(k.dtype)
+        outs = []
+        for s, lo, hi in spans:
+            o = ((part(q[:, lo:hi], cb).float() @ kv[s].float())
+                 * self.scale).to(q.dtype)
+            o = o.transpose(1, 2).reshape(tb, w_num, hi - lo, ws, cvb)
+            outs.append(o.transpose(1, 2).reshape(tb, hi - lo, ww, cvb))
+        return torch.cat(outs, 1)
+
     def forward(self, x):
         t, b, h, w, c = x.shape
+        stripes = (self._stripes if spatial.bands() is None
+                   else self._band_stripes)
         xf = self.Spike_0(fold_t(x)[0])
         q = self.Spike_1(self.q_conv(xf))
         k = self.Spike_2(self.k_conv(xf))
         v = self.Spike_3(self.v_conv(xf))
         if self.last_stage:
-            out = self._stripes(q, k, v, 1, 1, self.num_heads)
+            out = stripes(q, k, v, 1, 1, self.num_heads)
         else:
             half, vhalf, bh = c // 2, self.cv // 2, self.num_heads // 2
             out = torch.cat([
-                self._stripes(q[..., :half], k[..., :half], v[..., :vhalf],
-                              1, self.split_num, bh),
-                self._stripes(q[..., half:], k[..., half:], v[..., vhalf:],
-                              self.split_num, 1, bh)], -1)
+                stripes(q[..., :half], k[..., :half], v[..., :vhalf],
+                        1, self.split_num, bh),
+                stripes(q[..., half:], k[..., half:], v[..., vhalf:],
+                        self.split_num, 1, bh)], -1)
         return unfold_t(self.proj_conv(self.Spike_4(out)), t)
 
 
@@ -286,8 +331,6 @@ class SpikingMetaFormer(nn.Module):
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
         """images: [B, H, W, 3] -> 4 pyramid levels [T, B, h, w, c]."""
-        if self.variant != "sdtv2":
-            spatial.refuse(f"the {self.variant} backbone")
         t_eff = 1 if self.collapse_t else self.T
         x = images[None].expand((t_eff,) + tuple(images.shape))
         x = self.block("conv1_1", self.down1_1(x))

@@ -8,7 +8,6 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear_hw
-from ..parallel import spatial
 from .layers import set_packed_residuals
 from .maskformer_head import MaskFormerHead, semantic_inference
 from .sdtv2 import SpikingMetaFormer
@@ -30,6 +29,9 @@ class Spike2Former(nn.Module):
     """Spiking MaskFormer segmentor: an SDTv2, SDTv3 or SDTv3-MAE backbone
     (``variant``) + the DCN MaskFormer head (DETR decoder, masked or not,
     or DAB-DETR: ``masked_attention``, ``decoder``)."""
+
+    # the pyramid's coarsest stride: the unit of a row band (``shard_rows``)
+    band_stride = 16
 
     def __init__(self, num_classes: int = 150,
                  embed_dim: Sequence[int] = (64, 128, 256, 360),
@@ -73,8 +75,6 @@ class Spike2Former(nn.Module):
         ``lazy_masks`` returns the masks as ``LazyMasks``.  ``valid_hw``
         [B, 2]: the valid extents of bucket-padded inputs (see
         ``MaskFormerHead``)."""
-        if valid_hw is not None:
-            spatial.refuse("valid_hw")
         return self.head(self.backbone(images), valid_hw=valid_hw)
 
     def predict_logits(self, images: torch.Tensor,
@@ -84,8 +84,8 @@ class Spike2Former(nn.Module):
         it, as JAX's ``predict_logits`` (segmentor.py:118-123).  Inside
         ``parallel.spatial_sharding()`` ``images`` is this rank's row band
         (``parallel.spatial.shard_rows``) and so are the logits
-        (``gather_rows_h`` joins them); SDTv2 backbones with the DETR
-        decoder, unmasked, without ``valid_hw``."""
+        (``gather_rows_h`` joins them), for every backbone and decoder;
+        ``valid_hw`` stays the whole image's."""
         cls_scores, mask_preds = self(images, valid_hw)
         mask = resize_bilinear_hw(mask_preds[-1].to(self.dtype),
                                   tuple(images.shape[1:3]))

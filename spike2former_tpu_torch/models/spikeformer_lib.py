@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .attention import (MSDAFFN, SpikeMultiheadAttention, _merge_heads,
                         _split_heads)
 from .layers import BatchNorm, Linear, Spike, conv2d, conv_nhwc
@@ -62,6 +63,7 @@ class SpikeformerSelfAttention(nn.Module):
             setattr(self, name, _ProjBN(c, c, dtype))
 
     def forward(self, query, query_pos=None, attn_mask=None):
+        spatial.refuse("SpikeformerSelfAttention")
         x = query if query_pos is None else query + query_pos
         tmp = x
         x = self.head_lif(x)
@@ -91,6 +93,7 @@ class SpikeformerCrossAttention(nn.Module):
 
     def forward(self, query, key, query_pos=None, key_pos=None,
                 attn_mask=None):
+        spatial.refuse("SpikeformerCrossAttention")
         q_t = query if query_pos is None else query + query_pos
         key = key if key_pos is None else key + key_pos
         xq, xk = self.head_lif_q(q_t), self.head_lif_k(key)
@@ -214,6 +217,7 @@ class QueryProposal(nn.Module):
                                    bias=True, dtype=dtype)
 
     def forward(self, x, pos_embeddings, train: bool = False):
+        spatial.refuse("QueryProposal")
         b, h, w, c = x.shape
         logits = conv_nhwc(self.proposal_cls, self.proposal_spike(x))
         probs = torch.sigmoid(logits.float())

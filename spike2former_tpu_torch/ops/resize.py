@@ -11,8 +11,9 @@ bit.
 
 Inside ``parallel.spatial_sharding()`` the two bilinear resizes take a row band
 and upsample it by a power of two with one halo row from each
-neighbouring band (``_band_resize``): the rows they give are the whole
-map's, bit for bit.
+neighbouring band, or downscale it by an integer factor from its own
+rows (``_band_resize``): the rows they give are the whole map's, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -105,19 +106,31 @@ def _resize_lowp(x: torch.Tensor, out_hw: tuple[int, int], ax: int,
 def _band_resize(x: torch.Tensor, out_hw: tuple[int, int], ax: int,
                  resize) -> torch.Tensor:
     """``resize`` of this rank's row band (axis ``ax``) inside
-    ``parallel.spatial_sharding()``: the band with one row of each neighbouring
-    band (none at the map's top and bottom, where the resize clamps),
-    upsampled by the band's factor, a power of two (its half-pixel grid
-    is then exact), and cut to the band's output rows."""
+    ``parallel.spatial_sharding()``.
+
+    An upsample by a power of two (its half-pixel grid is then exact)
+    takes the band with one row of each neighbouring band (none at the
+    map's top and bottom, where the resize clamps), and is cut to the
+    band's output rows.  A downscale by an integer factor ``f`` needs no
+    halo: output row ``i`` samples at ``f*i + f/2 - 1/2``, so its taps
+    (rows ``f*i + f/2 - 1`` and ``f*i + f/2``, or the one row ``f*i +
+    (f-1)/2`` for an odd ``f``) lie in its own block of ``f`` rows, which
+    the band holds whole; the band's grid has the whole map's fractions."""
     ax = ax % x.dim()
     h, oh = x.shape[ax], out_hw[0]
+    size = spatial.bands().size
+    whole = (h * size, oh * size)
+    if oh < h:
+        if h % oh:
+            raise ValueError(f"a band of {h} rows resized to {oh}: spatial "
+                             "sharding downscales by integer factors")
+        return resize(x, out_hw, whole)
     f = oh // h
     if oh != f * h or f & (f - 1):
         raise ValueError(f"a band of {h} rows resized to {oh}: spatial "
                          "sharding upsamples by powers of two")
-    size = spatial.bands().size
     ext, top = spatial.halo(x, ax, 1, 1, edge="none")
-    y = resize(ext, (ext.shape[ax] * f, out_hw[1]), (h * size, oh * size))
+    y = resize(ext, (ext.shape[ax] * f, out_hw[1]), whole)
     return y.narrow(ax, top * f, oh)
 
 

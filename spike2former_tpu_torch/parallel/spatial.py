@@ -17,11 +17,18 @@ scale), and
 * sums over every token (``k^T v`` of linear attention, the decoder's
   cross-attention over pixel tokens) are summed over the group
   (``all_sum_``), in float32, before any rounding;
-* bilinear upsamples take one clamped halo row (``ops/resize.py``);
+* bilinear upsamples take one clamped halo row, and downscales by an
+  integer factor read only their band's rows (``ops/resize.py``);
 * what mixes pixels across the whole map (the DCN's value map, which
-  its offsets may sample anywhere; the ``compat`` reshapes) is gathered
-  (``gather_rows_h``) and the rank keeps its rows.
+  its offsets may sample anywhere; the ``compat`` reshapes; the keys and
+  values of attention whose queries are pixel tokens too) is gathered
+  (``gather_rows_h``) and the rank keeps its rows;
+* what the whole map decides per query (Mask2Former's "a query that
+  masks every key is unmasked") is an all-reduce of the bands' counts.
 
+Every model that ``engine/config.py:PRESETS`` builds, and the library
+pixel decoders, run in this regime; the bands split the image at the
+model's coarsest stride (``band_stride``: 16, or 32 for MS-ResNet).
 Inference only (no gradients cross the group), as in JAX.  A module
 without a sharded form raises a ``ValueError`` inside the block
 (``refuse``).
@@ -36,8 +43,9 @@ import torch.distributed as dist
 
 from .mesh import Mesh, current_mesh
 
-# the coarsest scale of the SDTv2 MaskFormer's pyramid: every level's
-# band must have whole rows
+# the coarsest scale of the MetaFormer pyramids: every level's band must
+# have whole rows (a model with a coarser level says so in its
+# ``band_stride``)
 STRIDE = 16
 
 
@@ -85,19 +93,26 @@ def rows(band: int) -> tuple[int, int]:
     return b.rank * band, (b.rank + 1) * band
 
 
-def shard_rows(images: torch.Tensor, axis: int = 1) -> torch.Tensor:
+def band_rows(band: int) -> tuple[int, int] | None:
+    """``rows(band)`` inside ``spatial_sharding()``, None outside."""
+    return rows(band) if _BANDS[0] is not None else None
+
+
+def shard_rows(images: torch.Tensor, axis: int = 1,
+               stride: int = STRIDE) -> torch.Tensor:
     """This rank's band of ``images`` ([B, H, W, C]: ``axis`` 1) inside
     ``spatial_sharding()``; ``images`` outside.  H must split into equal
-    bands at the pyramid's coarsest scale (/16)."""
+    bands at the pyramid's coarsest scale, ``stride`` (the model's
+    ``band_stride``)."""
     b = _BANDS[0]
     if b is None:
         return images
     h = images.shape[axis]
-    if h % (STRIDE * b.size):
+    if h % (stride * b.size):
         raise ValueError(
             f"images of shape {tuple(images.shape)}: height {h} does not "
-            f"split into {b.size} equal bands at /{STRIDE} (a multiple of "
-            f"{STRIDE * b.size})")
+            f"split into {b.size} equal bands at /{stride} (a multiple of "
+            f"{stride * b.size})")
     band = h // b.size
     return images.narrow(axis, b.rank * band, band)
 

@@ -198,33 +198,42 @@ def test_a_height_that_does_not_split_at_16_names_the_shape():
 
 
 def test_modules_without_a_sharded_form_refuse():
+    """Every model the presets build runs in row bands
+    (``test_torch_spatial_families.py``); the library modules that mix
+    the tokens of a map without a sharded form, and slide inference,
+    raise inside the block and run outside it."""
+    from spike2former_tpu_torch.engine.inference import slide_logits
+    from spike2former_tpu_torch.models.attention import (
+        LinearSpikeMHA, PEMCrossAttention, SpikeMultiheadAttention)
+    from spike2former_tpu_torch.models.cyclemlp import CycleMLP
+    from spike2former_tpu_torch.models.spikeformer_lib import (
+        QueryProposal, SpikeformerCrossAttention, SpikeformerSelfAttention)
     mesh = parallel.Mesh(data_rank=0, data_size=2)
-    x = torch.zeros(1, 32, 32, 3)
-    feats = [torch.zeros(1, 1, 16 // 2 ** i, 16, c)
-             for i, c in enumerate((4, 8, 16, 24))]
-    models = {
-        "valid_hw": (Spike2Former(**TINY), lambda m: m(
-            x, valid_hw=torch.tensor([[32, 32]]))),
-        "sdtv3": (Spike2Former(**TINY, variant="sdtv3"), lambda m: m(x)),
-        "sdtv3mae": (Spike2Former(**TINY, variant="sdtv3mae"),
-                     lambda m: m(x)),
-        "masked_attention": (Spike2Former(**TINY, masked_attention=True),
-                             lambda m: m.head(feats)),
-        "dab": (Spike2Former(**TINY, decoder="dab"),
-                lambda m: m.head(feats)),
+    tok = torch.zeros(1, 1, 8, 16)
+    fmap = torch.zeros(1, 4, 4, 16)
+    calls = {
+        "LinearSpikeMHA": (LinearSpikeMHA(16, 4), lambda m: m(tok, tok, tok)),
+        "PEMCrossAttention": (PEMCrossAttention(16, 4),
+                              lambda m: m(tok[0], fmap)),
+        "SpikeMultiheadAttention": (SpikeMultiheadAttention(16, 4, "CA"),
+                                    lambda m: m(tok, tok, tok)),
+        "SpikeformerSelfAttention": (SpikeformerSelfAttention(16, 4),
+                                     lambda m: m(tok)),
+        "SpikeformerCrossAttention": (SpikeformerCrossAttention(16, 4),
+                                      lambda m: m(tok, tok)),
+        "QueryProposal": (QueryProposal(16, 4, 5),
+                          lambda m: m(fmap, fmap)),
+        "CycleMLP": (CycleMLP(16), lambda m: m(fmap)),
+        "slide inference": (Spike2Former(**TINY), lambda m: slide_logits(
+            m, torch.zeros(1, 64, 64, 3, dtype=torch.uint8), (32, 32),
+            (32, 32), TINY["num_classes"])),
     }
-    from spike2former_tpu_torch.engine.config import build_model, get_config
-    fpn = build_model(get_config("fpn_sdtv3_512x512_10M_ade20k",
-                                 ["model.embed_dim=(8,16,24,32)",
-                                  "model.num_classes=5"]).model)
-    models["fpn"] = (fpn, lambda m: m(x))
-    from spike2former_tpu_torch.models.pixel_decoder import (
-        FPNPixelDecoder, TransformerEncoderPixelDecoder)
-    models["transformer_decoder"] = (TransformerEncoderPixelDecoder(
-        (4, 8, 16, 24), 16, 16, 1, 4, 32), lambda m: m(feats))
-    models["fpn_decoder"] = (FPNPixelDecoder((4, 8, 16, 24), 16, 16),
-                             lambda m: m(feats))
-    for name, (model, call) in models.items():
+    for name, (model, call) in calls.items():
+        model.eval()
         with torch.no_grad(), parallel.spatial_sharding(mesh):
-            with pytest.raises(ValueError, match="spatial sharding"):
-                call(model.eval())
+            with pytest.raises(ValueError, match=f"{name} does not run "
+                               "under spatial sharding"):
+                call(model)
+        if name != "slide inference":
+            with torch.no_grad():
+                call(model)                  # outside the block it runs
