@@ -12,7 +12,8 @@ Phases, each printing one flushed line with the seconds elapsed:
       ``csrc/dcnv3_sample_bwd.cu`` (K2, backward),
       ``csrc/dcnv3_sample_grouped.cu`` (the grouped-layout forward, the
       counterpart of K3-K6) and ``csrc/dcnv3_sample_grouped_bwd.cu`` (its
-      backward, K7) for sm_90a, the four side by side;
+      backward, K7) for sm_90a, the four side by side, (bf16 tiny)'s
+      CPU side computed beside them on half the cores;
   (c) K1 against its plain PyTorch version at the flagship shapes (serve:
       N in {1, 2}, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9, f32) and
       on a 64x128 map too large for one block's tile, for random
@@ -328,6 +329,22 @@ parallelism and row-sharded inference of slice sixteen, run last:
       path, each call held to its plain version (bf16: within one ulp);
       ms and peak GiB a rank beside one process's.
 
+The repository's training tools, run last (bf16, seeded data and
+weights):
+
+  (burnin) ``tools/burnin.py``'s port at full width (the module's
+      defaults, 150 classes, 512x512, batch 4): 40 steps, a checkpoint
+      every 10, a simulated crash at 25 (the newest checkpoint, ckpt_20,
+      restored into a fresh state and held to its file bit for bit, then
+      steps 21-40), a val every 20: every logged loss finite, its JSON
+      line, bf16 K1 and K2 6 launches a step run (45) and K1 6 a val
+      forward (2), s a step and peak memory;
+  (learning) ``tools/learning_run.sh``'s port on a generated set of 16
+      train and 4 val images at 512x512 for 20 iterations (val every 10,
+      a checkpoint at 20) and its report: the report's val rows equal to
+      ``scalars.jsonl``'s mIoU records, its sha256 that of ckpt_20, bf16
+      K1 and K2 6 launches an iteration and K1 6 a val image.
+
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero and prints no result; it also
@@ -335,8 +352,10 @@ exits non-zero when no CUDA device is available.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import os
@@ -347,6 +366,7 @@ import tempfile
 import threading
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -392,8 +412,10 @@ from spike2former_tpu_torch.ops.resize import resize_bilinear
 from spike2former_tpu_torch import serving
 from spike2former_tpu_torch.profile_train import STAGES, sync_sites
 from spike2former_tpu_torch.serving import ServingEngine
-from spike2former_tpu_torch.tools import (benchmark, cal_firing_num,
-                                          dataset_converters, export)
+from spike2former_tpu_torch.tools import (benchmark, burnin,
+                                          cal_firing_num,
+                                          dataset_converters, export,
+                                          learning_run)
 from spike2former_tpu_torch.tools import test as eval_cli
 from spike2former_tpu_torch.tools import train as train_cli
 from spike2former_tpu_torch.utils.firing import energy_proxy, firing_rates
@@ -2014,31 +2036,52 @@ def phase_bf16_train() -> dict:
     return out
 
 
-def phase_bf16_tiny() -> dict:
-    """(bf16 tiny): the tiny model at bf16, card against CPU: logits at
-    64x64 (class agreement, largest gap) and 3 train steps' ``total``
-    with the preset's auction matcher (maps of 4 classes)."""
+def bf16_tiny_inputs() -> tuple:
+    """(bf16 tiny)'s overrides, 64x64 image and 3 train batches (maps of
+    4 classes)."""
     opts = [f"model.{k}={v!r}".replace(" ", "") for k, v in TINY.items()]
     opts += BF16_OPTS
-    cpu = api.init_model(PRESET, overrides=opts, device="cpu", seed=1)
-    gpu = api.init_model(PRESET, overrides=opts, seed=1)
     x = torch.from_numpy(np.random.default_rng(1).normal(
         0, 1, (1, 64, 64, 3)).astype(np.float32))
+    rng = np.random.default_rng(1)
+    batches = [synthetic_batch(rng, 2, (64, 64), num_classes=4)
+               for _ in range(3)]
+    return opts, x, batches
+
+
+def bf16_tiny_cpu(threads: int) -> dict:
+    """(bf16 tiny)'s CPU side, on ``threads`` CPU threads: the tiny
+    model's bf16 logits and its 3 train steps' ``total``.  bf16 runs
+    slowly on the CPU, so ``main`` computes this while ``nvcc`` builds
+    the kernels, on the cores the build leaves."""
+    torch.set_num_threads(threads)
+    opts, x, batches = bf16_tiny_inputs()
+    cpu = api.init_model(PRESET, overrides=opts, device="cpu", seed=1)
+    with torch.inference_mode():
+        logits = cpu.model.predict_logits(x)
+    tr = api.init_trainer(PRESET, opts + ["train.warmup_iters=1"],
+                          device="cpu", seed=1)
+    return dict(logits=logits,
+                totals=[m["total"] for m in api.train_steps(tr, batches)])
+
+
+def phase_bf16_tiny(cpu_ref: dict) -> dict:
+    """(bf16 tiny): the tiny model at bf16, card against CPU
+    (``bf16_tiny_cpu``'s ``cpu_ref``): logits at 64x64 (class agreement,
+    largest gap) and 3 train steps' ``total`` with the preset's auction
+    matcher (maps of 4 classes)."""
+    opts, x, batches = bf16_tiny_inputs()
+    gpu = api.init_model(PRESET, overrides=opts, seed=1)
     with torch.inference_mode(), f32_precision():
         agree, gap = compare_logits(gpu.model.predict_logits(x.cuda()).cpu(),
-                                    cpu.model.predict_logits(x))
+                                    cpu_ref["logits"])
     log("bf16 tiny", f"64x64 card vs CPU at bf16: class agreement "
         f"{agree:.6f}, max|logit gap| {gap:.6g}")
     check(agree >= BF16_AGREEMENT and gap <= BF16_LOGIT_GAP,
           f"bf16 tiny card vs CPU: agreement {agree}, gap {gap}")
-    rng = np.random.default_rng(1)
-    batches = [synthetic_batch(rng, 2, (64, 64), num_classes=4)
-               for _ in range(3)]
-    totals = []
-    for dev in ("cpu", "cuda"):
-        tr = api.init_trainer(PRESET, opts + ["train.warmup_iters=1"],
-                              device=dev, seed=1)
-        totals.append([m["total"] for m in api.train_steps(tr, batches)])
+    tr = api.init_trainer(PRESET, opts + ["train.warmup_iters=1"], seed=1)
+    totals = [cpu_ref["totals"],
+              [m["total"] for m in api.train_steps(tr, batches)]]
     rel = max(abs(a - b) / abs(b) for a, b in zip(totals[1], totals[0]))
     log("bf16 tiny", f"3 steps' total CPU {totals[0]} card {totals[1]}: "
         f"max rel diff {rel:.3g} (tol {BF16_TRAIN_RTOL})")
@@ -2404,21 +2447,30 @@ def phase_reference() -> dict:
 # losses, the Cityscapes and COCO-Stuff presets ------------------------------
 
 @contextlib.contextmanager
-def capture_dcn(store: dict):
+def capture_dcn(store: dict, first: int = 0):
     """Keep a copy of the inputs and outputs of every K1 and K2 call made
-    inside the block (the calls launch and count as usual)."""
+    inside the block (the calls launch and count as usual); with
+    ``first``, of the first ``first`` calls of each kernel at each batch
+    size only."""
     real_f, real_b = dcnv3.dcnv3_sample, dcnv3.dcnv3_sample_backward
+    seen = collections.Counter()
+
+    def keep(kernel, value):
+        seen[kernel, value.shape[0]] += 1
+        return not first or seen[kernel, value.shape[0]] <= first
 
     def fwd(value, py, px, mask, **kw):
         out = real_f(value, py, px, mask, **kw)
-        store.setdefault("k1", []).append(
-            [t.detach().clone() for t in (value, py, px, mask, out)])
+        if keep("k1", value):
+            store.setdefault("k1", []).append(
+                [t.detach().clone() for t in (value, py, px, mask, out)])
         return out
 
     def bwd(value, py, px, mask, dout):
         out = real_b(value, py, px, mask, dout)
-        store.setdefault("k2", []).append(
-            [t.clone() for t in (value, py, px, mask, dout, *out)])
+        if keep("k2", value):
+            store.setdefault("k2", []).append(
+                [t.clone() for t in (value, py, px, mask, dout, *out)])
         return out
 
     dcnv3.dcnv3_sample, dcnv3.dcnv3_sample_backward = fwd, bwd
@@ -5107,6 +5159,166 @@ def phase_library(smi: str) -> dict:
     return dict(errs=errs, runtime=rt)
 
 
+# (burnin): the burn-in at the module's defaults and full width, bf16
+BURNIN_ARGS = ["--steps", "40", "--batch-size", "4", "--image-size", "512",
+               "--num-classes", "150", "--dtype", "bfloat16",
+               "--ckpt-every", "10", "--resume-at", "25", "--val-every",
+               "20", "--log-every", "1"]
+# steps run (25, then 21-40 again from ckpt_20) and val forwards (one
+# batch of 2 images at 20 and at 40)
+BURNIN_RUN, BURNIN_VALS = 45, 2
+# (learning): the learning run on a generated set of 16 train and 4 val
+# images at 512x512, 20 iterations
+LEARN_ITERS, LEARN_TRAIN, LEARN_VAL, LEARN_LOG = 20, 16, 4, 5
+LEARN_OPTS = ["train.val_interval=10", "train.checkpoint_interval=20"]
+# the flagship's DCN value map at 512x512, [N, 32, 32, 256], by batch size
+FLAGSHIP_MAP = (32, 32, 256)
+
+
+def phase_burnin(smi: str) -> dict:
+    """(burnin): ``tools/burnin.py``'s port at full width (the module's
+    defaults, 150 classes, 512x512, batch 4, bf16) for 40 steps, a
+    checkpoint every 10, a crash at 25 and a val every 20.  Every logged
+    loss finite, the run resumed from ckpt_20, the restored state bitwise
+    that checkpoint, bf16 K1 and K2 6 launches a step run (45) and K1 6
+    a val forward (2, of 2 images each); the first step's K1 and K2 calls
+    (N=4) and the first val forward's K1 calls (N=2) held to their plain
+    versions; its JSON line, s a step and peak memory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        args = burnin.parser().parse_args(BURNIN_ARGS + ["--work-dir", tmp])
+        restored = []
+        real_restore = burnin.restore_state
+
+        def restore(path, state):
+            out = real_restore(path, state)
+            check_saved(torch.load(path, weights_only=True),
+                        state_snapshot(state), f"(burnin) restored {path}")
+            restored.append((os.path.basename(path), state.step))
+            return out
+
+        burnin.restore_state = restore
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t = time.perf_counter()
+        buf, store = io.StringIO(), {}
+        try:
+            with contextlib.redirect_stdout(buf), capture_dcn(store, first=6):
+                out = burnin.run(args)
+        finally:
+            burnin.restore_state = real_restore
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_launches()
+        held = hold_captured(store, "burnin", k1=12, k2=6, shapes=[
+            ("K1", (4, *FLAGSHIP_MAP)), ("K2", (4, *FLAGSHIP_MAP)),
+            ("K1", (2, *FLAGSHIP_MAP))])
+        del store
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for line in buf.getvalue().splitlines():
+            if "val" in line or "resumed" in line:
+                log("burnin", line)
+        recs = read_scalars(os.path.join(tmp, "burnin.jsonl"))
+    summary = out["summary"]
+    log("burnin", json.dumps(summary))
+    check(summary["all_finite"] and summary["resumed_mid_run"],
+          f"(burnin) {summary}")
+    check(restored == [("ckpt_20", 20)], f"(burnin) restored {restored}")
+    steps = [r for r in recs if "loss" in r]
+    check([r["step"] for r in steps]
+          == list(range(1, 26)) + list(range(21, 41)),
+          f"(burnin) logged steps {[r['step'] for r in steps]}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in steps), "(burnin) a logged loss is not finite")
+    vals = [r for r in recs if "val_acc" in r]
+    check([r["step"] for r in vals] == [20, 40], f"(burnin) vals {vals}")
+    k1, k2 = 6 * (BURNIN_RUN + BURNIN_VALS), 6 * BURNIN_RUN
+    # every launch is of the bf16 forms (``launches`` counts both dtypes)
+    want = dict(k1=k1, k2=k2, k1_bf16=k1, k2_bf16=k2, grouped=(0, 0),
+                grouped_bf16=(0, 0))
+    check(launches == want, f"(burnin) launches {launches}, want {want}")
+    # s a step: the median gap between consecutive logged steps of one
+    # segment (the resume's restore and the vals fall between segments
+    # or in a few gaps)
+    gaps = [b["sec"] - a["sec"] for a, b in zip(steps, steps[1:])
+            if b["step"] == a["step"] + 1]
+    s_step = statistics.median(gaps)
+    log("burnin", f"{s_step:.4f} s a step (median of {len(gaps)} gaps; "
+        f"min {min(gaps):.4f}, max {max(gaps):.4f}), {wall:.1f}s in all, "
+        f"peak {peak:.3f} GiB, val pixel-acc "
+        f"{[round(r['val_acc'], 4) for r in vals]}, bf16 K1/K2 launches "
+        f"{launches['k1_bf16']}/{launches['k2_bf16']} on {smi}")
+    return dict(launches=launches, summary=summary, s_step=s_step,
+                peak_gib=peak, wall=wall, held=held)
+
+
+def phase_learning(smi: str) -> dict:
+    """(learning): ``tools/learning_run.sh``'s port on a generated set of
+    16 train and 4 val images at 512x512 for 20 iterations (val every 10,
+    a checkpoint at 20), then its report: every logged loss finite, the
+    report's val rows the ``scalars.jsonl`` mIoU records, its sha256 that
+    of ckpt_20 hashed afresh, bf16 K1 and K2 6 launches an iteration and
+    K1 6 a val image; the first iteration's K1 and K2 calls (N=8) and the
+    first val image's K1 calls (N=1) held to their plain versions."""
+    with tempfile.TemporaryDirectory() as tmp:
+        wd, md = os.path.join(tmp, "wd"), os.path.join(tmp, "LEARNING.md")
+        torch.cuda.synchronize()
+        zero_launches()
+        t, store = time.perf_counter(), {}
+        with capture_dcn(store, first=6):
+            run_cli(learning_run.main, [
+                "--iters", str(LEARN_ITERS), "--data-root",
+                os.path.join(tmp, "data"), "--work-dir", wd, "--train",
+                str(LEARN_TRAIN), "--val", str(LEARN_VAL), "--log-interval",
+                str(LEARN_LOG), "--out", md, "--png",
+                os.path.join(tmp, "curve.png"), "--cfg-options",
+                *LEARN_OPTS], "learning_run", phase="learning")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_launches()
+        held = hold_captured(store, "learning", k1=12, k2=6, shapes=[
+            ("K1", (8, *FLAGSHIP_MAP)), ("K2", (8, *FLAGSHIP_MAP)),
+            ("K1", (1, *FLAGSHIP_MAP))])
+        del store
+        recs = read_scalars(os.path.join(wd, "scalars.jsonl"))
+        report = open(md).read()
+        h = hashlib.sha256()
+        with open(os.path.join(wd, f"ckpt_{LEARN_ITERS}"), "rb") as f:
+            h.update(f.read())
+        info = json.load(open(os.path.join(wd, "run_info.json")))
+        png = os.path.exists(os.path.join(tmp, "curve.png"))
+    train = [r for r in recs if "total" in r]
+    check([r["step"] for r in train]
+          == list(range(LEARN_LOG, LEARN_ITERS + 1, LEARN_LOG)),
+          f"(learning) logged steps {[r['step'] for r in train]}")
+    check(all(np.isfinite(v) for r in train for v in r.values()),
+          "(learning) a logged value is not finite")
+    val = [r for r in recs if "mIoU" in r]
+    check([r["step"] for r in val] == [10, 20], f"(learning) vals {val}")
+    section = report.split("## Val mIoU trace", 1)[1].split("\n## ", 1)[0]
+    rows = [line for line in section.splitlines()
+            if line.startswith("| ") and line != "| step | mIoU |"]
+    want_rows = [f"| {r['step']} | {r['mIoU']:.2f} |" for r in val]
+    check(rows == want_rows, f"(learning) report's val rows {rows}, "
+          f"scalars {want_rows}")
+    check(f"`ckpt_{LEARN_ITERS}` sha256 `{h.hexdigest()}`" in report,
+          f"(learning) the report's hash is not ckpt_{LEARN_ITERS}'s "
+          f"{h.hexdigest()}")
+    k1, k2 = 6 * (LEARN_ITERS + LEARN_VAL * len(val)), 6 * LEARN_ITERS
+    want = dict(k1=k1, k2=k2, k1_bf16=k1, k2_bf16=k2, grouped=(0, 0),
+                grouped_bf16=(0, 0))
+    check(launches == want, f"(learning) launches {launches}, want {want}")
+    log("learning", f"{wall:.1f}s in all; s/iter by log record "
+        f"{[round(r['sec_per_iter'], 4) for r in train]}, loss "
+        f"{[round(r['total'], 4) for r in train]}, val mIoU "
+        f"{[r['mIoU'] for r in val]}, peak {info.get('peak_gib', 0):.3f} "
+        f"GiB; report card line {info['card']!r}, PNG written: {png}; "
+        f"bf16 K1/K2 launches {launches['k1_bf16']}/"
+        f"{launches['k2_bf16']} on {smi}")
+    return dict(launches=launches, wall=wall, train=train, val=val,
+                held=held)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5121,10 +5333,21 @@ def main() -> int:
         f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
 
     t = time.perf_counter()
-    dcnv3.build_kernels()
+    # the four nvcc processes leave half the cores to (bf16 tiny)'s CPU
+    # side; it is joined before anything is timed
+    threads = torch.get_num_threads()
+    with ThreadPoolExecutor(1) as pool:
+        try:
+            cpu_ref = pool.submit(bf16_tiny_cpu, max(1, threads // 2))
+            dcnv3.build_kernels()
+            built = time.perf_counter() - t
+            bf16_tiny_ref = cpu_ref.result()
+        finally:
+            torch.set_num_threads(threads)
     sources = (dcnv3.SOURCE, dcnv3.BWD_SOURCE, dcnv3.GROUPED_SOURCE,
                dcnv3.GROUPED_BWD_SOURCE)
-    log("build", f"{', '.join(sources)} built in "
+    log("build", f"{', '.join(sources)} built in {built:.1f}s; "
+        f"(bf16 tiny)'s CPU side beside it, done at "
         f"{time.perf_counter() - t:.1f}s")
     for src in sources:
         lib = cuda_build.library_path(src)
@@ -5207,7 +5430,7 @@ def main() -> int:
             f"{r['launches']['k1_bf16']}/{r['launches']['k2_bf16']} over "
             f"{BF16_WARMUP + BF16_TIMED} steps; f32 step_ms "
             f"{tr['step_ms']:.3f} on {smi}")
-    bty = phase_bf16_tiny()
+    bty = phase_bf16_tiny(bf16_tiny_ref)
     torch.cuda.empty_cache()
     cli = phase_train_cli(tr["step_ms"], smi)
     ref = phase_reference()
@@ -5255,6 +5478,13 @@ def main() -> int:
     par = phase_tp_spatial(smi)
     torch.cuda.empty_cache()
     sfam = phase_spatial_families(smi)
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    bu = phase_burnin(smi)
+    torch.cuda.empty_cache()
+    le = phase_learning(smi)
+    log("learning", f"(burnin) and (learning) took "
+        f"{time.perf_counter() - t_new:.1f}s")
 
     # the main path's launches: serve, the three eval modes, the train
     # steps at the defaults, the overflow step, the host-matcher steps,
@@ -5284,10 +5514,11 @@ def main() -> int:
     grouped_bf16 = [s["grouped_bf16"][i]
                     + sum(p["grouped_bf16"][i] for p in paths)
                     for i in (0, 1)]
-    # the bf16 paths: the bf16 requests and both bf16 train runs
+    # the bf16 paths: the bf16 requests, both bf16 train runs, (burnin)
+    # and (learning)
     bf16_paths = [bs["launches"], bt["bf16"]["launches"],
                   bt["bf16+remat+packed"]["launches"], *par["launches"],
-                  *sfam["launches"]]
+                  *sfam["launches"], bu["launches"], le["launches"]]
     k1_bf16 = sum(p["k1_bf16"] for p in bf16_paths)
     k2_bf16 = sum(p["k2_bf16"] for p in bf16_paths)
 
@@ -5333,10 +5564,12 @@ def main() -> int:
     kernels.append(row("dcnv3_sample[bf16]", dcnv3.SOURCE,
                        "dcnv3_sample_pallas_t5", k1_bf16,
                        max(kb["k1_err"], kr["bf16_err"],
-                           sfam["k1_bf16_err"]), kb["k1", 1]))
+                           sfam["k1_bf16_err"], bu["held"]["k1"],
+                           le["held"]["k1"]), kb["k1", 1]))
     kernels.append(row("dcnv3_sample_bwd[bf16]", dcnv3.BWD_SOURCE,
-                       "dcnv3_sample_pallas_t5_bwd", k2_bf16, kb["k2_err"],
-                       kb["k2", 6]))
+                       "dcnv3_sample_pallas_t5_bwd", k2_bf16,
+                       max(kb["k2_err"], bu["held"]["k2"],
+                           le["held"]["k2"]), kb["k2", 6]))
     # the bf16 forms of K3-K7: the forwards at the serve shape, K7 at the
     # train shape
     for name, (_, layout) in GROUPED_FORWARD.items():
@@ -5407,7 +5640,12 @@ def main() -> int:
         + f"; (tp)/(spatial) K1/K2 launches "
         f"{[(n['k1'], n['k2'], n['k1_bf16']) for n in par['launches']]}"
         + f"; (spatial families) K1 launches (f32, bf16) "
-        f"{[(n['k1'], n['k1_bf16']) for n in sfam['launches']]}")
+        f"{[(n['k1'], n['k1_bf16']) for n in sfam['launches']]}"
+        + f"; (burnin) bf16 K1/K2 {bu['launches']['k1_bf16']}/"
+        f"{bu['launches']['k2_bf16']} ({BURNIN_RUN} steps, "
+        f"{BURNIN_VALS} val forwards), (learning) bf16 K1/K2 "
+        f"{le['launches']['k1_bf16']}/{le['launches']['k2_bf16']} "
+        f"({LEARN_ITERS} iterations, {LEARN_VAL} val images twice)")
     log("total", f"chip_smoke took {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -53,7 +53,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "parallel.tp", "parallel.spatial",
                  "models.spikeformer_lib", "models.cyclemlp", "ops.rnn",
                  "ops.encoding", "ann2snn", "lava_exchange",
-                 "data.biomedical", "runtime"):
+                 "data.biomedical", "runtime", "tools.burnin",
+                 "tools.learning_run", "tools.make_learning_report",
+                 "tools.make_synth_dataset"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
@@ -127,6 +129,22 @@ def test_serving_and_tools_raise_without_cuda(monkeypatch, tmp_path):
                                      str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv + opts)
+
+
+def test_training_tools_raise_without_cuda(monkeypatch, tmp_path):
+    """The burn-in and the learning run run on the card unless the CPU is
+    asked for; neither writes anything first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from spike2former_tpu_torch.tools import burnin, learning_run
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        burnin.main(["--tiny", "--steps", "1",
+                     "--work-dir", str(tmp_path / "b")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        learning_run.main(["--iters", "1", "--data-root",
+                           str(tmp_path / "data"), "--work-dir",
+                           str(tmp_path / "wd")])
+    assert not os.listdir(tmp_path)
 
 
 def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
