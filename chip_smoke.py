@@ -5,7 +5,15 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-Phases, each printing one flushed line with the seconds elapsed:
+Phases, each printing one flushed line with the seconds elapsed.  The
+entry points draw flax's laws when given no weights
+(``engine/weights.py:init_weights_``); at flax's init the flagship's DCN
+branch is silent (its input and mask spikes are 0), so every phase that
+holds a kernel on a model's calls builds it with the tests' draw
+(``drawn_model``, ``drawn_trainer``: ``randomize_``, weights whose spikes
+fire; the eval and firing CLIs through ``--checkpoint``, the NCCL train
+CLI through a ``--resume``d step-0 checkpoint), except (burnin),
+(learning) and (init), which run from flax's laws:
 
   (a) device: torch/CUDA versions, the card's name and power limit;
   (b) build: ``nvcc`` builds ``csrc/dcnv3_sample.cu`` (K1, forward),
@@ -142,7 +150,8 @@ SDTv2 MaskFormer presets, run between the phases above:
       gradients within 1e-4 of the largest;
   (presets) seeded Cityscapes (1024x2048) and COCO-Stuff trees through
       the port's converters; the eval CLI on two images of each (the
-      Cityscapes preset at its (2048, 1024) scale), K1 6 launches an
+      Cityscapes preset at its (2048, 1024) scale; the tests' draw as
+      ``--checkpoint``), K1 6 launches an
       image; one Cityscapes train step at batch 2 and 512x1024 after a
       warm-up (K1 and K2 6 a step).
 
@@ -168,7 +177,7 @@ between the phases above (f32, full width, seeded images and weights):
       strict agreement with these reported), and a loop of
       ``inference_model`` (img/s beside the engine's); K1 timed at the
       largest micro-batch.  Every future must resolve with a class map;
-  (tools) ``tools/benchmark.py`` for 20 forwards and 5 train steps at
+  (tools) ``tools/benchmark.py`` for 10 forwards and 3 train steps at
       batch 6 with ``--mfu``: FLOPs finite and positive, the MFU in
       (0, 1), the peak the card's own for f32; ``tools/export.py`` of the
       flagship at batch 1: 6 calls of K1's operator in the graph, the
@@ -271,7 +280,8 @@ last:
 
   (distributed) NCCL's all-reduce on one rank; the train CLI with
       ``--distributed --num-processes 1`` (NCCL) at full width, batch 6 of
-      512x512, 3 iterations: its first line, finite logged losses, K1 and
+      512x512, 3 iterations ``--resume``d from a step-0 checkpoint of the
+      tests' draw: its first line, finite logged losses, K1 and
       K2 6 launches an iteration, each call held to its plain version,
       s/iter; then two ranks over gloo on the one card (this script run
       as ``--ddp-worker``), one row each of global batches of 2, against
@@ -329,21 +339,32 @@ parallelism and row-sharded inference of slice sixteen, run last:
       path, each call held to its plain version (bf16: within one ulp);
       ms and peak GiB a rank beside one process's.
 
-The repository's training tools, run last (bf16, seeded data and
-weights):
+The repository's training tools and flax's initial weights, run last
+(bf16, seeded data, flax's laws: each tool's own start):
 
   (burnin) ``tools/burnin.py``'s port at full width (the module's
-      defaults, 150 classes, 512x512, batch 4): 40 steps, a checkpoint
-      every 10, a simulated crash at 25 (the newest checkpoint, ckpt_20,
+      defaults, 150 classes, 512x512, batch 4): 24 steps, a checkpoint
+      every 6, a simulated crash at 15 (the newest checkpoint, ckpt_12,
       restored into a fresh state and held to its file bit for bit, then
-      steps 21-40), a val every 20: every logged loss finite, its JSON
-      line, bf16 K1 and K2 6 launches a step run (45) and K1 6 a val
-      forward (2), s a step and peak memory;
+      steps 13-24), a val every 12: every logged loss finite, its JSON
+      line, bf16 K1 and K2 6 launches a step run (27) and K1 6 a val
+      forward (2), s a step and peak memory, the largest share of non-zero
+      DCN mask spikes in a call; the first step's K1 and K2 calls and the
+      first val forward's held to their plain versions (zeros: the DCN
+      branch is silent) and again on their grids (``hold_on_grid``);
   (learning) ``tools/learning_run.sh``'s port on a generated set of 16
-      train and 4 val images at 512x512 for 20 iterations (val every 10,
-      a checkpoint at 20) and its report: the report's val rows equal to
-      ``scalars.jsonl``'s mIoU records, its sha256 that of ckpt_20, bf16
-      K1 and K2 6 launches an iteration and K1 6 a val image.
+      train and 4 val images at 512x512 for 10 iterations (val every 5,
+      a checkpoint at 10) and its report: the report's val rows equal to
+      ``scalars.jsonl``'s mIoU records, its sha256 that of ckpt_10, bf16
+      K1 and K2 6 launches an iteration and K1 6 a val image, the calls
+      held as (burnin)'s;
+  (init) the flagship at full width from ``api.init_trainer`` without
+      weights (flax's laws) with the learning run's recipe (bf16, batch 8,
+      512x512, 30 classes): the laws' constants exactly, the std of the
+      five largest random entries within 2% of their laws'; 10 steps, 6
+      bf16 K1 and K2 launches each a step, finite losses; the share of
+      non-zero DCN mask spikes per layer at steps 1 and 10; the first
+      step's K1 and K2 calls held as (burnin)'s.
 
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -392,15 +413,16 @@ from spike2former_tpu_torch.data.synthetic import (ADE_LIKE_SHAPES,
 from spike2former_tpu_torch.device import f32_precision
 from spike2former_tpu_torch.engine import checkpoint
 from spike2former_tpu_torch.engine.checkpoint import load_reference_model
-from spike2former_tpu_torch.engine.config import TestConfig, get_config
-from spike2former_tpu_torch.engine.train import make_train_step_fpn
+from spike2former_tpu_torch.engine.config import (TestConfig, build_model,
+                                                  get_config)
+from spike2former_tpu_torch.engine.train import Trainer, make_train_step_fpn
 from spike2former_tpu_torch.engine.logging import read_scalars
 from spike2former_tpu_torch.engine.inference import (bucket_hw,
                                                       postprocess_pred,
                                                       whole_panoptic,
                                                       slide_origins,
                                                       whole_logits)
-from spike2former_tpu_torch.engine.weights import randomize_
+from spike2former_tpu_torch.engine.weights import init_laws, randomize_
 from spike2former_tpu_torch.evaluation.tta import (panoptic_inference,
                                                    tta_logits)
 from spike2former_tpu_torch.losses import criterion
@@ -452,6 +474,33 @@ TINY = dict(num_classes=5, embed_dim=(8, 16, 24, 32), backbone_heads=4,
 
 T0 = time.perf_counter()
 
+
+
+def drawn_model(*args, seed: int = 0, **kw) -> api.InferenceModel:
+    """``api.init_model`` with the tests' draw (``randomize_`` from
+    ``seed``) in place of flax's laws: weights whose spikes fire, so
+    every kernel this script holds sees non-zero inputs.  (init),
+    (burnin) and (learning) run from flax's laws instead."""
+    im = api.init_model(*args, seed=seed, **kw)
+    randomize_(im.model, seed)
+    return im
+
+
+def drawn_trainer(*args, seed: int | None = None, **kw) -> Trainer:
+    """``api.init_trainer`` with the tests' draw (``drawn_model``), from
+    ``seed`` or the config's ``train.seed``."""
+    tr = api.init_trainer(*args, seed=seed, **kw)
+    randomize_(tr.state.model, tr.cfg.train.seed if seed is None else seed)
+    return tr
+
+
+def drawn_checkpoint(path: str, preset: str = PRESET) -> str:
+    """Save the tests' draw (seed 0) of ``preset``'s model as a state dict
+    at ``path``, for the eval and firing CLIs' ``--checkpoint``; returns
+    ``path``."""
+    torch.save(randomize_(build_model(get_config(preset).model))
+               .state_dict(), path)
+    return path
 
 def log(phase: str, msg: str) -> None:
     print(f"[{time.perf_counter() - T0:7.1f}s] {phase}: {msg}", flush=True)
@@ -1617,7 +1666,7 @@ def phase_train() -> dict:
     at the preset's defaults (auction, ``compact_gt=32``).  Returns the
     trainer too, and the cost batch of its first step."""
     t = time.perf_counter()
-    tr = api.init_trainer(PRESET, seed=0)
+    tr = drawn_trainer(PRESET, seed=0)
     check((tr.cfg.train.matcher, tr.cfg.train.compact_gt) == ("auction", 32),
           f"preset trains with {tr.cfg.train.matcher}, "
           f"compact_gt={tr.cfg.train.compact_gt}")
@@ -1646,7 +1695,7 @@ def phase_train() -> dict:
 
 def phase_host_train() -> dict:
     """(train): the same step with ``matcher='host'``, fewer steps."""
-    tr = api.init_trainer(PRESET, ["train.matcher='host'"], seed=0)
+    tr = drawn_trainer(PRESET, ["train.matcher='host'"], seed=0)
     rng = np.random.default_rng(0)
     b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
     batches = [synthetic_batch(rng, b, hw)
@@ -1791,7 +1840,7 @@ def phase_small_train() -> dict:
                    for _ in range(3)]
         totals = []
         for dev in ("cpu", "cuda"):
-            tr = api.init_trainer(PRESET, opts, device=dev, seed=1)
+            tr = drawn_trainer(PRESET, opts, device=dev, seed=1)
             totals.append([m["total"] for m in api.train_steps(tr, batches)])
         rel = max(abs(a - b) / abs(b) for a, b in zip(totals[1], totals[0]))
         log("train", f"tiny {matcher} totals CPU {totals[0]} card "
@@ -1958,7 +2007,7 @@ def phase_bf16_serve(im32) -> dict:
     (serve): K1's bf16 form 6 times a request, finite logits, the class
     agreement and largest logit gap against the f32 model, the median
     request ms and the peak memory."""
-    im = api.init_model(PRESET, overrides=BF16_OPTS, seed=0)
+    im = drawn_model(PRESET, overrides=BF16_OPTS, seed=0)
     check(all(torch.equal(a, b) for a, b in zip(
         im.model.state_dict().values(), im32.model.state_dict().values())),
         "bf16 model does not hold the f32 model's weights")
@@ -2012,7 +2061,7 @@ def phase_bf16_train() -> dict:
     out = {}
     for tag, extra in (("bf16", []), ("bf16+remat+packed", [
             "model.remat=True", "train.packed_residuals=True"])):
-        tr = api.init_trainer(PRESET, BF16_OPTS + extra, seed=0)
+        tr = drawn_trainer(PRESET, BF16_OPTS + extra, seed=0)
         if not out:
             b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
             batches = [synthetic_batch(rng, b, hw)
@@ -2056,11 +2105,11 @@ def bf16_tiny_cpu(threads: int) -> dict:
     the kernels, on the cores the build leaves."""
     torch.set_num_threads(threads)
     opts, x, batches = bf16_tiny_inputs()
-    cpu = api.init_model(PRESET, overrides=opts, device="cpu", seed=1)
+    cpu = drawn_model(PRESET, overrides=opts, device="cpu", seed=1)
     with torch.inference_mode():
         logits = cpu.model.predict_logits(x)
-    tr = api.init_trainer(PRESET, opts + ["train.warmup_iters=1"],
-                          device="cpu", seed=1)
+    tr = drawn_trainer(PRESET, opts + ["train.warmup_iters=1"],
+                       device="cpu", seed=1)
     return dict(logits=logits,
                 totals=[m["total"] for m in api.train_steps(tr, batches)])
 
@@ -2071,7 +2120,7 @@ def phase_bf16_tiny(cpu_ref: dict) -> dict:
     largest gap) and 3 train steps' ``total`` with the preset's auction
     matcher (maps of 4 classes)."""
     opts, x, batches = bf16_tiny_inputs()
-    gpu = api.init_model(PRESET, overrides=opts, seed=1)
+    gpu = drawn_model(PRESET, overrides=opts, seed=1)
     with torch.inference_mode(), f32_precision():
         agree, gap = compare_logits(gpu.model.predict_logits(x.cuda()).cpu(),
                                     cpu_ref["logits"])
@@ -2079,7 +2128,7 @@ def phase_bf16_tiny(cpu_ref: dict) -> dict:
         f"{agree:.6f}, max|logit gap| {gap:.6g}")
     check(agree >= BF16_AGREEMENT and gap <= BF16_LOGIT_GAP,
           f"bf16 tiny card vs CPU: agreement {agree}, gap {gap}")
-    tr = api.init_trainer(PRESET, opts + ["train.warmup_iters=1"], seed=1)
+    tr = drawn_trainer(PRESET, opts + ["train.warmup_iters=1"], seed=1)
     totals = [cpu_ref["totals"],
               [m["total"] for m in api.train_steps(tr, batches)]]
     rel = max(abs(a - b) / abs(b) for a, b in zip(totals[1], totals[0]))
@@ -2196,7 +2245,7 @@ def step_under_loader(root: str, steps: int = 4) -> dict:
     batches: taken from memory (the loader closed), and taken while a
     live ``TrainLoader`` (``num_workers=8``) produces the next ones in its
     threads, as in the train CLI."""
-    tr = api.init_trainer(PRESET, seed=0)
+    tr = drawn_trainer(PRESET, seed=0)
     ds = make_dataset("ade20k", root, "train")
     with TrainLoader(ds, 6, (512, 512), seed=1, num_workers=8) as ld:
         it = iter(ld)
@@ -2521,6 +2570,79 @@ def hold_captured(store: dict, tag: str, k1: int, k2: int = 0,
     return worst
 
 
+@contextlib.contextmanager
+def mask_shares(shares: list):
+    """Append, for every K1 call inside the block (one a DCN layer, in
+    order), the share of its mask spikes that are non-zero."""
+    real = dcnv3.dcnv3_sample
+
+    def fwd(value, py, px, mask, **kw):
+        shares.append(float((mask != 0).float().mean()))
+        return real(value, py, px, mask, **kw)
+
+    dcnv3.dcnv3_sample = fwd
+    try:
+        yield shares
+    finally:
+        dcnv3.dcnv3_sample = real
+
+
+def hold_on_grid(store: dict, tag: str, seed: int) -> dict:
+    """At flax's init the DCN input of the flagship's pixel decoder is
+    silent (its spikes are 0) and the mask kernel is zero, so each
+    captured K1 output and K2 gradient is exactly zero (checked) and a
+    hold of them against the plain versions proves nothing.  Each
+    captured call is held again at its own coordinates (at flax's init
+    the offsets are zero: every tap on the reference grid, the pad ring
+    included) and shapes, with a seeded value, mask and ``dout`` in its
+    dtypes: the outputs non-zero and within the tolerances of (c), (k2)
+    and (bf16 kernels) of the plain versions, from a generator seeded
+    with ``seed``.  Returns the largest differences."""
+    worst, gen = dict(k1=0.0, k2=0.0), torch.Generator().manual_seed(seed)
+
+    def like(t, kind):
+        x = torch.empty(t.shape, dtype=torch.float32)
+        getattr(x, kind)(generator=gen)
+        return x.to(device=t.device, dtype=t.dtype)
+
+    for value, py, px, mask, out in store.get("k1", []):
+        check(not out.any(), f"{tag}: a K1 output of the path is not zero")
+        v, m = like(value, "normal_"), like(mask, "uniform_")
+        got = dcnv3.dcnv3_sample(v, py, px, m)
+        plain = dcnv3.dcnv3_sample_reference(v, py, px, m)
+        err = (got.float() - plain.float()).abs().max().item()
+        close = (within_one_bf16_ulp(got, plain)
+                 if v.dtype == torch.bfloat16 else err <= KERNEL_TOL)
+        check(bool(got.any()) and close, f"{tag}: K1 on the path's grid "
+              f"at {tuple(v.shape)} {v.dtype} vs plain {err:.3g}")
+        worst["k1"] = max(worst["k1"], err)
+    for value, py, px, mask, dout, *grads in store.get("k2", []):
+        check(not any(g.any() for g in grads[:3]),
+              f"{tag}: a K2 gradient of the path is not zero")
+        v, m, d = (like(value, "normal_"), like(mask, "uniform_"),
+                   like(dout, "normal_"))
+        got = dcnv3.dcnv3_sample_backward(v, py, px, m, d)
+        want = dcnv3.dcnv3_sample_backward_reference(v, py, px, m, d)
+        bf16 = v.dtype == torch.bfloat16
+        for name, gv, wv in zip(("dvalue", "dpy", "dpx", "dmask"), got,
+                                want):
+            err = (gv.float() - wv.float()).abs().max().item()
+            if bf16:   # as (bf16 kernels) holds them
+                close = (within_one_bf16_ulp(gv, wv) if name == "dvalue"
+                         else err <= BF16_GRAD_RTOL * wv.abs().max().item())
+            else:
+                close = torch.allclose(gv, wv, atol=BWD_ATOL, rtol=BWD_RTOL)
+            check(bool(gv.any()) and bool(close), f"{tag}: K2 {name} on "
+                  f"the path's grid vs plain {err:.3g}")
+            worst["k2"] = max(worst["k2"], err)
+    silent = sum(not value.any() for value, *_ in store.get("k1", []))
+    log(tag, f"the path's {len(store.get('k1', []))} K1 and "
+        f"{len(store.get('k2', []))} K2 calls, zero at flax's init (the "
+        f"value map all zero in {silent} K1 calls), held again on their "
+        f"grids with seeded values and masks: max|diff| K1 "
+        f"{worst['k1']:.3g}, K2 {worst['k2']:.3g}")
+    return worst
+
 def device_busy_ms(fn, cpu: bool = True) -> float:
     """The device's kernel time in one call of ``fn`` (``torch.profiler``;
     the train step's ``record_function`` ranges left out).  ``cpu=False``
@@ -2552,8 +2674,9 @@ def phase_firing(smi: str) -> dict:
     with tempfile.TemporaryDirectory() as root:
         write_ade_tree(root, FIRING_SHAPES, seed=1)
         out = os.path.join(root, "rates")
-        args = [PRESET, "--data-root", root, "--num-images", "4",
-                "--out", out]
+        args = [PRESET, "--data-root", root, "--checkpoint",
+                drawn_checkpoint(os.path.join(root, "drawn.pt")),
+                "--num-images", "4", "--out", out]
         zero_launches()
         t = time.perf_counter()
         lines = run_cli(cal_firing_num.main, args, "cli", phase="firing")
@@ -2566,7 +2689,7 @@ def phase_firing(smi: str) -> dict:
             rows = f.read().splitlines()
         store = {}
         with capture_dcn(store):
-            run_cli(cal_firing_num.main, args[:3] + [
+            run_cli(cal_firing_num.main, args[:5] + [
                 "--num-images", "1", "--out", out + "_check"], "check",
                 phase="firing")
     held = hold_captured(store, "firing", k1=6)
@@ -2580,9 +2703,9 @@ def phase_firing(smi: str) -> dict:
           f"firing: {len(rates)} keys, {len(rows)} CSV rows")
     proxy = energy_proxy(rates)
     # an image's forward with the statistics, warm, on the CLI's model
-    im = api.init_model(PRESET, overrides=["model.collapse_t=False",
-                                           "model.eval_last_only=False"],
-                        seed=0)
+    im = drawn_model(PRESET, overrides=["model.collapse_t=False",
+                                        "model.eval_last_only=False"],
+                     seed=0)
     x = preprocess(torch.from_numpy(np.random.default_rng(1).integers(
         0, 256, (1, 512, 512, 3), dtype=np.uint8)).cuda())
     with f32_precision():
@@ -2759,7 +2882,7 @@ def phase_point_train(gt_step: dict, smi: str) -> dict:
     (batch 6, 512x512, the preset's auction and ``compact_gt``) beside
     the GT-resolution step of (train): wall and device ms, peak memory,
     K1 and K2 launches, finite losses; the point loss card vs CPU."""
-    tr = api.init_trainer(PRESET, [f"train.loss_points={POINTS}"], seed=0)
+    tr = drawn_trainer(PRESET, [f"train.loss_points={POINTS}"], seed=0)
     check(tr.cfg.train.loss_points == POINTS, "loss_points not applied")
     rng = np.random.default_rng(0)
     batches = [synthetic_batch(rng, 6, (512, 512))
@@ -2811,9 +2934,13 @@ def phase_presets(gen, smi: str) -> dict:
         run_cli(dataset_converters.main, ["coco_stuff",
                                           os.path.join(coco, "annotations")],
                 "coco_stuff", phase="presets")
+        ckpt = {}
         for preset, data, name in ((CITYSCAPES, cs, "cityscapes"),
                                    (COCO_STUFF, coco, "coco_stuff164k")):
-            args = [preset, "--data-root", data, "--max-images", "2"]
+            ckpt[preset] = drawn_checkpoint(os.path.join(root, name + ".pt"),
+                                            preset)
+            args = [preset, "--data-root", data, "--max-images", "2",
+                    "--checkpoint", ckpt[preset]]
             zero_launches()
             lines = run_cli(eval_cli.main, args, preset, phase="presets")
             torch.cuda.synchronize()
@@ -2821,7 +2948,7 @@ def phase_presets(gen, smi: str) -> dict:
             check("images: 2" in lines and launches["k1"] == 12,
                   f"{preset} eval: {lines}, K1 {launches['k1']}")
             # the CLI's evaluate, warm, on a model built once
-            im = api.init_model(preset, seed=0)
+            im = drawn_model(preset, seed=0)
             ds = make_dataset(name, data, "val")
             eval_cli.evaluate(im, ds)
             passes = []
@@ -2841,12 +2968,13 @@ def phase_presets(gen, smi: str) -> dict:
         store = {}
         with capture_dcn(store):
             run_cli(eval_cli.main, [CITYSCAPES, "--data-root", cs,
-                                    "--max-images", "1"], "check",
+                                    "--max-images", "1", "--checkpoint",
+                                    ckpt[CITYSCAPES]], "check",
                     phase="presets")
         held_eval = hold_captured(store, "presets", k1=6,
                                   shapes=[("K1", CS_EVAL_MAP)])
 
-    tr = api.init_trainer(CITYSCAPES, seed=0)
+    tr = drawn_trainer(CITYSCAPES, seed=0)
     b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
     check((b, hw) == (2, (512, 1024)), f"Cityscapes batch {b} at {hw}")
     rng = np.random.default_rng(8)
@@ -3142,7 +3270,7 @@ def phase_v3(variant: str, gen, smi: str) -> dict:
     preset = V3_PRESETS[variant]
     tag = variant
     t = time.perf_counter()
-    im = api.init_model(preset, seed=0)
+    im = drawn_model(preset, seed=0)
     check((im.cfg.model.variant, im.cfg.model.T, im.cfg.model.collapse_t)
           == (variant, 4, True), f"{tag}: {im.cfg.model}")
     log(tag, f"{preset} built at full width in "
@@ -3187,7 +3315,7 @@ def phase_v3(variant: str, gen, smi: str) -> dict:
     del im
     torch.cuda.empty_cache()
 
-    tr = api.init_trainer(preset, seed=0)
+    tr = drawn_trainer(preset, seed=0)
     b, hw = tr.cfg.data.batch_size, tuple(tr.cfg.data.crop_size)
     check((b, hw) == (6, (512, 512)), f"{tag}: trains at {b} x {hw}")
     batches = [synthetic_batch(np.random.default_rng(7), b, hw)
@@ -3255,9 +3383,9 @@ def phase_tools(im, smi: str) -> dict:
     requests queued."""
     kind = torch.cuda.get_device_name(0)
     out = {}
-    for train, argv in ((False, ["--num-iters", "20", "--warmup", "3"]),
+    for train, argv in ((False, ["--num-iters", "10", "--warmup", "2"]),
                         (True, ["--train", "--batch-size", "6",
-                                "--num-iters", "5", "--warmup", "2"])):
+                                "--num-iters", "3", "--warmup", "2"])):
         args = benchmark._parser().parse_args(
             [PRESET, "--dtype", "float32", "--mfu"] + argv)
         r = benchmark.run(args)
@@ -3380,7 +3508,7 @@ def phase_panoptic(smi: str) -> dict:
                 f" {ds.num_things}+{ds.num_stuff} classes")
 
         t = time.perf_counter()
-        im = api.init_model(PANOPTIC, seed=0)
+        im = drawn_model(PANOPTIC, seed=0)
         m = im.cfg.model
         check((m.num_classes, m.num_things, im.cfg.data.dataset)
               == (133, 80, "coco_panoptic"), f"{tag}: preset {m}")
@@ -3497,7 +3625,7 @@ def phase_panoptic(smi: str) -> dict:
             + ", ".join(f"{k} {v[0]:.2f} ({v[1]:.1f})"
                         for k, v in copies.items()))
         # the step alone on that batch (masks as the CLI sends them)
-        tr = api.init_trainer(PANOPTIC, seed=0)
+        tr = drawn_trainer(PANOPTIC, seed=0)
         u8 = (batch[0], batch[1], batch[2].astype(np.uint8), batch[3])
         steps = timed_steps(tr, [u8] * 3, 1, tag)
         out.update(step_ms=steps["step_ms"], step_peak=steps["peak_gib"],
@@ -3555,8 +3683,8 @@ def phase_variant(name: str, smi: str) -> dict:
     step of the variant)."""
     opts = VARIANTS[name]
     t = time.perf_counter()
-    ims = {"flagship": api.init_model(PRESET, seed=0),
-           name: api.init_model(PRESET, overrides=opts, seed=0)}
+    ims = {"flagship": drawn_model(PRESET, seed=0),
+           name: drawn_model(PRESET, overrides=opts, seed=0)}
     head = ims[name].model.head
     check(head.masked_attention if name == "m2f" else head.decoder == "dab",
           f"{name}: head {head.masked_attention}, {head.decoder}")
@@ -3601,8 +3729,8 @@ def phase_variant(name: str, smi: str) -> dict:
     del ims
     torch.cuda.empty_cache()
 
-    trs = {"flagship": api.init_trainer(PRESET, seed=0),
-           name: api.init_trainer(PRESET, opts, seed=0)}
+    trs = {"flagship": drawn_trainer(PRESET, seed=0),
+           name: drawn_trainer(PRESET, opts, seed=0)}
     b, hw = trs[name].cfg.data.batch_size, tuple(trs[name].cfg.data.crop_size)
     batches = [synthetic_batch(np.random.default_rng(7), b, hw)
                for _ in range(VARIANT_STEPS)]
@@ -3688,7 +3816,7 @@ def fpn_steps(name: str, warmup: int, timed: int, tag: str) -> dict:
     neck's and the head's largest gradients."""
     b = get_config(name).data.batch_size
     while True:
-        tr = api.init_trainer(name, [f"data.batch_size={b}"], seed=0)
+        tr = drawn_trainer(name, [f"data.batch_size={b}"], seed=0)
         rng = np.random.default_rng(7)
         batches = [synthetic_batch(rng, b, (512, 512))
                    for _ in range(warmup + timed)]
@@ -3736,8 +3864,8 @@ def tiny_fpn_card_vs_cpu() -> dict:
     and the card: logits of two 64x64 images (class agreement, largest
     gap) and 3 train steps' ``total`` with the same dropout masks (a CPU
     generator's, seeded by the step)."""
-    ims = {dev: api.init_model(FPN_PRESET, overrides=TINY_FPN, device=dev,
-                               seed=1) for dev in ("cpu", "cuda")}
+    ims = {dev: drawn_model(FPN_PRESET, overrides=TINY_FPN, device=dev,
+                            seed=1) for dev in ("cpu", "cuda")}
     x = torch.from_numpy(np.random.default_rng(2).normal(
         0, 1, (2, 64, 64, 3)).astype(np.float32))
     logits = {}
@@ -3755,7 +3883,7 @@ def tiny_fpn_card_vs_cpu() -> dict:
                for _ in range(3)]
     totals = {}
     for dev in ("cpu", "cuda"):
-        tr = api.init_trainer(FPN_PRESET, TINY_FPN + [
+        tr = drawn_trainer(FPN_PRESET, TINY_FPN + [
             "train.warmup_iters=1"], device=dev, seed=1)
         tr.step_fn = make_train_step_fpn(tr.cfg.train.loss_decode,
                                          dropout_draw=cpu_draw)
@@ -3774,7 +3902,7 @@ def phase_fpn(smi: str) -> dict:
     before them (K1 and K2 must read 0: the FPN family runs no DCN), peak
     memory; the tiny model card against CPU."""
     t = time.perf_counter()
-    im = api.init_model(FPN_PRESET, seed=0)
+    im = drawn_model(FPN_PRESET, seed=0)
     log("fpn", f"{FPN_PRESET} built at full width in "
         f"{time.perf_counter() - t:.1f}s")
     imgs = request_images()
@@ -3831,7 +3959,7 @@ def phase_fpn_family(smi: str) -> dict:
     out = {"launches": []}
     imgs = request_images()
     for name in FPN_FAMILY:
-        im = api.init_model(name, seed=0)
+        im = drawn_model(name, seed=0)
         timed_requests(im, imgs[:1], 1)
         zero_launches()
         req = timed_requests(im, imgs[1:2], 1)[0]
@@ -3905,7 +4033,7 @@ def phase_fpn_bf16(smi: str) -> dict:
     read 0: no DCN).  At tiny widths the bf16 model on the card against
     the CPU: class agreement >= ``BF16_AGREEMENT``, logit gap <=
     ``BF16_LOGIT_GAP``."""
-    ims = {dt: api.init_model(FPN_PRESET, overrides=opts, seed=0)
+    ims = {dt: drawn_model(FPN_PRESET, overrides=opts, seed=0)
            for dt, opts in (("f32", []), ("bf16", BF16_OPTS))}
     imgs = request_images()
     for im in ims.values():
@@ -3944,7 +4072,7 @@ def phase_fpn_bf16(smi: str) -> dict:
     rng = np.random.default_rng(7)
     batches = [synthetic_batch(rng, 6, (512, 512))
                for _ in range(1 + FPN_BF16_STEPS)]
-    trs = {dt: api.init_trainer(FPN_PRESET, opts, seed=0)
+    trs = {dt: drawn_trainer(FPN_PRESET, opts, seed=0)
            for dt, opts in (("f32", []), ("bf16", BF16_OPTS))}
     step_ms = {dt: [] for dt in trs}
     step_peak = {dt: 0.0 for dt in trs}
@@ -3988,8 +4116,8 @@ def phase_fpn_bf16(smi: str) -> dict:
         f"{smi}")
 
     opts = TINY_FPN + BF16_OPTS
-    cpu = api.init_model(FPN_PRESET, overrides=opts, device="cpu", seed=1)
-    gpu = api.init_model(FPN_PRESET, overrides=opts, seed=1)
+    cpu = drawn_model(FPN_PRESET, overrides=opts, device="cpu", seed=1)
+    gpu = drawn_model(FPN_PRESET, overrides=opts, seed=1)
     x = torch.from_numpy(np.random.default_rng(2).normal(
         0, 1, (2, 64, 64, 3)).astype(np.float32))
     with torch.inference_mode(), f32_precision():
@@ -4200,7 +4328,7 @@ def ddp_steps(pid: int, pcount: int, config: str) -> dict:
     ``DDP_CONFIGS[config]`` (weights from seed 0) on rank ``pid``'s rows
     of global batches of 2 at its crop."""
     overrides, crop, synth = DDP_CONFIGS[config]
-    tr = api.init_trainer(PRESET, overrides, seed=0)
+    tr = drawn_trainer(PRESET, overrides, seed=0)
     rng = np.random.default_rng(7)
     batches = [parallel.shard_batch(
         synthetic_batch(rng, 2, (crop, crop), **synth), pid, pcount)
@@ -4222,8 +4350,9 @@ def ddp_steps(pid: int, pcount: int, config: str) -> dict:
 def phase_distributed(smi: str) -> dict:
     """(distributed): (a) the train CLI with ``--distributed
     --num-processes 1`` (NCCL, one rank) at full width, batch 6 of 512x512,
-    ``DDP_ITERS`` iterations, every K1/K2 call held to its plain version;
-    (b) two gloo ranks on the one card, one row each of global batches of
+    ``DDP_ITERS`` iterations from the tests' draw (a ``ckpt_0`` of
+    ``drawn_trainer``'s state, ``--resume``d: the CLI takes no weights),
+    every K1/K2 call held to its plain version; (b) two gloo ranks on the one card, one row each of global batches of
     2, against this process taking the whole batches, for each of
     ``DDP_CONFIGS`` (``ddp_compare``)."""
     t0 = time.perf_counter()
@@ -4237,6 +4366,9 @@ def phase_distributed(smi: str) -> dict:
         root = os.path.join(tmp, "ade")
         write_ade_tree(root, ADE_LIKE_SHAPES, seed=3, split="training")
         wd = os.path.join(tmp, "wd")
+        os.makedirs(wd)
+        checkpoint.save_state(wd, drawn_trainer(PRESET, device="cpu").state,
+                              0, wait=True)
         store: dict = {}
         torch.cuda.synchronize()
         zero_launches()
@@ -4244,7 +4376,7 @@ def phase_distributed(smi: str) -> dict:
         with capture_dcn(store):
             lines = run_cli(train_cli.main, [
                 PRESET, "--data-root", root, "--work-dir", wd,
-                "--log-interval", "1", "--eval-images", "0",
+                "--log-interval", "1", "--eval-images", "0", "--resume",
                 "--distributed", "--num-processes", "1", "--cfg-options",
                 f"train.total_iters={DDP_ITERS}",
                 "train.checkpoint_interval=0", "train.val_interval=0"],
@@ -4566,14 +4698,14 @@ def par_two(mesh_of) -> dict:
     res = {}
     mesh = mesh_of(2)
     for tag, opts in (("f32", []), ("bf16", BF16_OPTS)):
-        im = api.init_model(PRESET, overrides=opts, seed=0)
+        im = drawn_model(PRESET, overrides=opts, seed=0)
         if mesh is not None:
             parallel.shard_params_tp(im.model, mesh)
         res["tp", tag] = par_forward(im.model, imgs[FLAGSHIP_HW],
                                      capture=tag == "f32")
         del im
         torch.cuda.empty_cache()
-    tr = api.init_trainer(PRESET, seed=0)
+    tr = drawn_trainer(PRESET, seed=0)
     if mesh is not None:
         parallel.shard_params_tp(tr.state, mesh)
     res["tp", "step"] = par_step(tr, par_batch(2, TP_STEP_HW), mesh,
@@ -4584,7 +4716,7 @@ def par_two(mesh_of) -> dict:
     for preset, hw in ((PRESET, FLAGSHIP_HW),
                        (CITYSCAPES, CITYSCAPES_SHAPE)):
         for tag, opts in (("f32", []), ("bf16", BF16_OPTS)):
-            im = api.init_model(preset, overrides=opts, seed=0)
+            im = drawn_model(preset, overrides=opts, seed=0)
             res["spatial", preset, tag] = par_forward(
                 im.model, imgs[hw], mesh, capture=tag == "f32")
             del im
@@ -4599,14 +4731,14 @@ def par_four(mesh_of) -> dict:
     overrides, crop, synth = DDP_CONFIGS["tiny"]
     res = {}
     mesh = mesh_of(2)
-    tr = api.init_trainer(PRESET, overrides, seed=0)
+    tr = drawn_trainer(PRESET, overrides, seed=0)
     batch = par_batch(4, (crop, crop), **synth)
     if mesh is not None:
         parallel.shard_params_tp(tr.state, mesh)
         batch = parallel.shard_batch(batch)     # this data rank's rows
     res["step"] = par_step(tr, batch, mesh)
     del tr
-    im = api.init_model(PRESET, overrides=overrides, seed=0)
+    im = drawn_model(PRESET, overrides=overrides, seed=0)
     res["spatial"] = par_forward(im.model, par_images()[64, 64],
                                  mesh_of(1), capture=True)
     return res
@@ -4868,7 +5000,7 @@ def fam_cityscapes(mesh_of) -> dict:
     img = fam_images()[CITYSCAPES_SHAPE]
     res = {}
     for tag, opts in (("f32", []), ("bf16", BF16_OPTS)):
-        im = api.init_model(SDTV3_CITY, overrides=opts, seed=0)
+        im = drawn_model(SDTV3_CITY, overrides=opts, seed=0)
         res[tag] = par_forward(im.model, img, mesh_of(1), capture=True)
         del im
         torch.cuda.empty_cache()
@@ -4880,17 +5012,17 @@ def fam_models(mesh_of) -> dict:
     built from seed 0."""
     imgs = fam_images()
     mesh = mesh_of(1)
-    im = api.init_model(PRESET, seed=0)
+    im = drawn_model(PRESET, seed=0)
     res = {"bucketed": par_forward(im.model, imgs["bucket"], mesh,
                                    capture=True, valid_hw=FAM_BUCKET)}
     del im
     for name, (preset, opts, capture) in FAM_MODELS.items():
-        im = api.init_model(preset, overrides=opts, seed=0)
+        im = drawn_model(preset, overrides=opts, seed=0)
         res[name] = par_forward(im.model, imgs[FAM_HW], mesh,
                                 capture=capture)
         del im
         torch.cuda.empty_cache()
-    im = api.init_model(PANOPTIC, seed=0)
+    im = drawn_model(PANOPTIC, seed=0)
     head = im.model.head
     with torch.no_grad():
         # confident queries, as confident_tiny_model's, and the 80 thing
@@ -5160,30 +5292,37 @@ def phase_library(smi: str) -> dict:
 
 
 # (burnin): the burn-in at the module's defaults and full width, bf16
-BURNIN_ARGS = ["--steps", "40", "--batch-size", "4", "--image-size", "512",
-               "--num-classes", "150", "--dtype", "bfloat16",
-               "--ckpt-every", "10", "--resume-at", "25", "--val-every",
-               "20", "--log-every", "1"]
-# steps run (25, then 21-40 again from ckpt_20) and val forwards (one
-# batch of 2 images at 20 and at 40)
-BURNIN_RUN, BURNIN_VALS = 45, 2
+BURNIN_STEPS, BURNIN_CKPT, BURNIN_CRASH, BURNIN_VAL = 24, 6, 15, 12
+BURNIN_ARGS = ["--steps", str(BURNIN_STEPS), "--batch-size", "4",
+               "--image-size", "512", "--num-classes", "150", "--dtype",
+               "bfloat16", "--ckpt-every", str(BURNIN_CKPT), "--resume-at",
+               str(BURNIN_CRASH), "--val-every", str(BURNIN_VAL),
+               "--log-every", "1"]
+# the newest checkpoint at the crash, the steps run (15, then 13-24 again
+# from ckpt_12) and the val forwards (one batch of 2 images at 12 and 24)
+BURNIN_RESTORED = BURNIN_CRASH // BURNIN_CKPT * BURNIN_CKPT
+BURNIN_RUN = BURNIN_CRASH + BURNIN_STEPS - BURNIN_RESTORED
+BURNIN_VALS = BURNIN_STEPS // BURNIN_VAL
 # (learning): the learning run on a generated set of 16 train and 4 val
-# images at 512x512, 20 iterations
-LEARN_ITERS, LEARN_TRAIN, LEARN_VAL, LEARN_LOG = 20, 16, 4, 5
-LEARN_OPTS = ["train.val_interval=10", "train.checkpoint_interval=20"]
+# images at 512x512, 10 iterations
+LEARN_ITERS, LEARN_TRAIN, LEARN_VAL, LEARN_LOG = 10, 16, 4, 5
+LEARN_OPTS = [f"train.val_interval={LEARN_LOG}",
+              f"train.checkpoint_interval={LEARN_ITERS}"]
 # the flagship's DCN value map at 512x512, [N, 32, 32, 256], by batch size
 FLAGSHIP_MAP = (32, 32, 256)
 
 
 def phase_burnin(smi: str) -> dict:
     """(burnin): ``tools/burnin.py``'s port at full width (the module's
-    defaults, 150 classes, 512x512, batch 4, bf16) for 40 steps, a
-    checkpoint every 10, a crash at 25 and a val every 20.  Every logged
-    loss finite, the run resumed from ckpt_20, the restored state bitwise
-    that checkpoint, bf16 K1 and K2 6 launches a step run (45) and K1 6
+    defaults, 150 classes, 512x512, batch 4, bf16) for 24 steps, a
+    checkpoint every 6, a crash at 15 and a val every 12.  Every logged
+    loss finite, the run resumed from ckpt_12, the restored state bitwise
+    that checkpoint, bf16 K1 and K2 6 launches a step run (27) and K1 6
     a val forward (2, of 2 images each); the first step's K1 and K2 calls
     (N=4) and the first val forward's K1 calls (N=2) held to their plain
-    versions; its JSON line, s a step and peak memory."""
+    versions, and again on their grids (``hold_on_grid``: from flax's
+    laws, the tool's start, the DCN branch is silent); its JSON line, s a
+    step, peak memory and the largest share of non-zero mask spikes."""
     with tempfile.TemporaryDirectory() as tmp:
         args = burnin.parser().parse_args(BURNIN_ARGS + ["--work-dir", tmp])
         restored = []
@@ -5201,9 +5340,10 @@ def phase_burnin(smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         t = time.perf_counter()
-        buf, store = io.StringIO(), {}
+        buf, store, shares = io.StringIO(), {}, []
         try:
-            with contextlib.redirect_stdout(buf), capture_dcn(store, first=6):
+            with contextlib.redirect_stdout(buf), capture_dcn(
+                    store, first=6), mask_shares(shares):
                 out = burnin.run(args)
         finally:
             burnin.restore_state = real_restore
@@ -5213,6 +5353,7 @@ def phase_burnin(smi: str) -> dict:
         held = hold_captured(store, "burnin", k1=12, k2=6, shapes=[
             ("K1", (4, *FLAGSHIP_MAP)), ("K2", (4, *FLAGSHIP_MAP)),
             ("K1", (2, *FLAGSHIP_MAP))])
+        grid = hold_on_grid(store, "burnin", 24)
         del store
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for line in buf.getvalue().splitlines():
@@ -5223,15 +5364,19 @@ def phase_burnin(smi: str) -> dict:
     log("burnin", json.dumps(summary))
     check(summary["all_finite"] and summary["resumed_mid_run"],
           f"(burnin) {summary}")
-    check(restored == [("ckpt_20", 20)], f"(burnin) restored {restored}")
+    check(restored == [(f"ckpt_{BURNIN_RESTORED}", BURNIN_RESTORED)],
+          f"(burnin) restored {restored}")
     steps = [r for r in recs if "loss" in r]
     check([r["step"] for r in steps]
-          == list(range(1, 26)) + list(range(21, 41)),
+          == list(range(1, BURNIN_CRASH + 1))
+          + list(range(BURNIN_RESTORED + 1, BURNIN_STEPS + 1)),
           f"(burnin) logged steps {[r['step'] for r in steps]}")
     check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
               for r in steps), "(burnin) a logged loss is not finite")
     vals = [r for r in recs if "val_acc" in r]
-    check([r["step"] for r in vals] == [20, 40], f"(burnin) vals {vals}")
+    check([r["step"] for r in vals]
+          == list(range(BURNIN_VAL, BURNIN_STEPS + 1, BURNIN_VAL)),
+          f"(burnin) vals {vals}")
     k1, k2 = 6 * (BURNIN_RUN + BURNIN_VALS), 6 * BURNIN_RUN
     # every launch is of the bf16 forms (``launches`` counts both dtypes)
     want = dict(k1=k1, k2=k2, k1_bf16=k1, k2_bf16=k2, grouped=(0, 0),
@@ -5247,25 +5392,30 @@ def phase_burnin(smi: str) -> dict:
         f"min {min(gaps):.4f}, max {max(gaps):.4f}), {wall:.1f}s in all, "
         f"peak {peak:.3f} GiB, val pixel-acc "
         f"{[round(r['val_acc'], 4) for r in vals]}, bf16 K1/K2 launches "
-        f"{launches['k1_bf16']}/{launches['k2_bf16']} on {smi}")
+        f"{launches['k1_bf16']}/{launches['k2_bf16']}; the largest share "
+        f"of non-zero DCN mask spikes in a K1 call {max(shares):.4g} on "
+        f"{smi}")
     return dict(launches=launches, summary=summary, s_step=s_step,
-                peak_gib=peak, wall=wall, held=held)
+                peak_gib=peak, wall=wall,
+                held=dict(k1=max(held["k1"], grid["k1"]),
+                          k2=max(held["k2"], grid["k2"])))
 
 
 def phase_learning(smi: str) -> dict:
     """(learning): ``tools/learning_run.sh``'s port on a generated set of
-    16 train and 4 val images at 512x512 for 20 iterations (val every 10,
+    16 train and 4 val images at 512x512 for 10 iterations (val every 5,
     a checkpoint at 20), then its report: every logged loss finite, the
     report's val rows the ``scalars.jsonl`` mIoU records, its sha256 that
-    of ckpt_20 hashed afresh, bf16 K1 and K2 6 launches an iteration and
+    of ckpt_10 hashed afresh, bf16 K1 and K2 6 launches an iteration and
     K1 6 a val image; the first iteration's K1 and K2 calls (N=8) and the
-    first val image's K1 calls (N=1) held to their plain versions."""
+    first val image's K1 calls (N=1) held to their plain versions and
+    again on their grids, as (burnin)'s."""
     with tempfile.TemporaryDirectory() as tmp:
         wd, md = os.path.join(tmp, "wd"), os.path.join(tmp, "LEARNING.md")
         torch.cuda.synchronize()
         zero_launches()
-        t, store = time.perf_counter(), {}
-        with capture_dcn(store, first=6):
+        t, store, shares = time.perf_counter(), {}, []
+        with capture_dcn(store, first=6), mask_shares(shares):
             run_cli(learning_run.main, [
                 "--iters", str(LEARN_ITERS), "--data-root",
                 os.path.join(tmp, "data"), "--work-dir", wd, "--train",
@@ -5279,6 +5429,7 @@ def phase_learning(smi: str) -> dict:
         held = hold_captured(store, "learning", k1=12, k2=6, shapes=[
             ("K1", (8, *FLAGSHIP_MAP)), ("K2", (8, *FLAGSHIP_MAP)),
             ("K1", (1, *FLAGSHIP_MAP))])
+        grid = hold_on_grid(store, "learning", 25)
         del store
         recs = read_scalars(os.path.join(wd, "scalars.jsonl"))
         report = open(md).read()
@@ -5294,7 +5445,9 @@ def phase_learning(smi: str) -> dict:
     check(all(np.isfinite(v) for r in train for v in r.values()),
           "(learning) a logged value is not finite")
     val = [r for r in recs if "mIoU" in r]
-    check([r["step"] for r in val] == [10, 20], f"(learning) vals {val}")
+    check([r["step"] for r in val]
+          == list(range(LEARN_LOG, LEARN_ITERS + 1, LEARN_LOG)),
+          f"(learning) vals {val}")
     section = report.split("## Val mIoU trace", 1)[1].split("\n## ", 1)[0]
     rows = [line for line in section.splitlines()
             if line.startswith("| ") and line != "| step | mIoU |"]
@@ -5314,10 +5467,98 @@ def phase_learning(smi: str) -> dict:
         f"{[r['mIoU'] for r in val]}, peak {info.get('peak_gib', 0):.3f} "
         f"GiB; report card line {info['card']!r}, PNG written: {png}; "
         f"bf16 K1/K2 launches {launches['k1_bf16']}/"
-        f"{launches['k2_bf16']} on {smi}")
+        f"{launches['k2_bf16']}; the largest share of non-zero DCN mask "
+        f"spikes in a K1 call {max(shares):.4g} on {smi}")
     return dict(launches=launches, wall=wall, train=train, val=val,
-                held=held)
+                held=dict(k1=max(held["k1"], grid["k1"]),
+                          k2=max(held["k2"], grid["k2"])))
 
+
+# (init): the learning run's recipe (bf16, batch 8, 512x512, 30 classes,
+# lr 6e-4 after 300 warm-up iterations of 1000) from flax's laws
+INIT_OPTS = [*learning_run.OPTIONS, "model.num_classes=30",
+             "train.total_iters=1000"]
+INIT_STEPS = 10
+INIT_STD_RTOL = 0.02    # the five largest random entries' std, their laws'
+
+
+def phase_init(smi: str) -> dict:
+    """(init): the flagship at full width from ``init_weights_`` (flax's
+    laws, ``train.seed`` 0; ``api.init_trainer`` without weights) with the
+    learning run's recipe: every constant of the laws exactly (the DCN
+    offset and mask kernels 0, the gammas 1e-6, BN scales 1 and
+    statistics 0 and 1), the std of the five largest random entries
+    within 2% of their laws'; ``INIT_STEPS`` steps through the bf16 K1
+    and K2 (6 launches each a step), every loss finite; the share of
+    non-zero DCN mask spikes per layer at steps 1 and ``INIT_STEPS`` and
+    the first step with one, if any; the first step's K1 and K2 calls held
+    to their plain versions, and again on their grids (``hold_on_grid``:
+    the DCN branch is silent at flax's init, its outputs zero)."""
+    t0 = time.perf_counter()
+    tr = api.init_trainer(PRESET, INIT_OPTS)
+    model, cfg = tr.state.model, tr.cfg
+    check((cfg.data.batch_size, tuple(cfg.data.crop_size), cfg.model.dtype,
+           cfg.model.num_classes) == (8, (512, 512), "bfloat16", 30),
+          f"(init) recipe {cfg.data.batch_size} {cfg.data.crop_size} "
+          f"{cfg.model.dtype} {cfg.model.num_classes}")
+    laws, sd = init_laws(model), model.state_dict()
+    consts = [k for k, law in laws.items() if law.kind == "constant"]
+    for k in consts:
+        check(bool((sd[k] == laws[k].scale).all()),
+              f"(init) {k} is not the constant {laws[k].scale}")
+    dcn = "head.pixel_decoder.encoder_0."
+    check(not sd[dcn + "dcn.offset_conv.weight"].any()
+          and not sd[dcn + "dcn.mask_conv.weight"].any()
+          and bool((sd[dcn + "gamma2"] == 1e-6).all()),
+          "(init) the DCN kernels or gammas are not flax's")
+    big = sorted((k for k in laws if laws[k].kind != "constant"),
+                 key=lambda k: -sd[k].numel())[:5]
+    ratios = {k: float(sd[k].double().std()) / laws[k].std for k in big}
+    check(all(abs(r - 1.0) <= INIT_STD_RTOL for r in ratios.values()),
+          f"(init) std against the law {ratios}")
+    b, hw = cfg.data.batch_size, tuple(cfg.data.crop_size)
+    rng = np.random.default_rng(22)
+    batches = [synthetic_batch(rng, b, hw, num_classes=30) for _ in range(2)]
+    per_step, totals, store = [], [], {}
+    torch.cuda.synchronize()
+    zero_launches()
+    t = time.perf_counter()
+    for step in range(1, INIT_STEPS + 1):
+        batch = batches[step % 2]
+        shares = []
+        with mask_shares(shares), (capture_dcn(store) if step == 1
+                                   else contextlib.nullcontext()):
+            m = api.train_steps(tr, [batch])[0]
+        check(np.isfinite(m["total"]) and np.isfinite(m["grad_norm"]),
+              f"(init) step {step}: {m}")
+        per_step.append(shares)
+        totals.append(m["total"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    k = 6 * INIT_STEPS
+    want = dict(k1=k, k2=k, k1_bf16=k, k2_bf16=k, grouped=(0, 0),
+                grouped_bf16=(0, 0))
+    check(launches == want, f"(init) launches {launches}, want {want}")
+    held = hold_captured(store, "init", k1=6, k2=6, shapes=[
+        ("K1", (b, *FLAGSHIP_MAP)), ("K2", (b, *FLAGSHIP_MAP))])
+    grid = hold_on_grid(store, "init", 22)
+    del store
+    fired = next((i + 1 for i, sh in enumerate(per_step) if any(sh)), None)
+    log("init", f"flax's laws at full width: {len(consts)} constant "
+        f"entries exact, std/law of the five largest random entries "
+        f"{ {k: round(r, 5) for k, r in ratios.items()} }; non-zero DCN "
+        f"mask spikes per layer at step 1 {per_step[0]}, at step "
+        f"{INIT_STEPS} {per_step[-1]}, first non-zero at step {fired}; "
+        f"totals {[round(x, 4) for x in totals]}; {INIT_STEPS} steps in "
+        f"{wall:.1f}s ({time.perf_counter() - t0:.1f}s with the build); "
+        f"bf16 K1/K2 launches {launches['k1_bf16']}/"
+        f"{launches['k2_bf16']} on {smi}")
+    del tr, model
+    return dict(launches=launches, fired_at=fired, shares=per_step,
+                totals=totals, ratios=ratios,
+                held=dict(k1=max(held["k1"], grid["k1"]),
+                          k2=max(held["k2"], grid["k2"])))
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5367,7 +5608,7 @@ def main() -> int:
     log("k1 rows", f"the phase took {time.perf_counter() - t:.1f}s")
 
     t = time.perf_counter()
-    im = api.init_model(PRESET, seed=0)
+    im = drawn_model(PRESET, seed=0)
     log("serve", f"flagship {PRESET} built at full width in "
         f"{time.perf_counter() - t:.1f}s")
     s = phase_serve(im)
@@ -5483,7 +5724,9 @@ def main() -> int:
     bu = phase_burnin(smi)
     torch.cuda.empty_cache()
     le = phase_learning(smi)
-    log("learning", f"(burnin) and (learning) took "
+    torch.cuda.empty_cache()
+    ini = phase_init(smi)
+    log("init", f"(burnin), (learning) and (init) took "
         f"{time.perf_counter() - t_new:.1f}s")
 
     # the main path's launches: serve, the three eval modes, the train
@@ -5514,11 +5757,12 @@ def main() -> int:
     grouped_bf16 = [s["grouped_bf16"][i]
                     + sum(p["grouped_bf16"][i] for p in paths)
                     for i in (0, 1)]
-    # the bf16 paths: the bf16 requests, both bf16 train runs, (burnin)
-    # and (learning)
+    # the bf16 paths: the bf16 requests, both bf16 train runs, (burnin),
+    # (learning) and (init)
     bf16_paths = [bs["launches"], bt["bf16"]["launches"],
                   bt["bf16+remat+packed"]["launches"], *par["launches"],
-                  *sfam["launches"], bu["launches"], le["launches"]]
+                  *sfam["launches"], bu["launches"], le["launches"],
+                  ini["launches"]]
     k1_bf16 = sum(p["k1_bf16"] for p in bf16_paths)
     k2_bf16 = sum(p["k2_bf16"] for p in bf16_paths)
 
@@ -5565,11 +5809,13 @@ def main() -> int:
                        "dcnv3_sample_pallas_t5", k1_bf16,
                        max(kb["k1_err"], kr["bf16_err"],
                            sfam["k1_bf16_err"], bu["held"]["k1"],
-                           le["held"]["k1"]), kb["k1", 1]))
+                           le["held"]["k1"], ini["held"]["k1"]),
+                       kb["k1", 1]))
     kernels.append(row("dcnv3_sample_bwd[bf16]", dcnv3.BWD_SOURCE,
                        "dcnv3_sample_pallas_t5_bwd", k2_bf16,
                        max(kb["k2_err"], bu["held"]["k2"],
-                           le["held"]["k2"]), kb["k2", 6]))
+                           le["held"]["k2"], ini["held"]["k2"]),
+                       kb["k2", 6]))
     # the bf16 forms of K3-K7: the forwards at the serve shape, K7 at the
     # train shape
     for name, (_, layout) in GROUPED_FORWARD.items():
@@ -5645,7 +5891,10 @@ def main() -> int:
         f"{bu['launches']['k2_bf16']} ({BURNIN_RUN} steps, "
         f"{BURNIN_VALS} val forwards), (learning) bf16 K1/K2 "
         f"{le['launches']['k1_bf16']}/{le['launches']['k2_bf16']} "
-        f"({LEARN_ITERS} iterations, {LEARN_VAL} val images twice)")
+        f"({LEARN_ITERS} iterations, {LEARN_VAL} val images twice), "
+        f"(init) bf16 K1/K2 {ini['launches']['k1_bf16']}/"
+        f"{ini['launches']['k2_bf16']} ({INIT_STEPS} steps), the DCN "
+        f"masks' first non-zero spike at step {ini['fired_at']}")
     log("total", f"chip_smoke took {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -25,7 +25,7 @@ from .engine.checkpoint import restore_variables
 from .engine.config import Config, build_model, get_config
 from .engine.inference import postprocess_pred, whole_logits
 from .engine.train import init_trainer, train_steps  # noqa: F401
-from .engine.weights import randomize_
+from .engine.weights import init_weights_
 from .evaluation.visualize import draw_sem_seg
 
 
@@ -54,7 +54,9 @@ def init_model(config: str | Config, checkpoint: str | None = None,
     from ``checkpoint`` (a train checkpoint of the train CLI or a state
     dict saved by ``torch.save``, ``engine.checkpoint.restore_variables``)
     or from ``state_dict`` (e.g. ``engine.convert.from_jax_variables``),
-    loaded strictly, or else are drawn from ``seed``."""
+    loaded strictly, or else are drawn from ``seed`` by flax's laws
+    (``engine/weights.py:init_weights_``; JAX's ``init_model`` draws from
+    ``PRNGKey(0)``)."""
     if checkpoint is not None and state_dict is not None:
         raise ValueError("pass checkpoint or state_dict, not both")
     dev = resolve_device(device)
@@ -63,7 +65,7 @@ def init_model(config: str | Config, checkpoint: str | None = None,
     if checkpoint is not None:
         state_dict = restore_variables(checkpoint)
     if state_dict is None:
-        randomize_(model, seed)
+        init_weights_(model, seed)
     else:
         model.load_state_dict(state_dict, strict=True)
     return InferenceModel(cfg, model.to(dev).eval(), dev)

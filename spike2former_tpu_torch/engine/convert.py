@@ -78,5 +78,7 @@ def from_jax_variables(variables: Mapping[str, Any]
             key = ".".join(mods + [name])
             if key in sd:
                 raise KeyError(f"two variables map to {key!r}")
-            sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            # (ascontiguousarray would turn a scalar leaf, PLIF's w, 1-d)
+            sd[key] = torch.from_numpy(np.ascontiguousarray(arr).reshape(
+                arr.shape))
     return sd

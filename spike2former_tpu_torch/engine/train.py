@@ -53,7 +53,7 @@ from ..parallel.mesh import (all_reduce_grads, all_reduce_metrics,
 from .config import (Config, TrainConfig, build_model, compute_dtype,
                      get_config)
 from .optim import AdamW
-from .weights import randomize_
+from .weights import init_weights_
 
 
 @dataclass
@@ -363,8 +363,9 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
     card unless ``device="cpu"``), in ``model.dtype``, with
     ``model.remat`` and ``train.packed_residuals`` as the config says (the
     parameters, gradients and AdamW moments stay float32).  Weights come from
-    ``state_dict``, loaded strictly, or are drawn from ``seed``
-    (``engine/weights.py``), which defaults to ``cfg.train.seed``.  The
+    ``state_dict``, loaded strictly, or are drawn by flax's laws
+    (``engine/weights.py:init_weights_``) from ``seed``, which defaults to
+    ``cfg.train.seed`` (JAX's train CLI's ``PRNGKey(train.seed)``).  The
     optimizer runs at ``scaled_base_lr(cfg)``."""
     dev = resolve_device(device)
     cfg = get_config(config, overrides) if isinstance(config, str) else config
@@ -386,7 +387,7 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
                                   accum_steps=t.accum_steps, **kw)
     model = build_model(cfg.model, packed_residuals=t.packed_residuals)
     if state_dict is None:
-        randomize_(model, t.seed if seed is None else seed)
+        init_weights_(model, t.seed if seed is None else seed)
     else:
         model.load_state_dict(state_dict, strict=True)
     model.to(dev)

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..parallel import spatial
+from . import initializers as init
 from .layers import (BatchNorm, Linear, RepConv, Spike, conv2d, conv_nhwc,
                      fold_t, unfold_t)
 
@@ -169,6 +170,8 @@ class SpikeMLP3(nn.Module):
         self.Dense_0 = Linear(dim, dim, bias=False, dtype=dtype)
         self.Dense_1 = Linear(dim, dim, bias=False, dtype=dtype)
         self.Dense_2 = Linear(dim, out_dim, dtype=dtype)
+        # flax's truncated_normal(0.02) (JAX attention.py:406-407)
+        self.init_laws = {"Dense_2.weight": init.truncated_normal(0.02)}
 
     def forward(self, x):
         x = self.Spike_0(self.Dense_0(x)) * self.quant_const
@@ -207,6 +210,7 @@ class LinearSpikeMHA(nn.Module):
             self.v_rep = RepConv(c, c, dtype=dtype)
             self.channel_conv = Linear(c, c, bias=False, dtype=dtype)
             self.alpha = nn.Parameter(torch.ones(1, 1, c))
+            self.init_laws = {"alpha": init.ones}  # JAX attention.py:193
         else:
             self.k = TokenConvBN(c, c, dtype, spike)
             self.v = TokenConvBN(c, c, dtype, spike)
@@ -290,6 +294,7 @@ class PEMCrossAttention(nn.Module):
         self.query_norm = nn.LayerNorm(c, eps=1e-6)
         self.query_proj = Linear(c, c, dtype=dtype)
         self.alpha = nn.Parameter(torch.ones(1, 1, c))
+        self.init_laws = {"alpha": init.ones}  # JAX attention.py:285
         self.proj = Linear(c, c, dtype=dtype)
         self.final = Linear(c, c, dtype=dtype)
 

@@ -19,6 +19,7 @@ from torch import nn
 
 from ..ops.dcnv3 import dcnv3_core
 from ..parallel import spatial
+from . import initializers as init
 from .layers import (BatchNorm, SepConv, Spike, conv2d, conv_nhwc, fold_t,
                      unfold_t)
 
@@ -47,6 +48,10 @@ class DCNv3(nn.Module):
         self.offset_bn = BatchNorm(group * p * 2)
         self.mask_conv = conv2d(channels, group * p, 1, bias=True, **spiked)
         self.mask_bn = BatchNorm(group * p)
+        # flax's zeros for both kernels (JAX dcn.py:61-68): every tap starts
+        # on the reference grid, and the mask at Spike(BN(0)) = 0
+        self.init_laws = {"offset_conv.weight": init.zeros,
+                          "mask_conv.weight": init.zeros}
         self.output_proj = SepConv(channels, **sep_kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

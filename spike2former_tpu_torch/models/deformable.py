@@ -28,6 +28,7 @@ from torch import nn
 
 from ..ops.msda import ms_deform_attn
 from ..parallel import spatial
+from . import initializers as init
 from .attention import MSDAFFN, TokenConvBN
 from .layers import Spike, unfold_t
 
@@ -144,6 +145,9 @@ class SpikeDeformableEncoderLayer(nn.Module):
         super().__init__()
         self.gamma1 = nn.Parameter(torch.full((embed_dims,), layer_scale))
         self.gamma2 = nn.Parameter(torch.full((embed_dims,), layer_scale))
+        # flax's constant(layer_scale) (JAX deformable.py:119-121)
+        self.init_laws = {name: init.constant(layer_scale)
+                          for name in ("gamma1", "gamma2")}
         self.self_attn = SpikeMSDeformAttention(
             embed_dims, num_heads, num_levels, num_points, spike, dtype)
         self.ffn = MSDAFFN(embed_dims, feedforward_channels, dtype=dtype)

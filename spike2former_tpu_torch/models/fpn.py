@@ -21,6 +21,7 @@ from torch import nn
 from ..ops.neuron import (multistep_eif, multistep_if, multistep_lif,
                           multistep_plif)
 from ..ops.resize import resize_bilinear, resize_nearest_torch
+from . import initializers as init
 from .layers import ConvBN, Spike, conv2d, conv_nhwc, fold_t, unfold_t
 from .sdtv2 import SpikingMetaFormer
 
@@ -38,6 +39,8 @@ class Neuron(nn.Module):
         self.kind = kind
         if kind == "plif":
             self.w = nn.Parameter(torch.zeros(()))
+            # flax's constant(0.0) (JAX fpn.py:49)
+            self.init_laws = {"w": init.zeros}
         elif kind not in NEURONS:
             self.Spike_0 = Spike("multispike_norm")
 

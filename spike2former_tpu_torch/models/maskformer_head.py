@@ -36,6 +36,7 @@ from torch import nn
 from ..losses.criterion import LazyMasks
 from ..ops.resize import resize_bilinear_hw
 from ..parallel import spatial
+from . import initializers as init
 from .attention import SpikeMLP3
 from .dab_detr import DABDetrDecoder
 from .layers import BatchNorm, Linear, Spike
@@ -102,8 +103,20 @@ class MaskFormerHead(nn.Module):
         self.query_feat = nn.Parameter(torch.zeros(nq, c))
         self.query_embed = nn.Parameter(torch.zeros(nq, c))
         self.level_embed = nn.Parameter(torch.zeros(num_feat_levels, c))
+        # flax's laws of the head's own parameters (JAX maskformer_head.py):
+        # the queries and level embeddings normal(1.0) (:135-140),
+        # cls_embed's kernel truncated_normal(0.02) (:174), the shortcut's
+        # variance_scaling(1, 'fan_in', 'uniform') over nq (:183-186), w 1
+        # (:187), the DAB anchors normal(1.0) (:249-250)
+        self.init_laws = {"query_feat": init.normal(1.0),
+                          "query_embed": init.normal(1.0),
+                          "level_embed": init.normal(1.0),
+                          "cls_embed.weight": init.truncated_normal(0.02),
+                          "shortcut_kernel": init.uniform_fan_in(nq),
+                          "w": init.ones}
         if decoder == "dab":
             self.query_anchors = nn.Parameter(torch.zeros(nq, 4))
+            self.init_laws["query_anchors"] = init.normal(1.0)
             self.dab_decoder = DABDetrDecoder(
                 c, num_heads, num_decoder_layers, decoder_ffn_channels,
                 dtype=dtype)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from . import initializers as init
 from .fpn import Dropout
 from .layers import (BatchNorm, Linear, Spike, conv2d, conv_nhwc, fold_t,
                      unfold_t)
@@ -39,6 +40,8 @@ class ConvBNF(BatchNorm):
         super().__init__(cout)
         if zero_init:
             nn.init.zeros_(self.scale)
+            # flax's zeros scale_init (JAX msresnet.py:50-53)
+            self.init_laws = {"scale": init.zeros}
         self.subsample = stride if kernel == 1 else 1
         self.Conv_0 = conv2d(cin, cout, kernel, stride // self.subsample,
                              (kernel - 1) // 2, bias=bias, dtype=dtype)

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear, resize_nearest_torch
+from . import initializers as init
 from .attention import MSDAFFN, SpikeMHA
 from .dcn import DCNv3
 from .layers import (BatchNorm, ConvBN, SepConv, Spike, conv2d, conv_nhwc,
@@ -72,6 +73,9 @@ class DCNEncoderLayer(nn.Module):
         for name in ("gamma1", "gamma2", "gamma3"):
             setattr(self, name,
                     nn.Parameter(torch.full((embed_dims,), layer_scale)))
+        # flax's constant(layer_scale) (JAX pixel_decoder.py:43-46)
+        self.init_laws = {name: init.constant(layer_scale)
+                          for name in ("gamma1", "gamma2", "gamma3")}
         self.conv = SepConv(embed_dims, kernel_size=3, padding=1, dw_bn=True,
                             num_spikes=3, dtype=dtype)
         self.dcn = DCNv3(channels=embed_dims, group=group,

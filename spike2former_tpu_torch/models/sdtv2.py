@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..parallel import spatial
+from . import initializers as init
 from .layers import (BatchNorm, ConvBN, DownSampling, MSConvBlock, MSMLP,
                      RepConv, SepConv, Spike, fold_t, remat, unfold_t)
 
@@ -215,6 +216,9 @@ class MSBlockCSWin(nn.Module):
         for i in (1, 2, 3):
             setattr(self, f"layer_scale{i}",
                     nn.Parameter(torch.full((dim,), layer_scale)))
+        # flax's constant(layer_scale) (JAX sdtv2.py:198-200)
+        self.init_laws = {f"layer_scale{i}": init.constant(layer_scale)
+                          for i in (1, 2, 3)}
         self.SepConv_0 = SepConv(dim, kernel_size=3, padding=1, dw_bn=True,
                                  num_spikes=3, dtype=dtype, spike=spike)
         self.CSWinSpikeAttention_0 = CSWinSpikeAttention(

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import spatial
+from . import initializers as init
 from .attention import (MSDAFFN, SpikeMultiheadAttention, _merge_heads,
                         _split_heads)
 from .layers import BatchNorm, Linear, Spike, conv2d, conv_nhwc
@@ -157,6 +158,9 @@ class BaseTransformerDecoderLayer(nn.Module):
         c = embed_dims
         for name in ("gamma1", "gamma2", "gamma3"):
             setattr(self, name, nn.Parameter(torch.full((c,), 1e-6)))
+        # flax's constant(1e-6) (JAX spikeformer_lib.py:209-212)
+        self.init_laws = {name: init.constant(1e-6)
+                          for name in ("gamma1", "gamma2", "gamma3")}
         self.self_attn = SpikeMultiheadAttention(c, num_heads, "SA", spike,
                                                  dtype)
         self.multihead_attn = SpikeMultiheadAttention(c, num_heads, "CA",

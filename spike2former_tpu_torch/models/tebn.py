@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from . import initializers as init
 from .layers import BatchNorm
 
 
@@ -19,6 +20,7 @@ class TEBN(nn.Module):
         self.BatchNorm_0 = BatchNorm(channels)
         self.temporal_scale = nn.Parameter(
             torch.ones((T,) + (1,) * (ndim - 1)))
+        self.init_laws = {"temporal_scale": init.ones}  # JAX tebn.py:26
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         t = x.shape[0]

@@ -19,6 +19,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..models import initializers as init
 from ..models.layers import Linear
 from .neuron import SURROGATES
 
@@ -54,6 +55,11 @@ class _SpikingRNN(nn.Module):
                                                                    bound))
         self.hh_bias = (nn.Parameter(torch.zeros(gates * hidden_size))
                         if use_bias else None)
+        # flax's lecun_normal over the [H, G*H] kernel, fan_in H, and zeros
+        # (JAX ops/rnn.py:60-63, :101-104, :143-146)
+        self.init_laws = {"hh_kernel": init.lecun_normal(hidden_size)}
+        if use_bias:
+            self.init_laws["hh_bias"] = init.zeros
 
     def hh(self, h: torch.Tensor) -> torch.Tensor:
         y = h @ self.hh_kernel

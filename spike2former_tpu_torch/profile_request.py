@@ -5,7 +5,8 @@
 
 Serves the same seeded requests as ``chip_smoke.py`` (the flagship preset,
 or ``--preset``'s, e.g. ``fpn_sdtv3_512x512_19M_ade20k``, at full width,
-seeded random weights, uint8 images of 512x683, 683x512, 512x512, with
+the test draw of seeded random weights (``engine/weights.py:randomize_``),
+uint8 images of 512x683, 683x512, 512x512, with
 TF32 off; the config overrides given, e.g. ``model.dtype='bfloat16'``,
 ``model.masked_attention=True`` or ``model.decoder='dab'``) and prints:
 
@@ -35,6 +36,7 @@ import torch
 
 from . import api
 from .engine.inference import postprocess_pred, whole_logits
+from .engine.weights import randomize_
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
 REQUEST_SHAPES = ((512, 683), (683, 512), (512, 512))
@@ -134,6 +136,7 @@ def main(argv: list[str]) -> int:
           flush=True)
     preset, overrides = preset_and_overrides(argv)
     im = api.init_model(preset, overrides=overrides, seed=0)
+    randomize_(im.model, 0)   # the test draw: weights that fire
     print(f"preset={preset} dtype={im.cfg.model.dtype}", flush=True)
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)

@@ -4,9 +4,9 @@
         [--preset NAME] [--cfg-options] [KEY=VALUE ...]
 
 Builds the flagship preset (or ``--preset``'s, e.g. an FPN-family one,
-``fpn_sdtv3_512x512_19M_ade20k``) at full width with seeded random
-weights, with
-the config overrides given, with or without ``--cfg-options`` before them
+``fpn_sdtv3_512x512_19M_ade20k``) at full width with the test draw of
+seeded random weights (``engine/weights.py:randomize_``), with the
+config overrides given, with or without ``--cfg-options`` before them
 as the CLIs take them (e.g. ``train.matcher='host'``, or
 ``model.dtype='bfloat16'`` for the bf16 step; by default the preset's
 auction matcher with ``compact_gt=32`` in f32), and takes train steps on
@@ -68,6 +68,7 @@ from .data.synthetic import (ADE_LIKE_SHAPES, COCO_LIKE_SHAPES,
                              synthetic_batch, write_ade_tree,
                              write_coco_panoptic_tree)
 from .engine.train import is_fpn
+from .engine.weights import randomize_
 from .losses import criterion
 from .losses.matcher import auction_match
 from .profile_request import preset_and_overrides
@@ -195,6 +196,7 @@ def main(argv: list[str]) -> int:
         [a for a in argv if a not in ("--loader", "--panoptic")],
         PANOPTIC if panoptic else PRESET)
     tr = api.init_trainer(preset, overrides, seed=0)
+    randomize_(tr.state.model, 0)   # the test draw: weights that fire
     fpn = is_fpn(tr.cfg)
     print(f"preset={preset} matcher={tr.cfg.train.matcher} compact_gt="
           f"{tr.cfg.train.compact_gt} dtype={tr.cfg.model.dtype} remat="

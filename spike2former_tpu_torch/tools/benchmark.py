@@ -19,7 +19,9 @@ card's name (``--peak-tflops`` for another card), with the card's
 ``nvidia-smi`` name and power limit; and the peak device memory.  The
 train mode takes ``api.train_steps`` on seeded images and the JAX
 benchmark's synthetic GT (16 classes of the dataset as 32x32 blocks,
-nearest-upsampled).  Runs on the card unless ``--device cpu``.
+nearest-upsampled).  The weights are ``engine/weights.py:fast_init_``'s, as
+the JAX benchmark's are ``fast_variables``'.  Runs on the card unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ import torch
 
 from ..api import init_model
 from ..device import f32_precision
-from ..engine.config import get_config
+from ..engine.config import build_model, get_config
 from ..engine.train import init_trainer, train_steps
+from ..engine.weights import fast_init_
 from ..models.segmentor import preprocess
 from ..utils.flops import dcn_sampling_flops, model_flops, peak_tflops
 
@@ -105,10 +108,12 @@ def run(args) -> dict:
     # only the MaskFormer runs the DCN sampler (tools/benchmark.py:149,195)
     dcn = dict(num_layers=m.num_encoder_layers if m.kind == "maskformer"
                else 0, group=group, group_channels=m.feat_channels // group)
+    # the JAX benchmark's weights (utils/initfast.py:fast_variables)
+    weights = fast_init_(build_model(m)).state_dict()
     if args.train:
         cfg.train.accum_steps = accum
         cfg.data.batch_size = total
-        tr = init_trainer(cfg, device=args.device)
+        tr = init_trainer(cfg, device=args.device, state_dict=weights)
         dev = tr.device
         batch = (images, synthetic_gt(rng, total, size, m.num_classes))
 
@@ -120,7 +125,7 @@ def run(args) -> dict:
         if m.remat:      # the recomputation samples again
             dcn_flops += dcn_sampling_flops(total, size, **dcn)
     else:
-        im = init_model(cfg, device=args.device)
+        im = init_model(cfg, device=args.device, state_dict=weights)
         dev = im.device
         x = preprocess(torch.from_numpy(images).to(dev))
 

@@ -12,8 +12,9 @@ gradient-norm stability.
 
 The model is ``Spike2Former(num_classes, T, dtype)`` at the module's own
 defaults (``lazy_masks=False`` among them, where the presets set True),
-or at tiny widths with ``--tiny``; its weights are drawn from seed 0
-(``engine/weights.py``).  The optimizer is ``engine/optim.py``'s AdamW at
+or at tiny widths with ``--tiny``; its weights are drawn by flax's laws
+from seed 0 (``engine/weights.py:init_weights_``, where the JAX tool calls
+``model.init(PRNGKey(0))``).  The optimizer is ``engine/optim.py``'s AdamW at
 its defaults (lr 1e-3, weight decay 0.005, backbone x0.1, clip 0.01) with
 ``warmup_iters=min(500, steps // 10)`` and ``total_iters=steps``; the step
 is ``make_train_step(num_classes, max_gt=64, accum_steps=K)`` at its
@@ -57,7 +58,7 @@ from ..engine.config import compute_dtype
 from ..engine.inference import whole_logits
 from ..engine.optim import AdamW
 from ..engine.train import TrainState, make_train_step
-from ..engine.weights import randomize_
+from ..engine.weights import init_weights_
 from ..models.segmentor import Spike2Former
 
 TINY_KW = dict(embed_dim=(8, 16, 24, 32), backbone_heads=4,
@@ -117,10 +118,11 @@ def new_state(args, device: torch.device, seed: int,
               state_dict: dict[str, torch.Tensor] | None = None
               ) -> TrainState:
     """A fresh model (weights from ``state_dict``, loaded strictly, or
-    drawn from ``seed``) and AdamW on ``device``."""
+    drawn by flax's laws from ``seed``, as the JAX tool's ``model.init``)
+    and AdamW on ``device``."""
     model = build_model(args)
     if state_dict is None:
-        randomize_(model, seed)
+        init_weights_(model, seed)
     else:
         model.load_state_dict(state_dict, strict=True)
     model.to(device)

@@ -155,7 +155,8 @@ and augmentations, auction matching, GT-resolution losses, periodic
 whole-image val with the IoU metric, checkpoints) on the structured
 synthetic ADE-layout set (`spike2former_tpu_torch/tools/make_synth_dataset.py`:
 texture-keyed classes in an ADE20K-layout tree, {info.get("set", "?")}),
-with weights drawn from `train.seed`.
+with weights drawn by flax's laws from `train.seed`
+(`spike2former_tpu_torch/engine/weights.py:init_weights_`).
 
 Reproduce:
 

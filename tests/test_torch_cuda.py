@@ -15,7 +15,7 @@ from spike2former_tpu_torch.data.synthetic import (synthetic_batch,
                                                     write_ade_tree)
 from spike2former_tpu_torch.device import f32_precision
 from spike2former_tpu_torch.engine import checkpoint, inference
-from spike2former_tpu_torch.engine.config import get_config
+from spike2former_tpu_torch.engine.config import build_model, get_config
 from spike2former_tpu_torch.engine.weights import randomize_
 from spike2former_tpu_torch.losses.matcher import BIG_COST, auction_match
 from spike2former_tpu_torch.models.segmentor import Spike2Former
@@ -64,6 +64,22 @@ def test_kernel_matches_plain(cuda, cg):
     assert dcnv3.dcnv3_sample.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=1e-5)
 
+
+
+def _drawn_model(*args, seed: int = 0, **kw):
+    """``api.init_model`` with the tests' draw (``randomize_``): weights
+    whose spikes fire, where flax's laws (the default) leave the DCN
+    branch silent."""
+    im = api.init_model(*args, seed=seed, **kw)
+    randomize_(im.model, seed)
+    return im
+
+
+def _drawn_trainer(*args, seed: int | None = None, **kw):
+    """``api.init_trainer`` with the tests' draw, as ``_drawn_model``."""
+    tr = api.init_trainer(*args, seed=seed, **kw)
+    randomize_(tr.state.model, tr.cfg.train.seed if seed is None else seed)
+    return tr
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     v = torch.zeros((1, 4, 4, 24), device=cuda)
@@ -244,8 +260,8 @@ def test_tiny_train_step_card_matches_cpu(cuda, matcher):
     sem[:, :4] = 255
     out = []
     for dev in ("cpu", cuda):
-        tr = api.init_trainer("SDTv2_maskformer_DCNpixelDecoder_ade20k",
-                              opts, device=dev, seed=1)
+        tr = _drawn_trainer("SDTv2_maskformer_DCNpixelDecoder_ade20k",
+                             opts, device=dev, seed=1)
         before = dcnv3.dcnv3_sample_backward.launches
         out.append(api.train_steps(tr, [(images, sem)])[0])
         if dev != "cpu":
@@ -289,7 +305,7 @@ def test_entry_points_compute_in_f32_whatever_the_tf32_flags(
                                                 dtype=np.uint8)
         preds = []
         for dev in ("cpu", None):
-            im = api.init_model(PRESET, overrides=opts, device=dev, seed=1)
+            im = _drawn_model(PRESET, overrides=opts, device=dev, seed=1)
             preds.append(api.inference_model(im, img))
             assert _tf32_flags() == flags
         torch.testing.assert_close(logits[1], logits[0], atol=1e-3,
@@ -303,7 +319,7 @@ def test_entry_points_compute_in_f32_whatever_the_tf32_flags(
                       np.ones((16, 16), np.int64))
         totals = []
         for dev in ("cpu", None):
-            tr = api.init_trainer(PRESET, TINY_OPTS + [
+            tr = _drawn_trainer(PRESET, TINY_OPTS + [
                 "train.warmup_iters=1"], device=dev, seed=1)
             totals.append([m["total"] for m in api.train_steps(
                 tr, list(zip(images, sem)))])
@@ -595,8 +611,12 @@ def test_tiny_train_cli_card_matches_cpu(cuda, tmp_path):
         cfg = get_config(PRESET, list(opts))
         cfg.data.data_root = root
         before = dcnv3.dcnv3_sample_backward.launches
+        # the tests' draw (the CLI's own start is flax's laws, whose
+        # silent DCN branch and all-zero BN batches leave little to hold)
+        drawn = randomize_(build_model(cfg.model), cfg.train.seed)
         res = train_cli.train(cfg, str(tmp_path / dev), log_interval=1,
-                              eval_images=0, device=dev)
+                              eval_images=0, device=dev,
+                              state_dict=drawn.state_dict())
         if dev == "cuda":
             assert dcnv3.dcnv3_sample_backward.launches == before + 4
         totals.append([r["total"] for r in res["logs"]])
@@ -612,8 +632,8 @@ def test_async_checkpoint_holds_the_state_at_its_step(cuda, tmp_path):
     """A save on the card returns before its file is written; the steps
     after it update the parameters and moments in place, and the file
     still holds the state at the save's step, bit for bit."""
-    tr = api.init_trainer(PRESET, TINY_OPTS + ["train.warmup_iters=1"],
-                          device="cuda", seed=1)
+    tr = _drawn_trainer(PRESET, TINY_OPTS + ["train.warmup_iters=1"],
+                         device="cuda", seed=1)
     rng = np.random.default_rng(0)
     batches = [synthetic_batch(rng, 2, (64, 64), num_classes=4,
                                classes=(2, 4)) for _ in range(4)]
@@ -675,7 +695,6 @@ def test_bf16_tiny_model_card_matches_cpu(cuda):
     the largest logit gap <= 0.064 (the JAX package's own
     bf16-against-f32 gap on the tiny model)."""
     from chip_smoke import BF16_AGREEMENT, BF16_LOGIT_GAP
-    from spike2former_tpu_torch.engine.config import build_model
 
     cfg = get_config(PRESET, TINY_OPTS + ["model.dtype='bfloat16'"])
 
@@ -738,8 +757,11 @@ def test_tta_and_inferencer_card_match_cpu(cuda, tmp_path):
     imgs = [np.random.default_rng(i).integers(0, 256, (50, 70, 3),
                                               dtype=np.uint8)
             for i in range(2)]
-    outs = [api.Inferencer(PRESET, overrides=opts, device=dev)(
-        imgs, out_dir=str(tmp_path / dev)) for dev in ("cpu", "cuda")]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        inf = api.Inferencer(PRESET, overrides=opts, device=dev)
+        randomize_(inf.im.model, 0)      # weights whose spikes fire
+        outs.append(inf(imgs, out_dir=str(tmp_path / dev)))
     for a, b in zip(*(o["predictions"] for o in outs)):
         assert (a == b).mean() >= 0.99
     assert [p.split("/")[-1] for p in outs[1]["visualization"]] == [
@@ -807,7 +829,7 @@ def test_point_train_step_card_matches_cpu(cuda):
                                   num_classes=4, classes=(2, 4))
     totals = []
     for dev, point_draw in (("cpu", recording), ("cuda", replaying)):
-        tr = api.init_trainer(PRESET, opts, device=dev, seed=1)
+        tr = _drawn_trainer(PRESET, opts, device=dev, seed=1)
         step = ttrain.make_train_step(
             5, max_gt=tr.cfg.train.max_gt, matcher="host", num_points=40,
             point_draw=point_draw)
@@ -875,7 +897,7 @@ def test_k1_operator_is_the_kernel_with_k2_as_its_gradient(cuda):
 def test_export_holds_one_k1_call_per_dcn_layer(cuda, tmp_path):
     from spike2former_tpu_torch.tools import export
 
-    im = api.init_model(PRESET, overrides=TINY_OPTS + [
+    im = _drawn_model(PRESET, overrides=TINY_OPTS + [
         "model.num_encoder_layers=2"])
     x = torch.randn((2, 64, 96, 3), device="cuda")
     program = export.export_model(im.model, x)
@@ -899,8 +921,9 @@ def test_serving_engine_on_the_card_matches_cpu(card):
     maps = {}
     for dev in ("cpu", "cuda"):
         before = dcnv3.dcnv3_sample.launches
-        with ServingEngine(PRESET, overrides=opts, device=dev, max_batch=4,
-                           bucket=64, wait_ms=50.0) as eng:
+        with ServingEngine(PRESET, model=_drawn_model(
+                PRESET, overrides=opts, device=dev), device=dev,
+                max_batch=4, bucket=64, wait_ms=50.0) as eng:
             maps[dev] = [f.result(timeout=120)
                          for f in [eng.submit(i) for i in imgs]]
             st = eng.stats()
@@ -990,7 +1013,7 @@ def test_variant_train_step_card_matches_cpu(cuda, variant):
                                 classes=(2, 4))
     totals = []
     for dev in ("cpu", "cuda"):
-        tr = api.init_trainer(preset, opts, device=dev, seed=1)
+        tr = _drawn_trainer(preset, opts, device=dev, seed=1)
         k1, k2 = (dcnv3.dcnv3_sample.launches,
                   dcnv3.dcnv3_sample_backward.launches)
         (m,) = api.train_steps(tr, [batch])
@@ -1020,7 +1043,7 @@ def test_fpn_family_card_matches_cpu(cuda, name):
         0, 1, (2, 64, 64, 3)).astype(np.float32))
     logits = {}
     for dev in ("cpu", "cuda"):
-        im = api.init_model(name, overrides=TINY_FPN, device=dev, seed=2)
+        im = _drawn_model(name, overrides=TINY_FPN, device=dev, seed=2)
         with torch.inference_mode():
             logits[dev] = im.model.predict_logits(x.to(dev)).cpu()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0,
@@ -1038,8 +1061,8 @@ def test_fpn_family_card_matches_cpu(cuda, name):
     totals = {}
     k1 = dcnv3.dcnv3_sample.launches
     for dev in ("cpu", "cuda"):
-        tr = api.init_trainer(name, TINY_FPN + ["train.warmup_iters=1"],
-                              device=dev, seed=2)
+        tr = _drawn_trainer(name, TINY_FPN + ["train.warmup_iters=1"],
+                             device=dev, seed=2)
         tr.step_fn = make_train_step_fpn(tr.cfg.train.loss_decode,
                                          dropout_draw=cpu_draw)
         totals[dev] = [m["total"] for m in api.train_steps(tr, batches)]

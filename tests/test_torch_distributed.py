@@ -32,6 +32,8 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 
 from spike2former_tpu_torch.data.loader import TrainLoader
+from spike2former_tpu_torch.engine.config import build_model, get_config
+from spike2former_tpu_torch.engine.weights import randomize_
 from spike2former_tpu_torch.parallel import free_port
 
 from torch_dist_worker import run_cases
@@ -135,24 +137,34 @@ def _point_batch(seed):
     return images, sem
 
 
+def _drawn(preset, overrides):
+    """The tests' draw (``randomize_`` at ``train.seed``) of the case's
+    model: weights whose spikes fire at these widths (flax's laws, the
+    entry points' default, leave the DCN branch silent)."""
+    cfg = get_config(preset, overrides)
+    return randomize_(build_model(cfg.model), cfg.train.seed).state_dict()
+
+
 def _cases(state_dict):
+    points = TINY_OPTS + ["train.loss_points=64", "train.compact_gt=3"]
+    panoptic = TINY_OPTS + ["train.matcher='host'", "model.num_things=2"]
+    fpn = TINY_FPN + ["train.loss_decode=(('ce',1.0),('lovasz',0.5),"
+                      "('ohem',0.4,{'min_kept':64}))"]
     return [
         dict(name="maskformer_gt", preset=FLAGSHIP,
              overrides=TINY_OPTS + ["train.matcher='host'"],
              state_dict=state_dict,
              batches=[_batch(b=4, seed=0), _batch(b=4, seed=1)]),
-        dict(name="maskformer_points", preset=FLAGSHIP,
-             overrides=TINY_OPTS + ["train.loss_points=64",
-                                    "train.compact_gt=3"],
+        dict(name="maskformer_points", preset=FLAGSHIP, overrides=points,
+             state_dict=_drawn(FLAGSHIP, points),
              batches=[_point_batch(2), _point_batch(3)]),
         dict(name="panoptic", preset="SDTv2_maskformer_coco_panoptic",
-             overrides=TINY_OPTS + ["train.matcher='host'",
-                                    "model.num_things=2"],
+             overrides=panoptic,
+             state_dict=_drawn("SDTv2_maskformer_coco_panoptic", panoptic),
              batches=[_panoptic_batch(4), _panoptic_batch(5)]),
         dict(name="fpn", preset="fpn_sdtv3_512x512_10M_ade20k",
-             overrides=TINY_FPN + [
-                 "train.loss_decode=(('ce',1.0),('lovasz',0.5),"
-                 "('ohem',0.4,{'min_kept':64}))"],
+             overrides=fpn,
+             state_dict=_drawn("fpn_sdtv3_512x512_10M_ade20k", fpn),
              batches=[_batch(b=4, seed=6), _batch(b=4, seed=7)]),
     ]
 

@@ -55,7 +55,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "ops.encoding", "ann2snn", "lava_exchange",
                  "data.biomedical", "runtime", "tools.burnin",
                  "tools.learning_run", "tools.make_learning_report",
-                 "tools.make_synth_dataset"):
+                 "tools.make_synth_dataset", "engine.weights",
+                 "models.initializers"):
         assert f"spike2former_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys

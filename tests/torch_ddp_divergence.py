@@ -33,6 +33,7 @@ from spike2former_tpu_torch.data.synthetic import synthetic_batch  # noqa
 from spike2former_tpu_torch.engine.config import (build_model,  # noqa
                                                   get_config)
 from spike2former_tpu_torch.engine.train import init_trainer  # noqa: E402
+from spike2former_tpu_torch.engine.weights import randomize_  # noqa: E402
 from spike2former_tpu_torch.models.layers import (BatchNorm,  # noqa: E402
                                                   BNAndPad)
 from spike2former_tpu_torch.models.segmentor import preprocess  # noqa
@@ -59,6 +60,7 @@ def outputs(widths: str, pid: int, pcount: int) -> dict[str, torch.Tensor]:
     """Every module's output (first call) of rank ``pid``'s rows of a
     seeded global batch of 2 at 128x128."""
     tr = init_trainer(PRESET, WIDTHS[widths], device="cpu")
+    randomize_(tr.state.model, tr.cfg.train.seed)   # the tests' draw
     images, _ = synthetic_batch(np.random.default_rng(7), 2, (128, 128))
     images = shard_batch(images, pid, pcount)
     model, rec = tr.state.model.train(), {}

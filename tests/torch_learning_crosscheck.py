@@ -2,10 +2,11 @@
 package's run did not: a cross-check on the CPU, at tiny widths.
 
 The two full-width runs share the set, the recipe and the val protocol;
-their initial weights differ.  The port's train CLI draws them with
-``engine/weights.py`` (test-style draws: layer-scale gammas and BN scales
-around O(1), BN statistics drawn), the JAX CLI with flax's initializers
-(gammas 1e-6, BN statistics 0 and 1).  This script separates the two
+their initial weights differ.  The port's first card runs drew them with
+``engine/weights.py:randomize_`` (the tests' draw: layer-scale gammas
+and BN scales around O(1), BN statistics drawn), the JAX CLI with flax's
+initializers (gammas 1e-6, BN statistics 0 and 1); the port's train CLI
+now draws them by flax's laws (``engine/weights.py:init_weights_``).  This script separates the two
 explanations, a difference in the evaluation or in the initial weights,
 on a generated set of ``--train`` and ``--val`` images at 64x64 with
 ``--classes`` classes, at the tiny widths of
@@ -13,8 +14,10 @@ on a generated set of ``--train`` and ``--val`` images at 64x64 with
 learning rate, and the JAX loader's batches (the port's ``TrainLoader``
 is bit-identical to it):
 
-* ``port_own``: the port's train CLI from its own weight draw (as the
-  card's learning run);
+* ``port_own``: the port's train CLI from the tests' draw
+  (``randomize_`` at ``train.seed``, as the first card runs);
+* ``port_init``: the port's train CLI from its own draw by flax's laws
+  (no weights given: ``init_weights_`` at ``train.seed``);
 * ``port_flax``: the port's train CLI from the JAX model's flax
   initial variables (converted by ``engine/convert.py``);
 * ``jax_flax``: the JAX package's train CLI (``tools/train.py``) from the
@@ -25,8 +28,9 @@ is bit-identical to it):
   beside the port's ``val``.
 
 Run: ``JAX_PLATFORMS=cpu python tests/torch_learning_crosscheck.py
-[--iters 400]``; it prints each run's losses and val mIoU (percent) and
-ends with one JSON line.
+[--iters 400] [--arms port_own port_init port_flax jax_flax]``; it
+prints each run's losses and val mIoU (percent) and ends with one JSON
+line.
 """
 from __future__ import annotations
 
@@ -53,8 +57,9 @@ import numpy as np  # noqa: E402
 
 from spike2former_tpu.engine.config import build_model as jax_build_model  # noqa: E402
 from spike2former_tpu.engine.config import get_config as jax_get_config  # noqa: E402
-from spike2former_tpu_torch.engine.config import get_config  # noqa: E402
+from spike2former_tpu_torch.engine.config import build_model, get_config  # noqa: E402
 from spike2former_tpu_torch.engine.convert import _leaves, from_jax_variables  # noqa: E402
+from spike2former_tpu_torch.engine.weights import randomize_  # noqa: E402
 from spike2former_tpu_torch.tools import make_synth_dataset  # noqa: E402
 from spike2former_tpu_torch.tools import train as train_cli  # noqa: E402
 
@@ -62,6 +67,8 @@ from torch_port_helpers import TINY  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
+
+ARMS = ["port_own", "port_init", "port_flax", "jax_flax"]
 
 
 def _root_train_cli():
@@ -153,6 +160,7 @@ def main(argv=None) -> int:
     ap.add_argument("--classes", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arms", nargs="+", default=ARMS, choices=ARMS)
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
 
@@ -169,16 +177,19 @@ def main(argv=None) -> int:
         rng = jax.random.PRNGKey(cfg.train.seed)
         flax = jmodel.init({"params": rng, "dropout": rng}, jnp.zeros(
             (args.batch, 64, 64, 3), jnp.float32), True)
+        weights = {
+            "port_own": lambda: randomize_(build_model(cfg.model),
+                                           cfg.train.seed).state_dict(),
+            "port_init": lambda: None,
+            "port_flax": lambda: from_jax_variables(flax)}
         out = dict(args=vars(args))
-        out["port_own"] = port_run(cfg, os.path.join(tmp, "own"), args, None,
-                                   jcfg, jmodel, flax)
-        print("port_own", out["port_own"], flush=True)
-        out["port_flax"] = port_run(cfg, os.path.join(tmp, "flax"), args,
-                                    from_jax_variables(flax), jcfg, jmodel,
-                                    flax)
-        print("port_flax", out["port_flax"], flush=True)
-        out["jax_flax"] = jax_run(root, os.path.join(tmp, "jax"), args)
-        print("jax_flax", out["jax_flax"], flush=True)
+        for arm in args.arms:
+            if arm == "jax_flax":
+                out[arm] = jax_run(root, os.path.join(tmp, arm), args)
+            else:
+                out[arm] = port_run(cfg, os.path.join(tmp, arm), args,
+                                    weights[arm](), jcfg, jmodel, flax)
+            print(arm, out[arm], flush=True)
     print(json.dumps(out))
     return 0
 

@@ -46,7 +46,7 @@ def main() -> int:
         return 1
     torch.backends.cudnn.benchmark = False
     dcnv3.build_kernels()
-    im = api.init_model(cs.PRESET, seed=0)
+    im = cs.drawn_model(cs.PRESET, seed=0)
     imgs = cs.serve_images()
     reqs = []
     for img in imgs:

@@ -39,7 +39,7 @@ def forms(mesh_of) -> dict:
     for tag, opts, cudnn in (("f32", [], True), ("f32 cuDNN off", [], False),
                              ("bf16", cs.BF16_OPTS, True)):
         torch.backends.cudnn.enabled = cudnn
-        im = cs.api.init_model(CASCADE, overrides=opts, seed=0)
+        im = cs.drawn_model(CASCADE, overrides=opts, seed=0)
         out[tag] = cs.par_forward(im.model, img, mesh_of(1))["logits"]
         del im
     torch.backends.cudnn.enabled = True
