@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 Phases, each printing one flushed line with the seconds elapsed.  The
-entry points draw flax's laws when given no weights
-(``engine/weights.py:init_weights_``); at flax's init the flagship's DCN
-branch is silent (its input and mask spikes are 0), so every phase that
+entry points draw JAX's own ``model.init`` variables of their seed when
+given no weights (``engine/weights.py:init_weights_``, through JAX's
+threefry streams, ``utils/jax_random.py``); at flax's init the flagship's
+DCN branch is silent (its input and mask spikes are 0), so every phase that
 holds a kernel on a model's calls builds it with the tests' draw
 (``drawn_model``, ``drawn_trainer``: ``randomize_``, weights whose spikes
 fire; the eval and firing CLIs through ``--checkpoint``, the NCCL train
@@ -20,8 +21,9 @@ CLI through a ``--resume``d step-0 checkpoint), except (burnin),
       ``csrc/dcnv3_sample_bwd.cu`` (K2, backward),
       ``csrc/dcnv3_sample_grouped.cu`` (the grouped-layout forward, the
       counterpart of K3-K6) and ``csrc/dcnv3_sample_grouped_bwd.cu`` (its
-      backward, K7) for sm_90a, the four side by side, (bf16 tiny)'s
-      CPU side computed beside them on half the cores;
+      backward, K7) and ``csrc/threefry.cu`` (JAX's threefry2x32 draws)
+      for sm_90a, the five side by side, (bf16 tiny)'s CPU side computed
+      beside them on half the cores;
   (c) K1 against its plain PyTorch version at the flagship shapes (serve:
       N in {1, 2}, 32x44; train: N=6, 32x32; G=32, Cg=8, P=9, f32) and
       on a 64x128 map too large for one block's tile, for random
@@ -311,6 +313,16 @@ parallelism and row-sharded inference of slice sixteen, run last:
       and cold L2), its byte bound (the value rows its taps touch, its
       coordinates and outputs), the ``F.grid_sample`` yardstick and the
       whole map's launch beside it;
+  (jax random) run after (k1 rows): ``csrc/threefry.cu`` against its
+      plain version on the card, bitwise: bits, uniforms and keep masks
+      for a 0-d, an odd, a 3-d and the FPN-19M step's 50 M-element
+      dropout shape, and blocks of one axis against the slice of the
+      whole draw; threefry2x32's known-answer vectors and recorded
+      ``jax.random`` / flax keys and draws; the kernel's mask and uniform
+      times at 50 M elements beside ``torch.rand``, the plain version and
+      the bound; the flagship's full-width ``init_weights_(seed=0)`` on
+      the card, timed and held entry by entry to the digest of JAX's
+      ``model.init(PRNGKey(0))`` (``tests/jax_init_digest.json``);
   (tp) two gloo ranks on the one card (this script as ``--par-worker``),
       model axis 2: the flagship at full width split (FFN hidden 1024 and
       2048, the mask-embed MLP) serves a 512x512 image in f32 and bf16
@@ -359,8 +371,10 @@ The repository's training tools and flax's initial weights, run last
       K1 and K2 6 launches an iteration and K1 6 a val image, the calls
       held as (burnin)'s;
   (init) the flagship at full width from ``api.init_trainer`` without
-      weights (flax's laws) with the learning run's recipe (bf16, batch 8,
-      512x512, 30 classes): the laws' constants exactly, the std of the
+      weights with the learning run's recipe (bf16, batch 8, 512x512, 30
+      classes): its init's threefry launches (one an entry of a random
+      law), its variables JAX's ``model.init(PRNGKey(0))`` entry by entry
+      (``tests/jax_init_digest.json``), the laws' constants exactly, the std of the
       five largest random entries within 2% of their laws'; 10 steps, 6
       bf16 K1 and K2 launches each a step, finite losses; the share of
       non-zero DCN mask spikes per layer at steps 1 and 10; the first
@@ -379,6 +393,7 @@ import copy
 import hashlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -415,14 +430,15 @@ from spike2former_tpu_torch.engine import checkpoint
 from spike2former_tpu_torch.engine.checkpoint import load_reference_model
 from spike2former_tpu_torch.engine.config import (TestConfig, build_model,
                                                   get_config)
-from spike2former_tpu_torch.engine.train import Trainer, make_train_step_fpn
+from spike2former_tpu_torch.engine.train import Trainer
 from spike2former_tpu_torch.engine.logging import read_scalars
 from spike2former_tpu_torch.engine.inference import (bucket_hw,
                                                       postprocess_pred,
                                                       whole_panoptic,
                                                       slide_origins,
                                                       whole_logits)
-from spike2former_tpu_torch.engine.weights import init_laws, randomize_
+from spike2former_tpu_torch.engine.weights import (init_laws, init_weights_,
+                                                   randomize_)
 from spike2former_tpu_torch.evaluation.tta import (panoptic_inference,
                                                    tta_logits)
 from spike2former_tpu_torch.losses import criterion
@@ -442,6 +458,7 @@ from spike2former_tpu_torch.tools import test as eval_cli
 from spike2former_tpu_torch.tools import train as train_cli
 from spike2former_tpu_torch.utils.firing import energy_proxy, firing_rates
 from spike2former_tpu_torch.utils.flops import peak_tflops
+from spike2former_tpu_torch.utils import jax_random as jr
 
 PRESET = "SDTv2_maskformer_DCNpixelDecoder_ade20k"
 KERNEL_TOL = 2e-5     # f32 sampler against its plain version
@@ -476,22 +493,28 @@ T0 = time.perf_counter()
 
 
 
-def drawn_model(*args, seed: int = 0, **kw) -> api.InferenceModel:
+def drawn_model(config, *, overrides=None, seed: int = 0, **kw
+                ) -> api.InferenceModel:
     """``api.init_model`` with the tests' draw (``randomize_`` from
-    ``seed``) in place of flax's laws: weights whose spikes fire, so
-    every kernel this script holds sees non-zero inputs.  (init),
-    (burnin) and (learning) run from flax's laws instead."""
-    im = api.init_model(*args, seed=seed, **kw)
-    randomize_(im.model, seed)
-    return im
+    ``seed``, made on the CPU and handed in as its state dict) in place
+    of the entry point's own init: weights whose spikes fire, so every
+    kernel this script holds sees non-zero inputs.  (init), (burnin) and
+    (learning) run from the entry points' own init instead."""
+    cfg = get_config(config, overrides) if isinstance(config, str) else config
+    sd = randomize_(build_model(cfg.model), seed).state_dict()
+    return api.init_model(cfg, seed=seed, state_dict=sd, **kw)
 
 
-def drawn_trainer(*args, seed: int | None = None, **kw) -> Trainer:
-    """``api.init_trainer`` with the tests' draw (``drawn_model``), from
-    ``seed`` or the config's ``train.seed``."""
-    tr = api.init_trainer(*args, seed=seed, **kw)
-    randomize_(tr.state.model, tr.cfg.train.seed if seed is None else seed)
-    return tr
+def drawn_trainer(config, overrides=None, *, seed: int | None = None,
+                  **kw) -> Trainer:
+    """``api.init_trainer`` with the tests' draw (as ``drawn_model``),
+    from ``seed`` or the config's ``train.seed``."""
+    cfg = get_config(config, overrides) if isinstance(config, str) else config
+    seed = cfg.train.seed if seed is None else seed
+    sd = randomize_(build_model(
+        cfg.model, packed_residuals=cfg.train.packed_residuals),
+        seed).state_dict()
+    return api.init_trainer(cfg, seed=seed, state_dict=sd, **kw)
 
 
 def drawn_checkpoint(path: str, preset: str = PRESET) -> str:
@@ -987,6 +1010,7 @@ def zero_launches() -> None:
     for k in (dcnv3_grouped.dcnv3_sample_grouped,
               dcnv3_grouped.dcnv3_sample_grouped_backward):
         k.launches = k.bf16_launches = 0
+    jr.threefry_kernel.launches = 0
 
 
 def read_launches() -> dict:
@@ -995,7 +1019,15 @@ def read_launches() -> dict:
                 k1_bf16=dcnv3.dcnv3_sample.bf16_launches,
                 k2_bf16=dcnv3.dcnv3_sample_backward.bf16_launches,
                 grouped=grouped_launches(),
-                grouped_bf16=grouped_bf16_launches())
+                grouped_bf16=grouped_bf16_launches(),
+                threefry=jr.threefry_kernel.launches)
+
+
+def drawn_entries(model: torch.nn.Module) -> int:
+    """The threefry launches of ``init_weights_(model)`` on the card: one
+    for each entry of a random law (a uniform, or the uniforms of a
+    normal), none for a constant."""
+    return sum(law.kind != "constant" for law in init_laws(model).values())
 
 
 # the grouped kernels' checks: the flagship shapes at Cg=8 for every kind
@@ -2828,9 +2860,9 @@ POINTS = 12544   # the upstream Mask2Former recipe: oversample 3, 0.75
 
 def point_loss_card_vs_cpu() -> dict:
     """``maskformer_loss`` with ``num_points`` on the same small inputs
-    and uniforms on the card and on the CPU (the host matcher): each
-    term within 1e-5 relative, the gradients within 1e-4 of the
-    largest."""
+    and key on the card and on the CPU (the host matcher; JAX's points,
+    the threefry kernel's on the card): each term within 1e-5 relative,
+    the gradients within 1e-4 of the largest."""
     rng = np.random.default_rng(5)
     num_layers, b, nq, g, hw, c = 3, 2, 10, 8, 32, 16
     cls = rng.normal(size=(num_layers, b, nq, 7)).astype(np.float32)
@@ -2840,18 +2872,8 @@ def point_loss_card_vs_cpu() -> dict:
     valid = np.zeros((b, g), bool)
     valid[:, :4] = True
     smap = rng.integers(0, 5, (b, 4 * hw, 4 * hw))
-    gen = torch.Generator().manual_seed(5)
-    draws = []
     results = []
     for dev in ("cpu", "cuda"):
-        queue = list(draws)
-
-        def draw(shape):
-            if dev == "cpu":
-                draws.append(torch.rand(shape, generator=gen))
-                return draws[-1]
-            return queue.pop(0).cuda()
-
         ins = [torch.from_numpy(a).to(dev).requires_grad_()
                for a in (cls, emb, feats)]
         gt = criterion.GroundTruth(
@@ -2863,7 +2885,7 @@ def point_loss_card_vs_cpu() -> dict:
             out = criterion.maskformer_loss(
                 ins[0], criterion.LazyMasks(ins[1], ins[2]), gt,
                 num_classes=6, matcher="host", loss_at="gt",
-                num_points=100, draw=draw)
+                num_points=100, rng=jr.key(5))
             out["total"].backward()
         results.append(({k: float(v.detach()) for k, v in out.items()},
                         [t.grad.cpu() for t in ins]))
@@ -3862,8 +3884,8 @@ def fpn_steps(name: str, warmup: int, timed: int, tag: str) -> dict:
 def tiny_fpn_card_vs_cpu() -> dict:
     """The 19M preset at tiny widths, the same seeded weights on the CPU
     and the card: logits of two 64x64 images (class agreement, largest
-    gap) and 3 train steps' ``total`` with the same dropout masks (a CPU
-    generator's, seeded by the step)."""
+    gap) and 3 train steps' ``total`` with the same dropout masks (the
+    steps' own: JAX's keys, the kernel on the card)."""
     ims = {dev: drawn_model(FPN_PRESET, overrides=TINY_FPN, device=dev,
                             seed=1) for dev in ("cpu", "cuda")}
     x = torch.from_numpy(np.random.default_rng(2).normal(
@@ -3873,11 +3895,8 @@ def tiny_fpn_card_vs_cpu() -> dict:
         with torch.inference_mode(), f32_precision():
             logits[dev] = im.model.predict_logits(x.to(dev)).cpu()
     agree, gap = compare_logits(logits["cuda"], logits["cpu"])
-
-    def cpu_draw(step):
-        gen = torch.Generator().manual_seed(100 + step)
-        return lambda shape, dev: torch.rand(shape, generator=gen).to(dev)
-
+    # the steps' own dropout on both devices: JAX's masks of each step, by
+    # the plain threefry on the CPU and the kernel on the card
     rng = np.random.default_rng(3)
     batches = [synthetic_batch(rng, 2, (64, 64), num_classes=5)
                for _ in range(3)]
@@ -3885,8 +3904,6 @@ def tiny_fpn_card_vs_cpu() -> dict:
     for dev in ("cpu", "cuda"):
         tr = drawn_trainer(FPN_PRESET, TINY_FPN + [
             "train.warmup_iters=1"], device=dev, seed=1)
-        tr.step_fn = make_train_step_fpn(tr.cfg.train.loss_decode,
-                                         dropout_draw=cpu_draw)
         totals[dev] = [m["total"] for m in api.train_steps(tr, batches)]
     rel = max(abs(a - b) / abs(b) for a, b in zip(totals["cuda"],
                                                   totals["cpu"]))
@@ -5378,9 +5395,12 @@ def phase_burnin(smi: str) -> dict:
           == list(range(BURNIN_VAL, BURNIN_STEPS + 1, BURNIN_VAL)),
           f"(burnin) vals {vals}")
     k1, k2 = 6 * (BURNIN_RUN + BURNIN_VALS), 6 * BURNIN_RUN
-    # every launch is of the bf16 forms (``launches`` counts both dtypes)
+    # every launch is of the bf16 forms (``launches`` counts both dtypes);
+    # the threefry kernel draws the weights of seed 0 and of the resume's
+    # fresh state (seed 1), the steps draw nothing
     want = dict(k1=k1, k2=k2, k1_bf16=k1, k2_bf16=k2, grouped=(0, 0),
-                grouped_bf16=(0, 0))
+                grouped_bf16=(0, 0),
+                threefry=2 * drawn_entries(burnin.build_model(args)))
     check(launches == want, f"(burnin) launches {launches}, want {want}")
     # s a step: the median gap between consecutive logged steps of one
     # segment (the resume's restore and the vals fall between segments
@@ -5458,8 +5478,10 @@ def phase_learning(smi: str) -> dict:
           f"(learning) the report's hash is not ckpt_{LEARN_ITERS}'s "
           f"{h.hexdigest()}")
     k1, k2 = 6 * (LEARN_ITERS + LEARN_VAL * len(val)), 6 * LEARN_ITERS
+    # the threefry kernel draws the initial weights, the steps nothing
     want = dict(k1=k1, k2=k2, k1_bf16=k1, k2_bf16=k2, grouped=(0, 0),
-                grouped_bf16=(0, 0))
+                grouped_bf16=(0, 0), threefry=drawn_entries(build_model(
+                    get_config(PRESET, INIT_OPTS).model)))
     check(launches == want, f"(learning) launches {launches}, want {want}")
     log("learning", f"{wall:.1f}s in all; s/iter by log record "
         f"{[round(r['sec_per_iter'], 4) for r in train]}, loss "
@@ -5495,8 +5517,19 @@ def phase_init(smi: str) -> dict:
     to their plain versions, and again on their grids (``hold_on_grid``:
     the DCN branch is silent at flax's init, its outputs zero)."""
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_launches()
     tr = api.init_trainer(PRESET, INIT_OPTS)
+    torch.cuda.synchronize()
+    init_launches = read_launches()
     model, cfg = tr.state.model, tr.cfg
+    drawn = drawn_entries(model)
+    check(init_launches == dict(k1=0, k2=0, k1_bf16=0, k2_bf16=0,
+                                grouped=(0, 0), grouped_bf16=(0, 0),
+                                threefry=drawn),
+          f"(init) the init's launches {init_launches}, want {drawn} "
+          f"threefry")
+    digest = hold_init_digest(model, "init")
     check((cfg.data.batch_size, tuple(cfg.data.crop_size), cfg.model.dtype,
            cfg.model.num_classes) == (8, (512, 512), "bfloat16", 30),
           f"(init) recipe {cfg.data.batch_size} {cfg.data.crop_size} "
@@ -5538,14 +5571,17 @@ def phase_init(smi: str) -> dict:
     launches = read_launches()
     k = 6 * INIT_STEPS
     want = dict(k1=k, k2=k, k1_bf16=k, k2_bf16=k, grouped=(0, 0),
-                grouped_bf16=(0, 0))
+                grouped_bf16=(0, 0), threefry=0)
     check(launches == want, f"(init) launches {launches}, want {want}")
     held = hold_captured(store, "init", k1=6, k2=6, shapes=[
         ("K1", (b, *FLAGSHIP_MAP)), ("K2", (b, *FLAGSHIP_MAP))])
     grid = hold_on_grid(store, "init", 22)
     del store
     fired = next((i + 1 for i, sh in enumerate(per_step) if any(sh)), None)
-    log("init", f"flax's laws at full width: {len(consts)} constant "
+    log("init", f"JAX's model.init(PRNGKey(0)) at full width: "
+        f"{digest['entries']} entries held to its digest (largest sample "
+        f"gap {digest['worst_ulp']:.3g} ulp), drawn by {drawn} threefry "
+        f"launches; {len(consts)} constant "
         f"entries exact, std/law of the five largest random entries "
         f"{ {k: round(r, 5) for k, r in ratios.items()} }; non-zero DCN "
         f"mask spikes per layer at step 1 {per_step[0]}, at step "
@@ -5555,10 +5591,248 @@ def phase_init(smi: str) -> dict:
         f"bf16 K1/K2 launches {launches['k1_bf16']}/"
         f"{launches['k2_bf16']} on {smi}")
     del tr, model
-    return dict(launches=launches, fired_at=fired, shares=per_step,
-                totals=totals, ratios=ratios,
+    return dict(launches=launches, init_launches=init_launches,
+                fired_at=fired, shares=per_step, totals=totals,
+                ratios=ratios,
                 held=dict(k1=max(held["k1"], grid["k1"]),
                           k2=max(held["k2"], grid["k2"])))
+
+
+# (jax random): the shapes of the kernel's checks (0-d, odd, 3-d, and the
+# FPN-19M step's dropout draw [T, B, H/4, W/4, C] = 4x6x128x128x128) and
+# the blocks of one axis held to the slice of the whole draw (the last:
+# a data-parallel rank's 2 of the batch's 6 rows)
+JR_SHAPES = ((), (7,), (3, 5, 2), (4, 6, 128, 128, 128))
+JR_BLOCKS = (((7,), 0, 2, 5), ((3, 5, 2), 1, 1, 4), ((3, 5, 2), -1, 1, 2),
+             ((4, 6, 128, 128, 128), 1, 2, 4),
+             ((4, 6, 128, 128, 128), 3, 40, 104))
+JR_KEY = (2716826189, 292468403)    # jax.random.fold_in(PRNGKey(0), 7)
+JR_KEEP = 0.9                       # the FPN head's keep probability
+# threefry2x32's known-answer vectors (Random123): (key, counter, output)
+THREEFRY_KAT = (((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                 (0x1CB996FC, 0xBB002BE7)),
+                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                 (0xC4923A9C, 0x483DF7A0)))
+# values of jax.random (jax 0.9.0, CPU, jax_threefry_partitionable on) and
+# flax 0.12.3, each beside the call that made it; floats as float32 bits
+JAX_KEYS = {
+    "PRNGKey(42)": ((0, 42), lambda: jr.key(42)),
+    "fold_in(PRNGKey(0), 1)": ((928981903, 3453687069),
+                               lambda: jr.fold_in(jr.key(0), 1)),
+    "fold_in(PRNGKey(0), 7)": (JR_KEY, lambda: jr.fold_in(jr.key(0), 7)),
+    "split(PRNGKey(42), 3)[2]": ((2465931498, 255383827),
+                                 lambda: jr.split(jr.key(42), 3)[2]),
+    "LazyRng.create(PRNGKey(0), 'backbone', 'Conv_0', 1).as_jax_rng()": (
+        (1286269754, 3917951290),
+        lambda: jr.fold_in_static(jr.key(0), ("backbone", "Conv_0", 1))),
+}
+JAX_DRAWS = {
+    "bits(PRNGKey(1), (4,))": (
+        (0x704A38B7, 0x88A4083E, 0x7227B57A, 0x703ABFF1),
+        lambda d: jr.bits(jr.key(1), (4,), device=d)),
+    "uniform(PRNGKey(0), (5,))": (
+        (0x3F729A4E, 0x3F7A8436, 0x3EAA221C, 0x3EEFF550, 0x3F11E43A),
+        lambda d: jr.uniform(jr.key(0), (5,), device=d)),
+    "uniform(PRNGKey(3), (2, 3), minval=-1.0, maxval=1.0)": (
+        (0xBF5A15C8, 0x3F605474, 0x3E988830, 0x3F738498, 0xBEE2F0F0,
+         0x3E29DB70),
+        lambda d: jr.uniform(jr.key(3), (2, 3), -1.0, 1.0, device=d)),
+    "bernoulli(PRNGKey(7), 0.9, (16,))": (
+        (1, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 1),
+        lambda d: jr.bernoulli(jr.key(7), 0.9, (16,), device=d)),
+    "normal(PRNGKey(0), (4,))": (
+        (0x3FCFB2BD, 0x40019DF0, 0xBEDE0017, 0xBDA10222),
+        lambda d: jr.normal(jr.key(0), (4,), device=d)),
+    "truncated_normal(PRNGKey(5), -2.0, 2.0, (4,))": (
+        (0xBDA4EAA0, 0x3FA54F1F, 0x3F1916AB, 0xBF9AA2DC),
+        lambda d: jr.truncated_normal(jr.key(5), -2.0, 2.0, (4,), device=d)),
+}
+# the hash's 32-bit operations an element: 20 rounds of add, rotate, xor,
+# 5 key injections of 3 adds, 2 initial adds, the xor of the two words and
+# 3 to make the float (shift, or, subtract) and compare or scale it
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 1 + 4
+F32_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
+INIT_DIGEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "jax_init_digest.json")
+NORMAL_ULP = 2          # normal-law entries: units in the last place
+
+
+def as_bits(t: torch.Tensor) -> list[int]:
+    """A draw's values as ints: float32 bits, a mask's 0/1, bits as is."""
+    t = t.detach().cpu().reshape(-1)
+    if t.dtype == torch.float32:
+        t = t.view(torch.int32).long() & jr.MASK
+    return [int(v) for v in t]
+
+
+def sample_indices(numel: int) -> np.ndarray:
+    """``tests/torch_init_digest.py:sample_indices``."""
+    return np.unique(np.linspace(0, numel - 1, 16).round().astype(np.int64))
+
+
+def hold_init_digest(model: torch.nn.Module, tag: str) -> dict:
+    """``model``'s state (the flagship with (init)'s options, drawn from
+    seed 0) against ``tests/jax_init_digest.json``, JAX's ``model.init(
+    PRNGKey(0))`` entry by entry: the shape, 16 sampled elements bitwise
+    (normal-law entries within ``NORMAL_ULP`` of the unit draw), the
+    float64 sum within 2^-20 of sqrt(n sum of squares) and the sum of
+    squares within 2^-20 of itself (each element off by at most a few
+    ulp).  Returns the counts and the largest gap in ulp."""
+    with open(INIT_DIGEST) as f:
+        want = json.load(f)
+    check((want["preset"], want["seed"]) == (PRESET, 0),
+          f"({tag}) digest of {want['preset']} seed {want['seed']}")
+    laws, sd = init_laws(model), model.state_dict()
+    check(set(sd) == set(want["entries"]),
+          f"({tag}) entries {sorted(set(sd) ^ set(want['entries']))[:8]}")
+    exact, worst, fails = 0, 0.0, []
+    for key, w in want["entries"].items():
+        t = sd[key].detach().float()
+        if list(t.shape) != w["shape"]:
+            fails.append(f"{key}: shape {list(t.shape)} != {w['shape']}")
+            continue
+        flat = t.reshape(-1)
+        got = flat[torch.from_numpy(sample_indices(flat.numel())).to(
+            flat.device)].cpu().numpy()
+        ws = np.float32(w["samples"])
+        x = flat.double()
+        s, ss = float(x.sum()), float((x * x).sum())
+        scale = math.sqrt(flat.numel() * max(w["sumsq"], 1e-300))
+        sums_ok = (abs(s - w["sum"]) <= 2 ** -20 * scale
+                   and abs(ss - w["sumsq"]) <= 2 ** -20 * w["sumsq"])
+        if np.array_equal(got, ws) and sums_ok:
+            exact += float(s == w["sum"] and ss == w["sumsq"])
+            continue
+        law = laws[key]
+        gap = float((np.abs(got.astype(np.float64) - ws) / np.spacing(
+            np.float32(law.factor) * np.maximum(np.abs(ws / law.factor),
+                                                np.float32(1e-30)))).max())
+        worst = max(worst, gap)
+        if not sums_ok or law.kind not in ("normal", "truncated_normal") \
+                or gap > NORMAL_ULP:
+            fails.append(f"{key} ({law.kind}): samples off by {gap:.3g} "
+                         f"ulp, sum {s} / {w['sum']}, sumsq {ss} / "
+                         f"{w['sumsq']}")
+    check(not fails, f"({tag}) not JAX's model.init: " + "; ".join(
+        fails[:6]) + f" ({len(fails)} entries)")
+    return dict(entries=len(sd), exact_sums=int(exact), worst_ulp=worst)
+
+
+def phase_jax_random(smi: str) -> dict:
+    """(jax random): ``csrc/threefry.cu`` against its plain version
+    (``utils/jax_random.py``, run on the card) bitwise: bits, uniforms on
+    [0, 1) and [-1, 1) and keep masks for every ``JR_SHAPES`` shape, and
+    each ``JR_BLOCKS`` block equal to the slice of the whole draw;
+    threefry2x32's known-answer vectors (host, plain and the kernel's
+    element 0 of key (0, 0)); recorded ``jax.random`` and flax keys and
+    draws; the kernel's mask and uniform times at the 50 M-element draw
+    beside ``torch.rand`` of the shape and the plain version, and its
+    bound; the flagship's full-width ``init_weights_(seed=0)`` drawn on
+    the card, timed and held to JAX's ``model.init`` digest."""
+    dev = torch.device("cuda")
+    kt = jr.threefry_kernel
+    before = kt.launches
+    for k, ctr, want in THREEFRY_KAT:
+        x0, x1 = jr.threefry2x32(k, torch.tensor([ctr[0]], device=dev),
+                                 torch.tensor([ctr[1]], device=dev))
+        check(jr.threefry2x32_block(k, *ctr) == want
+              and (int(x0), int(x1)) == want,
+              f"(jax random) threefry2x32 {k} {ctr}: {int(x0):#x} "
+              f"{int(x1):#x}, want {want}")
+    first = int(jr.bits((0, 0), (1,), device=dev)[0])
+    check(first == 0x6B200159 ^ 0x99BA4EFE,
+          f"(jax random) kernel's bits of key (0, 0) at 0: {first:#x}")
+    for call, (want, fn) in JAX_KEYS.items():
+        check(tuple(fn()) == tuple(want), f"(jax random) {call}: {fn()}")
+    for call, (want, fn) in JAX_DRAWS.items():
+        for d in ("cpu", dev):
+            got = as_bits(fn(d))
+            check(got == list(want), f"(jax random) {call} on {d}: "
+                  f"{[hex(v) for v in got]}")
+    k = JR_KEY
+    checked, err = 0, 0.0
+    for shape in JR_SHAPES:
+        pairs = [(jr.bits(k, shape, device=dev),
+                  jr.bits_reference(k, shape, device=dev)),
+                 (jr.uniform(k, shape, device=dev),
+                  jr.uniform_reference(k, shape, device=dev)),
+                 (jr.uniform(k, shape, -1.0, 1.0, device=dev),
+                  jr.uniform_reference(k, shape, -1.0, 1.0, device=dev)),
+                 (jr.bernoulli(k, JR_KEEP, shape, device=dev),
+                  jr.bernoulli_reference(k, JR_KEEP, shape, device=dev))]
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"(jax random) kernel != plain at {shape}")
+            checked += want.numel()
+            if want.numel():
+                err = max(err, float((got.double() - want.double()).abs()
+                                     .max()))
+        del pairs
+    for shape, axis, start, stop in JR_BLOCKS:
+        index = [slice(None)] * len(shape)
+        index[axis] = slice(start, stop)
+        blk = dict(axis=axis, start=start, stop=stop, device=dev)
+        for mode in ("bits", "uniform", "mask"):
+            draw = {"bits": lambda **b: jr.bits(k, shape, **b),
+                    "uniform": lambda **b: jr.uniform(k, shape, **b),
+                    "mask": lambda **b: jr.bernoulli(k, JR_KEEP, shape,
+                                                     **b)}[mode]
+            whole = draw(device=dev)
+            part = draw(**blk)
+            check(torch.equal(part, whole[tuple(index)]),
+                  f"(jax random) {mode} block {axis} [{start}, {stop}) of "
+                  f"{shape} is not the slice of the whole draw")
+            del whole, part
+    torch.cuda.synchronize()
+    launches_checked = kt.launches - before
+    big = JR_SHAPES[-1]
+    n = math.prod(big)
+    times = dict(
+        mask_ms=cuda_ms(lambda: jr.bernoulli(k, JR_KEEP, big, device=dev),
+                        iters=20),
+        uniform_ms=cuda_ms(lambda: jr.uniform(k, big, device=dev),
+                           iters=20),
+        plain_mask_ms=cuda_ms(lambda: jr.bernoulli_reference(
+            k, JR_KEEP, big, device=dev), iters=3, warmup=1),
+        plain_uniform_ms=cuda_ms(lambda: jr.uniform_reference(
+            k, big, device=dev), iters=3, warmup=1),
+        torch_rand_ms=cuda_ms(lambda: torch.rand(big, device=dev),
+                              iters=20),
+        bytes_ms=n / HBM_BYTES_PER_S * 1e3,
+        ops_ms=n * THREEFRY_OPS / F32_OPS_PER_S * 1e3,
+        uniform_bytes_ms=4 * n / HBM_BYTES_PER_S * 1e3)
+    torch.cuda.empty_cache()
+    cfg = get_config(PRESET, INIT_OPTS).model
+    model = build_model(cfg).to(dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    init_weights_(model, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    held = hold_init_digest(model, "jax random")
+    del model
+    torch.cuda.empty_cache()
+    log("jax random", f"threefry2x32 known answers, {len(JAX_KEYS)} keys "
+        f"and {len(JAX_DRAWS)} draws of jax.random reproduced; "
+        f"csrc/threefry.cu bitwise equal to the plain version over "
+        f"{checked} elements of {len(JR_SHAPES)} shapes (bits, uniforms, "
+        f"masks) and {len(JR_BLOCKS)} axis blocks ({launches_checked} "
+        f"launches); at {big} ({n} elements): mask "
+        f"{times['mask_ms']:.5f} ms (plain {times['plain_mask_ms']:.3f}), "
+        f"uniform {times['uniform_ms']:.5f} ms (plain "
+        f"{times['plain_uniform_ms']:.3f}), torch.rand "
+        f"{times['torch_rand_ms']:.5f} ms; bound mask "
+        f"{max(times['bytes_ms'], times['ops_ms']):.5f} ms (bytes "
+        f"{times['bytes_ms']:.5f}, ops {times['ops_ms']:.5f}), uniform "
+        f"{max(times['uniform_bytes_ms'], times['ops_ms']):.5f} ms; the "
+        f"flagship's init_weights_(seed=0) on the card in {init_s:.3f} s: "
+        f"JAX's model.init over {held['entries']} entries (sums exact in "
+        f"{held['exact_sums']}, largest sample gap {held['worst_ulp']:.3g} "
+        f"ulp) on {smi}")
+    return dict(times=times, init_s=init_s, held=held, max_abs_err=err)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5580,13 +5854,15 @@ def main() -> int:
     with ThreadPoolExecutor(1) as pool:
         try:
             cpu_ref = pool.submit(bf16_tiny_cpu, max(1, threads // 2))
+            cuda_build.build_all((*dcnv3.SOURCES, jr.SOURCE))
             dcnv3.build_kernels()
+            jr.build_kernel()
             built = time.perf_counter() - t
             bf16_tiny_ref = cpu_ref.result()
         finally:
             torch.set_num_threads(threads)
     sources = (dcnv3.SOURCE, dcnv3.BWD_SOURCE, dcnv3.GROUPED_SOURCE,
-               dcnv3.GROUPED_BWD_SOURCE)
+               dcnv3.GROUPED_BWD_SOURCE, jr.SOURCE)
     log("build", f"{', '.join(sources)} built in {built:.1f}s; "
         f"(bf16 tiny)'s CPU side beside it, done at "
         f"{time.perf_counter() - t:.1f}s")
@@ -5606,6 +5882,9 @@ def main() -> int:
     t = time.perf_counter()
     kr = phase_k1_rows(gen)
     log("k1 rows", f"the phase took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    jrd = phase_jax_random(smi)
+    log("jax random", f"the phase took {time.perf_counter() - t:.1f}s")
 
     t = time.perf_counter()
     im = drawn_model(PRESET, seed=0)
@@ -5765,6 +6044,11 @@ def main() -> int:
                   ini["launches"]]
     k1_bf16 = sum(p["k1_bf16"] for p in bf16_paths)
     k2_bf16 = sum(p["k2_bf16"] for p in bf16_paths)
+    # the threefry kernel on every path above (each counted once), and the
+    # (init) phase's init_trainer, whose weights it draws
+    counted = {id(p): p for p in paths + bf16_paths}
+    threefry_launches = (sum(p["threefry"] for p in counted.values())
+                         + ini["init_launches"]["threefry"])
 
     def row(name, source, tpu_name, launches, max_abs_err, t):
         return dict(
@@ -5828,6 +6112,16 @@ def main() -> int:
         dcnv3.GROUPED_BWD_SOURCE, GROUPED_BACKWARD, grouped_bf16[1],
         gb["errs"][GROUPED_BACKWARD],
         gb["times"][GROUPED_BACKWARD, "train"]))
+    jt = jrd["times"]
+    kernels.append(dict(
+        name="threefry", route="cuda",
+        source=f"spike2former_tpu_torch/csrc/{jr.SOURCE}",
+        replaces="spike2former_tpu/models/fpn.py:144",
+        launches=threefry_launches, max_abs_err=jrd["max_abs_err"],
+        ms=jt["mask_ms"], plain_ms=jt["plain_mask_ms"],
+        bound_ms=max(jt["bytes_ms"], jt["ops_ms"]),
+        bound_by="bytes" if jt["bytes_ms"] >= jt["ops_ms"] else "operations",
+        library_ms=None))
     log("summary", f"K1 launches: serve {s['launches']}, eval "
         f"{[ev[m]['launches']['k1'] for m in EVAL_MODES]}, train "
         f"{tr['launches']['k1']}, overflow {ov['launches']['k1']}, host "
@@ -5894,7 +6188,17 @@ def main() -> int:
         f"({LEARN_ITERS} iterations, {LEARN_VAL} val images twice), "
         f"(init) bf16 K1/K2 {ini['launches']['k1_bf16']}/"
         f"{ini['launches']['k2_bf16']} ({INIT_STEPS} steps), the DCN "
-        f"masks' first non-zero spike at step {ini['fired_at']}")
+        f"masks' first non-zero spike at step {ini['fired_at']}; threefry "
+        f"launches {threefry_launches}: point steps "
+        f"{pt['launches']['threefry']}, FPN requests/steps "
+        f"{fpn['launches']['threefry']}/{fpn_train['launches']['threefry']}"
+        f", FPN family {[n['threefry'] for n in fam['launches']]}, FPN "
+        f"bf16 {[n['threefry'] for n in fb['launches']]}, DDD17 "
+        f"{[n['threefry'] for n in dd['launches']]}, flagship train "
+        f"{tr['launches']['threefry']}, (burnin) "
+        f"{bu['launches']['threefry']}, (learning) "
+        f"{le['launches']['threefry']}, (init)'s init "
+        f"{ini['init_launches']['threefry']}")
     log("total", f"chip_smoke took {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -54,21 +54,21 @@ def init_model(config: str | Config, checkpoint: str | None = None,
     from ``checkpoint`` (a train checkpoint of the train CLI or a state
     dict saved by ``torch.save``, ``engine.checkpoint.restore_variables``)
     or from ``state_dict`` (e.g. ``engine.convert.from_jax_variables``),
-    loaded strictly, or else are drawn from ``seed`` by flax's laws
-    (``engine/weights.py:init_weights_``; JAX's ``init_model`` draws from
-    ``PRNGKey(0)``)."""
+    loaded strictly, or else are JAX's ``model.init`` variables of
+    ``PRNGKey(seed)`` (``engine/weights.py:init_weights_``, drawn on
+    ``device``; JAX's ``init_model`` draws from ``PRNGKey(0)``)."""
     if checkpoint is not None and state_dict is not None:
         raise ValueError("pass checkpoint or state_dict, not both")
     dev = resolve_device(device)
     cfg = get_config(config, overrides) if isinstance(config, str) else config
-    model = build_model(cfg.model)
+    model = build_model(cfg.model).to(dev)
     if checkpoint is not None:
         state_dict = restore_variables(checkpoint)
     if state_dict is None:
         init_weights_(model, seed)
     else:
         model.load_state_dict(state_dict, strict=True)
-    return InferenceModel(cfg, model.to(dev).eval(), dev)
+    return InferenceModel(cfg, model.eval(), dev)
 
 
 def resize_and_pad(cfg: Config, img: np.ndarray

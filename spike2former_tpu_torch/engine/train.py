@@ -36,7 +36,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Iterable
 
-import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -45,14 +44,15 @@ from ..device import f32_precision, resolve_device
 from ..losses.criterion import (GroundTruth, maskformer_loss,
                                 semantic_to_instances, slot_map_from_masks)
 from ..losses.pixel import build_pixel_loss, pixel_accuracy
-from ..losses.point_sample import Draw, uniform_draw
-from ..models.fpn import Dropout
+from ..losses.point_sample import Draw
+from ..models.fpn import Dropout, dropout_key
 from ..models.segmentor import preprocess
 from ..parallel.mesh import (all_reduce_grads, all_reduce_metrics,
                              gather_rows, global_batch, global_draw)
 from .config import (Config, TrainConfig, build_model, compute_dtype,
                      get_config)
 from .optim import AdamW
+from ..utils import jax_random as jr
 from .weights import init_weights_
 
 
@@ -94,18 +94,6 @@ def init_state(model: nn.Module, train_cfg: TrainConfig,
     return TrainState(model, opt)
 
 
-def point_generator(seed: int, step: int, microbatch: int,
-                    device: torch.device) -> torch.Generator:
-    """The ``torch.Generator`` on ``device`` of one microbatch's point
-    draws, seeded from (``seed``, ``step``, ``microbatch``), as the JAX
-    step folds the step and the microbatch into ``PRNGKey(seed)``: runs
-    are reproducible and a resumed run draws what it would have."""
-    g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence(
-        [seed, step, microbatch]).generate_state(1, np.uint64)[0]))
-    return g
-
-
 def _step_fn(gt_of: Callable[..., GroundTruth], loss_kw: dict,
              accum_steps: int, num_points: int, seed: int,
              point_draw: Callable[[int, int], Draw] | None,
@@ -114,13 +102,14 @@ def _step_fn(gt_of: Callable[..., GroundTruth], loss_kw: dict,
     targets of each microbatch become its ``GroundTruth`` by ``gt_of``;
     the loss is ``maskformer_loss`` with ``loss_kw``."""
 
-    def microbatch(model, images, targets, draw) -> dict[str, torch.Tensor]:
+    def microbatch(model, images, targets, draw, rng
+                   ) -> dict[str, torch.Tensor]:
         with record_function("forward"):
             cls_scores, mask_preds = model(preprocess(images))
         with record_function("match_and_loss"):
             gt = gt_of(*targets)
             losses = maskformer_loss(cls_scores, mask_preds, gt, draw=draw,
-                                     **loss_kw)
+                                     rng=rng, **loss_kw)
         with record_function("backward"):
             (losses["total"] / accum_steps).backward()
         losses = {k: v.detach() for k, v in losses.items()}
@@ -144,15 +133,17 @@ def _step_fn(gt_of: Callable[..., GroundTruth], loss_kw: dict,
             p.grad = None
         per_mb = []
         chunks = [t.chunk(accum_steps) for t in targets]
+        # JAX's point keys: fold_in(PRNGKey(seed), step), and per
+        # microbatch fold_in(., m) (JAX engine/train.py:88, :103)
+        rng = jr.fold_in(jr.key(seed), state.step)
         for m, im in enumerate(images.chunk(accum_steps)):
-            draw = None
-            if num_points:
-                draw = global_draw(
-                    point_draw(state.step, m) if point_draw else
-                    uniform_draw(point_generator(seed, state.step, m,
-                                                 im.device)))
+            draw = mb_rng = None
+            if num_points and point_draw:
+                draw = global_draw(point_draw(state.step, m))
+            elif num_points:
+                mb_rng = rng if accum_steps == 1 else jr.fold_in(rng, m)
             per_mb.append(microbatch(model, im, [c[m] for c in chunks],
-                                     draw))
+                                     draw, mb_rng))
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                    for k in per_mb[0]}
         metrics = all_reduce_metrics(metrics)
@@ -206,9 +197,11 @@ def make_train_step(num_classes: int, max_gt: int = 64,
 
     ``num_points > 0`` trains on point-sampled matching costs and mask
     losses (``train.loss_points`` and its ``oversample_ratio``,
-    ``importance_sample_ratio`` and ``points_dtype``).  Microbatch ``m``
-    of step ``s`` draws its points from ``point_draw(s, m)``, by default
-    the uniforms of ``point_generator(seed, s, m)``.
+    ``importance_sample_ratio`` and ``points_dtype``).  Step ``s`` draws
+    its points from JAX's key ``fold_in(PRNGKey(seed), s)``, microbatch
+    ``m`` of several from ``fold_in(., m)``, so a resumed run draws what
+    it would have; ``point_draw(s, m)``, when given, hands in the
+    uniforms instead.
 
     The stages run inside ``torch.profiler.record_function`` ranges
     (``forward``, ``match_and_loss``, ``backward``, ``optimizer``), which
@@ -253,7 +246,7 @@ def make_train_step_panoptic(
         1, num_points, seed, point_draw, report_dropped=False)
 
 
-def make_train_step_fpn(loss_decode=(("ce", 1.0),), seed: int = 0,
+def make_train_step_fpn(loss_decode=(("ce", 1.0),),
                         dropout_draw: Callable | None = None) -> Callable:
     """The FPN family's step (JAX ``make_train_step_fpn``): ``train_step(
     state, images_u8, sem_seg) -> (state, metrics)`` with images [B, H, W,
@@ -265,20 +258,13 @@ def make_train_step_fpn(loss_decode=(("ce", 1.0),), seed: int = 0,
     ``total`` and reported as ``decode_<i>.loss_<name>``, ``acc_seg`` of
     the last.  ``metrics`` adds ``total`` and ``grad_norm``.
 
-    The head's dropout keeps by the uniforms of ``dropout_draw(step)``, a
-    ``draw(shape, device)``; by default those of a ``torch.Generator``
-    seeded from (``seed``, step) (``point_generator``).  The JAX step
-    keys its dropout by ``fold_in(PRNGKey(0), step)``, whose bits the
-    port does not reproduce.  The stages run in ``record_function``
-    ranges ``forward``, ``pixel_loss``, ``backward`` and ``optimizer``."""
+    Each ``Dropout`` keeps by flax's mask of step ``s``: the key of its
+    module path under ``fold_in(PRNGKey(0), s)`` (the JAX step's, whatever
+    the seed: JAX engine/train.py:166); ``dropout_draw(s)``, when given,
+    hands in the uniforms instead (a ``draw(shape, device)``).  The stages
+    run in ``record_function`` ranges ``forward``, ``pixel_loss``,
+    ``backward`` and ``optimizer``."""
     pixel_loss = build_pixel_loss(loss_decode)
-
-    def draw_of(step: int, device: torch.device) -> Callable:
-        if dropout_draw is not None:
-            return dropout_draw(step)
-        gen = point_generator(seed, step, 0, device)
-        return lambda shape, dev: torch.rand(shape, generator=gen,
-                                             device=dev)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    sem_seg: torch.Tensor):
@@ -290,16 +276,20 @@ def make_train_step_fpn(loss_decode=(("ce", 1.0),), seed: int = 0,
         model = state.model.train()
         for p in model.parameters():
             p.grad = None
-        drops = [m for m in model.modules() if isinstance(m, Dropout)]
-        draw = draw_of(state.step, images.device)
-        for m in drops:
-            m.draw = global_draw(draw, m.batch_axis)
+        drops = [(n, m) for n, m in model.named_modules()
+                 if isinstance(m, Dropout)]
+        rng = jr.fold_in(jr.key(0), state.step)
+        for name, m in drops:
+            if dropout_draw is not None:
+                m.draw = global_draw(dropout_draw(state.step), m.batch_axis)
+            else:
+                m.key = dropout_key(rng, name)
         try:
             with record_function("forward"):
                 logits = model(preprocess(images))
         finally:
-            for m in drops:
-                m.draw = None
+            for _, m in drops:
+                m.draw = m.key = None
         with record_function("pixel_loss"):
             # the global batch's logits and labels on every rank: the
             # losses' means, sorts and OHEM thresholds are the batch's
@@ -363,9 +353,10 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
     card unless ``device="cpu"``), in ``model.dtype``, with
     ``model.remat`` and ``train.packed_residuals`` as the config says (the
     parameters, gradients and AdamW moments stay float32).  Weights come from
-    ``state_dict``, loaded strictly, or are drawn by flax's laws
-    (``engine/weights.py:init_weights_``) from ``seed``, which defaults to
-    ``cfg.train.seed`` (JAX's train CLI's ``PRNGKey(train.seed)``).  The
+    ``state_dict``, loaded strictly, or are JAX's ``model.init`` variables
+    of ``PRNGKey(seed)`` (``engine/weights.py:init_weights_``, drawn on
+    ``device``), ``seed`` defaulting to ``cfg.train.seed`` (JAX's train
+    CLI's).  The
     optimizer runs at ``scaled_base_lr(cfg)``."""
     dev = resolve_device(device)
     cfg = get_config(config, overrides) if isinstance(config, str) else config
@@ -379,18 +370,18 @@ def init_trainer(config: str | Config, overrides: list[str] | None = None,
         if t.accum_steps != 1:
             raise ValueError("the FPN family's step takes no accum_steps, "
                              "as in the JAX package")
-        step_fn = make_train_step_fpn(t.loss_decode, seed=t.seed)
+        step_fn = make_train_step_fpn(t.loss_decode)
     elif is_panoptic(cfg):
         step_fn = make_train_step_panoptic(cfg.model.num_classes, **kw)
     else:
         step_fn = make_train_step(cfg.model.num_classes, max_gt=t.max_gt,
                                   accum_steps=t.accum_steps, **kw)
     model = build_model(cfg.model, packed_residuals=t.packed_residuals)
+    model.to(dev)
     if state_dict is None:
         init_weights_(model, t.seed if seed is None else seed)
     else:
         model.load_state_dict(state_dict, strict=True)
-    model.to(dev)
     return Trainer(cfg, init_state(model, t, scaled_base_lr(cfg)), step_fn,
                    dev)
 

@@ -5,8 +5,13 @@ JAX entry point that starts without a checkpoint calls: each entry of the
 state_dict from the law ``init_laws`` gives it (``models/initializers.py``:
 flax's defaults by module type, or the law the owning module declares).
 ``fast_init_`` is the counterpart of ``utils/initfast.py:fast_variables``,
-which the JAX benchmark tool calls.  Both draw from a CPU
-``torch.Generator``: the laws are flax's, the draws are not JAX's.
+which the JAX benchmark tool calls.  Both draw JAX's numbers from the same
+seed: ``init_weights_`` keys each entry as flax does
+(``fold_in_static(PRNGKey(seed), scope + (n,))``, ``n`` the entry's
+``make_rng`` count in its flax scope, ``engine/convert.py:flax_entries``)
+and draws it in flax's shape with ``jax.random``'s samplers
+(``utils/jax_random.py``), on the entry's device; ``fast_init_`` draws
+numpy's normals in JAX's ``tree_flatten`` order, in flax's shapes.
 
 ``randomize_`` is the tests' draw (``tests/torch_golden.py:
 randomize_torch``), not a law of the JAX package: layer-scale gammas and
@@ -19,11 +24,14 @@ explicitly.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..models import initializers as init
 from ..models.layers import BatchNorm, BNAndPad
+from ..utils import jax_random as jr
+from .convert import flax_entries
 
 
 def _default_law(m: nn.Module, name: str, t: torch.Tensor):
@@ -65,20 +73,28 @@ def init_laws(model: nn.Module) -> dict[str, init.Law]:
     return {k: laws[k] for k in keys}
 
 
-def _draw_(model: nn.Module, laws: dict[str, init.Law], seed: int
-           ) -> nn.Module:
-    gen = torch.Generator().manual_seed(seed)
-    sd = model.state_dict(keep_vars=True)
-    for key, law in laws.items():
-        law.draw_(sd[key], gen)
-    return model
-
-
 def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Draw every state_dict entry of ``model`` in place from its law
-    (``init_laws``), in state_dict order, from a CPU ``torch.Generator``
-    seeded with ``seed``; returns ``model``."""
-    return _draw_(model, init_laws(model), seed)
+    """Draw every state_dict entry of ``model`` in place, on its device,
+    as flax's ``model.init(PRNGKey(seed))`` draws its variable: the
+    entry's law (``init_laws``) from its flax key, in flax's shape, turned
+    into the port's layout; returns ``model``.  Raises ``KeyError`` for a
+    random entry whose flax ``make_rng`` count the port cannot tell."""
+    laws, entries = init_laws(model), flax_entries(model)
+    root = jr.key(seed)
+    sd = model.state_dict(keep_vars=True)
+    with torch.no_grad():
+        for key, law in laws.items():
+            t = sd[key]
+            if law.kind == "constant":
+                t.fill_(law.scale)
+                continue
+            e = entries[key]
+            if e.counter is None:
+                raise KeyError(f"{key}: the order of its flax scope's "
+                               f"parameters is not declared")
+            k = jr.fold_in_static(root, e.path[:-1] + (e.counter,))
+            t.copy_(e.to_port(law.sample(k, e.shape, device=t.device)))
+    return model
 
 
 def fast_laws(model: nn.Module, scale: float = 0.05
@@ -99,9 +115,28 @@ def fast_laws(model: nn.Module, scale: float = 0.05
 
 def fast_init_(model: nn.Module, seed: int = 0, scale: float = 0.05
                ) -> nn.Module:
-    """Draw every state_dict entry of ``model`` in place from its
-    ``fast_laws`` law, as ``init_weights_`` does; returns ``model``."""
-    return _draw_(model, fast_laws(model, scale), seed)
+    """``fast_variables(seed, scale)``: ``np.random.default_rng(seed)
+    .normal(0, scale)`` in float64, rounded to float32, for every floating
+    entry with at least one axis in JAX's ``tree_flatten`` order (sorted
+    collection, then path: ``batch_stats`` before ``params``) and flax's
+    shape; 0 for the others, then 1 for every BN variance (drawn first,
+    as JAX draws it); returns ``model``."""
+    entries = flax_entries(model)
+    rng = np.random.default_rng(seed)
+    sd = model.state_dict(keep_vars=True)
+    with torch.no_grad():
+        for key in sorted(entries, key=lambda k: (entries[k].collection,
+                                                  entries[k].path)):
+            e, t = entries[key], sd[key]
+            if e.path[-1] == "var":
+                rng.normal(0.0, scale, e.shape)
+                t.fill_(1.0)
+            elif t.is_floating_point() and e.shape:
+                t.copy_(e.to_port(torch.from_numpy(
+                    rng.normal(0.0, scale, e.shape).astype(np.float32))))
+            else:
+                t.zero_()
+    return model
 
 
 def randomize_(model: nn.Module, seed: int = 0) -> nn.Module:

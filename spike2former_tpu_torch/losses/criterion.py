@@ -25,9 +25,9 @@ the ranks' terms add up to the one-process loss of the whole batch.
 (``losses/point_sample.py``): the matching costs of each layer on one
 shared uniform point set per image, and the mask losses of each matched
 pair on ``num_points`` uncertainty-importance points, where the JAX
-package draws its coordinates from ``jax.random`` keys and the port from
-a ``Draw`` (a seeded ``torch.Generator`` in training; the JAX draws in the
-parity tests).
+package and the port draw its coordinates from the same ``jax.random``
+keys (``point_sample.point_draw``; the port's threefry in
+``utils/jax_random.py``), or the port from a ``Draw`` handed in.
 
 The losses take float32 logits: a bf16 model's mask logits are float32
 sums of its bf16 mask features (``LazyMasks``), and its class scores are
@@ -46,8 +46,10 @@ from ..ops.resize import resize_bilinear_hw, resize_nearest_torch
 from ..parallel.mesh import global_any, global_sum, synced
 from .losses import dice_loss, sigmoid_focal_loss, weighted_cross_entropy
 from .matcher import auction_match, hungarian_host, match_costs
-from .point_sample import (Draw, point_sample, point_sample_shared,
-                           point_sample_slot, uncertain_point_coords)
+from ..utils.jax_random import Key
+from .point_sample import (Draw, point_draw, point_sample,
+                           point_sample_shared, point_sample_slot,
+                           uncertain_point_coords)
 
 
 class LazyMasks(NamedTuple):
@@ -314,7 +316,8 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
                     num_points: int = 0, oversample_ratio: float = 3.0,
                     importance_sample_ratio: float = 0.75,
                     points_dtype: torch.dtype = torch.float32,
-                    draw: Draw | None = None) -> dict[str, torch.Tensor]:
+                    draw: Draw | None = None, rng: Key | None = None
+                    ) -> dict[str, torch.Tensor]:
     """Deep-supervised loss over all L layers (loss_by_feat :367-408).
 
     all_cls_scores [L, B, nq, K+1]; all_mask_preds dense [L, B, nq, h, w]
@@ -336,15 +339,22 @@ def maskformer_loss(all_cls_scores: torch.Tensor, all_mask_preds,
     the mask losses on sampled points (the module docstring), with the
     uniforms from ``draw``, in this order: each layer's shared matching
     points [B, P, 2], then for each layer the per-pair oversampled points
-    [B, G, P * oversample, 2] and the fresh ones.  ``points_dtype`` is the
-    gradient-carrying sampler's (``train.loss_points_dtype``)."""
+    [B, G, P * oversample, 2] and the fresh ones.  Without a ``draw``
+    they are JAX's uniforms of the key ``rng`` (``point_draw``).
+    ``points_dtype`` is the gradient-carrying sampler's
+    (``train.loss_points_dtype``)."""
     if loss_at not in ("pred", "gt"):
         raise ValueError(f"loss_at must be 'pred' or 'gt', got {loss_at!r}")
     if matcher not in ("host", "auction"):
         raise ValueError(
             f"matcher must be 'host' or 'auction', got {matcher!r}")
     if num_points and draw is None:
-        raise ValueError("num_points > 0 needs a draw of uniforms")
+        if rng is None:
+            raise ValueError("num_points > 0 needs a key or a draw")
+        per_layer = 1 + (num_points > int(importance_sample_ratio
+                                          * num_points))
+        draw = point_draw(rng, all_cls_scores.shape[0], per_layer,
+                          all_cls_scores.device)
     gc = compact_gt
     if (gc and gc < gt.labels.shape[1] and matcher != "host"
             and not global_any(gt.valid[:, gc:].any())):

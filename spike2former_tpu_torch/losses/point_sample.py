@@ -25,6 +25,9 @@ from typing import Callable
 
 import torch
 
+from ..parallel.mesh import global_block
+from ..utils import jax_random as jr
+
 # uniform [0, 1) draws of a given shape: the point coordinates' source
 Draw = Callable[[tuple], torch.Tensor]
 
@@ -141,11 +144,27 @@ def get_uncertainty(logits: torch.Tensor) -> torch.Tensor:
     return -logits.abs()
 
 
-def uniform_draw(generator: torch.Generator) -> Draw:
-    """A ``Draw`` of float32 uniforms in [0, 1) from ``generator``, on its
-    device."""
-    return lambda shape: torch.rand(shape, generator=generator,
-                                    device=generator.device)
+def keyed_uniform(key: jr.Key, shape, device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` on ``device``; inside
+    ``global_batch()`` this rank's rows (axis 0) of the global batch's
+    draw."""
+    full, start, stop = global_block(shape, 0)
+    return jr.uniform(key, full, start=start, stop=stop, device=device)
+
+
+def point_draw(rng: jr.Key, num_layers: int, draws_per_layer: int,
+               device) -> Draw:
+    """The ``Draw`` of JAX's point keys (criterion.py:605-616,
+    point_sample.py:262-271) in ``maskformer_loss``'s order of calls:
+    layer ``l``'s matching points from ``split(fold_in(rng, 0), L)[l]``,
+    then its oversampled and fresh loss points from ``r1, r2 =
+    split(split(fold_in(rng, 1), L)[l])`` (``r1`` only where
+    ``draws_per_layer`` is 1: no fresh points)."""
+    match = jr.split(jr.fold_in(rng, 0), num_layers)
+    loss = jr.split(jr.fold_in(rng, 1), num_layers)
+    keys = iter(match + [k for lk in loss
+                         for k in jr.split(lk)[:draws_per_layer]])
+    return lambda shape: keyed_uniform(next(keys), shape, device)
 
 
 def uncertain_point_coords(mask_logits: torch.Tensor, num_points: int,

@@ -21,6 +21,8 @@ from torch import nn
 from ..ops.neuron import (multistep_eif, multistep_if, multistep_lif,
                           multistep_plif)
 from ..ops.resize import resize_bilinear, resize_nearest_torch
+from ..parallel.mesh import global_block
+from ..utils import jax_random as jr
 from . import initializers as init
 from .layers import ConvBN, Spike, conv2d, conv_nhwc, fold_t, unfold_t
 from .sdtv2 import SpikingMetaFormer
@@ -108,25 +110,43 @@ class FPNNeck(nn.Module):
 
 class Dropout(nn.Module):
     """flax's ``nn.Dropout`` in training mode: each element is kept with
-    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  It keeps
-    where ``draw(shape, device)``'s uniforms in [0, 1) fall below
-    ``1 - rate``; ``draw`` is set by the train step (``dropout_draw``), or
-    else torch's default generator draws.  ``batch_axis`` is the input's
-    batch axis, along which a data-parallel step's ranks split the draw
-    (1 for the heads' ``[T, B, ...]`` features)."""
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  The keep
+    mask is ``jax.random.bernoulli(key, 1 - rate, x.shape)`` of ``key``,
+    which the train step sets to flax's key of this module
+    (``dropout_key``); ``draw``, when set instead, hands in the uniforms
+    to keep by (``draw(shape, device)``, kept below ``1 - rate``).
+    ``batch_axis`` is the input's batch axis, along which a data-parallel
+    step's ranks take their blocks of the global mask (1 for the heads'
+    ``[T, B, ...]`` features).  Training without either is an error."""
 
     def __init__(self, rate: float, batch_axis: int = 1):
         super().__init__()
         self.rate, self.batch_axis = rate, batch_axis
+        self.key: jr.Key | None = None
         self.draw: Callable | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        u = (self.draw(tuple(x.shape), x.device) if self.draw is not None
-             else torch.rand(x.shape, device=x.device))
-        return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+        if self.draw is not None:
+            keep = self.draw(tuple(x.shape), x.device) < keep_prob
+        elif self.key is not None:
+            full, start, stop = global_block(x.shape, self.batch_axis)
+            keep = jr.bernoulli(self.key, keep_prob, full,
+                                axis=self.batch_axis, start=start,
+                                stop=stop, device=x.device)
+        else:
+            raise RuntimeError("Dropout in training mode needs a key (the "
+                               "train step sets it) or a draw")
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def dropout_key(step_rng: jr.Key, path: str) -> jr.Key:
+    """flax's key of the ``nn.Dropout`` at module path ``path`` (the port's
+    module names are flax's) in a step applied with ``rngs={'dropout':
+    step_rng}``: its scope's first ``make_rng('dropout')``."""
+    return jr.fold_in_static(step_rng, tuple(path.split(".")) + (1,))
 
 
 class FPNHead(nn.Module):

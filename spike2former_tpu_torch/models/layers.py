@@ -348,6 +348,9 @@ class BatchNorm(nn.Module):
     ``parallel.global_batch()`` the statistics are the global batch's,
     over every rank's rows (``parallel.batch_moments``)."""
 
+    # the JAX wrapper's inner flax ``nn.BatchNorm`` (``engine/convert.py``)
+    flax_scope = ("BatchNorm_0",)
+
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps

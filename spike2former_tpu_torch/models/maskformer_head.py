@@ -114,6 +114,10 @@ class MaskFormerHead(nn.Module):
                           "cls_embed.weight": init.truncated_normal(0.02),
                           "shortcut_kernel": init.uniform_fan_in(nq),
                           "w": init.ones}
+        # the order of the head's own self.param calls, which numbers their
+        # flax keys (JAX maskformer_head.py:135-140, :183-187, :249)
+        self.jax_param_order = ("query_feat", "query_embed", "level_embed",
+                                "shortcut_kernel", "w", "query_anchors")
         if decoder == "dab":
             self.query_anchors = nn.Parameter(torch.zeros(nq, 4))
             self.init_laws["query_anchors"] = init.normal(1.0)

@@ -125,6 +125,8 @@ class MSResNet(nn.Module):
                 setattr(self, f"stem_conv_{i}",
                         conv2d(cin, width, 3, s, 1, bias=True, dtype=dtype))
             self.stem_bn = BatchNorm(width)
+            # flax's own nn.BatchNorm (JAX msresnet.py:128), no wrapper
+            self.stem_bn.flax_scope = ()
         else:
             self.stem = ConvBNF(3, width, 7, 2, dtype=dtype)
         cin = width

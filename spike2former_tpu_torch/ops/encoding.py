@@ -5,18 +5,15 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import jax_random as jr
 
-def poisson_encode(x: torch.Tensor, t: int,
-                   generator: torch.Generator | None = None,
-                   uniforms: torch.Tensor | None = None) -> torch.Tensor:
+
+def poisson_encode(x: torch.Tensor, t: int, key: jr.Key) -> torch.Tensor:
     """Rate coding: at each step an element of ``x`` (in [0, 1]) spikes
-    where a uniform draw falls below it.  The ``[T, *x.shape]`` uniforms
-    come from ``generator`` (on ``x``'s device), or are handed in as
-    ``uniforms``.  Float32 0/1 spikes."""
-    if uniforms is None:
-        uniforms = torch.rand((t,) + tuple(x.shape), generator=generator,
-                              device=x.device)
-    return (uniforms < x).float()
+    where JAX's ``uniform(key, (t, *x.shape))`` falls below it (JAX
+    ``encoding.py:13``).  Float32 0/1 spikes."""
+    u = jr.uniform(key, (t,) + tuple(x.shape), device=x.device)
+    return (u < x).float()
 
 
 def latency_encode(x: torch.Tensor, t: int) -> torch.Tensor:

@@ -58,6 +58,7 @@ class _SpikingRNN(nn.Module):
         # flax's lecun_normal over the [H, G*H] kernel, fan_in H, and zeros
         # (JAX ops/rnn.py:60-63, :101-104, :143-146)
         self.init_laws = {"hh_kernel": init.lecun_normal(hidden_size)}
+        self.jax_param_order = ("hh_kernel", "hh_bias")
         if use_bias:
             self.init_laws["hh_bias"] = init.zeros
 

@@ -16,8 +16,10 @@ process group of more than one rank exists):
 * loss normalizers (``global_sum``): the MaskFormer's ``num_total_masks``
   and class-weight sums; the FPN family's pixel losses see the whole
   batch (``gather_rows``), since OHEM and Lovász sort over it;
-* random draws (``global_draw``): each rank draws the global batch's
-  uniforms and keeps its own rows, so the draws are the one-process run's;
+* random draws: each rank takes its rows of the global batch's draw, so
+  the draws are the one-process run's: a keyed draw writes only that
+  block (``global_block``), a handed-in draw is made whole and cut
+  (``global_draw``);
 * gradients (``all_reduce_grads``): summed in one flat buffer before the
   global-norm clip; the logged metrics are the global ones.
 
@@ -274,6 +276,22 @@ def global_draw(draw: Callable, axis: int = 0) -> Callable:
         return draw(full, *args).narrow(axis, rank * n, n)
 
     return local
+
+
+def global_block(shape, axis: int = 0) -> tuple[tuple, int | None,
+                                                int | None]:
+    """``(the global draw's shape, start, stop)`` of this rank's block of
+    ``axis`` inside ``global_batch()`` (``shape[axis]`` rows of a global
+    axis the world size times longer), for a keyed draw that writes only
+    that block (``utils/jax_random.py``); ``(shape, None, None)`` outside
+    it."""
+    shape = tuple(shape)
+    if not synced():
+        return shape, None, None
+    rank, size = _data().data_rank, _data().data_size
+    n = shape[axis]
+    return (shape[:axis] + (n * size,) + shape[axis + 1:], rank * n,
+            (rank + 1) * n)
 
 
 class _GatherRows(torch.autograd.Function):

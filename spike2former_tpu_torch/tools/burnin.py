@@ -12,9 +12,9 @@ gradient-norm stability.
 
 The model is ``Spike2Former(num_classes, T, dtype)`` at the module's own
 defaults (``lazy_masks=False`` among them, where the presets set True),
-or at tiny widths with ``--tiny``; its weights are drawn by flax's laws
-from seed 0 (``engine/weights.py:init_weights_``, where the JAX tool calls
-``model.init(PRNGKey(0))``).  The optimizer is ``engine/optim.py``'s AdamW at
+or at tiny widths with ``--tiny``; its weights are the JAX tool's
+``model.init(PRNGKey(0))`` variables (``engine/weights.py:
+init_weights_``).  The optimizer is ``engine/optim.py``'s AdamW at
 its defaults (lr 1e-3, weight decay 0.005, backbone x0.1, clip 0.01) with
 ``warmup_iters=min(500, steps // 10)`` and ``total_iters=steps``; the step
 is ``make_train_step(num_classes, max_gt=64, accum_steps=K)`` at its
@@ -118,14 +118,13 @@ def new_state(args, device: torch.device, seed: int,
               state_dict: dict[str, torch.Tensor] | None = None
               ) -> TrainState:
     """A fresh model (weights from ``state_dict``, loaded strictly, or
-    drawn by flax's laws from ``seed``, as the JAX tool's ``model.init``)
-    and AdamW on ``device``."""
-    model = build_model(args)
+    the JAX tool's ``model.init(PRNGKey(seed))`` variables, drawn on
+    ``device``) and AdamW on ``device``."""
+    model = build_model(args).to(device)
     if state_dict is None:
         init_weights_(model, seed)
     else:
         model.load_state_dict(state_dict, strict=True)
-    model.to(device)
     opt = AdamW(model.named_parameters(),
                 warmup_iters=min(500, args.steps // 10),
                 total_iters=args.steps)

@@ -22,6 +22,7 @@ from spike2former_tpu_torch.models.segmentor import Spike2Former
 from spike2former_tpu_torch.ops import dcnv3, dcnv3_grouped
 from spike2former_tpu_torch.profile_train import sync_sites
 from spike2former_tpu_torch.tools import train as train_cli
+from spike2former_tpu_torch.utils import jax_random as jr
 
 pytestmark = pytest.mark.cuda
 
@@ -807,40 +808,33 @@ def test_point_samplers_card_match_cpu(cuda, shape):
 
 def test_point_train_step_card_matches_cpu(cuda):
     """The tiny model's step with ``train.loss_points``, card against CPU
-    on the same uniforms: ``total`` within 1e-3 relative (chip_smoke's
-    tiny train tolerance), K1 and K2 once each."""
+    on the step's own points (JAX's keys: the same uniforms on both):
+    ``total`` within 1e-3 relative (chip_smoke's tiny train tolerance), K1
+    and K2 once each, the threefry kernel three times a layer."""
     from spike2former_tpu_torch.engine import train as ttrain
 
     opts = TINY_OPTS + ["train.loss_points=40", "train.matcher='host'"]
-    gen = torch.Generator().manual_seed(0)
-    draws = []
-
-    def recording(step, mb):
-        def draw(shape):
-            draws.append(torch.rand(shape, generator=gen))
-            return draws[-1]
-        return draw
-
-    def replaying(step, mb):
-        queue = iter(draws)
-        return lambda shape: next(queue).to(cuda)
-
     images, sem = synthetic_batch(np.random.default_rng(0), 2, (64, 64),
                                   num_classes=4, classes=(2, 4))
     totals = []
-    for dev, point_draw in (("cpu", recording), ("cuda", replaying)):
+    # the step's own points: JAX's, the plain threefry on the CPU and the
+    # kernel on the card
+    for dev in ("cpu", "cuda"):
         tr = _drawn_trainer(PRESET, opts, device=dev, seed=1)
         step = ttrain.make_train_step(
-            5, max_gt=tr.cfg.train.max_gt, matcher="host", num_points=40,
-            point_draw=point_draw)
-        k1, k2 = (dcnv3.dcnv3_sample.launches,
-                  dcnv3.dcnv3_sample_backward.launches)
+            5, max_gt=tr.cfg.train.max_gt, matcher="host", num_points=40)
+        k1, k2, kt = (dcnv3.dcnv3_sample.launches,
+                      dcnv3.dcnv3_sample_backward.launches,
+                      jr.threefry_kernel.launches)
         _, m = step(tr.state, torch.as_tensor(images, device=dev),
                     torch.as_tensor(sem, device=dev))
         totals.append(float(m["total"]))
         if dev == "cuda":
             assert (dcnv3.dcnv3_sample.launches == k1 + 1
                     and dcnv3.dcnv3_sample_backward.launches == k2 + 1)
+            # per layer a matching, an oversampled and a fresh draw
+            assert (jr.threefry_kernel.launches - kt) % 3 == 0
+            assert jr.threefry_kernel.launches > kt
     assert abs(totals[1] - totals[0]) <= 1e-3 * abs(totals[0])
 
 
@@ -1049,12 +1043,8 @@ def test_fpn_family_card_matches_cpu(cuda, name):
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0,
                                atol=1e-3)
 
-    def cpu_draw(step):
-        gen = torch.Generator().manual_seed(step)
-        return lambda shape, dev: torch.rand(shape, generator=gen).to(dev)
-
-    from spike2former_tpu_torch.engine.train import make_train_step_fpn
-
+    # the step's own dropout: JAX's masks, the plain threefry on the CPU
+    # and the kernel on the card (bitwise the same)
     rng = np.random.default_rng(1)
     batches = [synthetic_batch(rng, 2, (64, 64), num_classes=5)
                for _ in range(2)]
@@ -1063,8 +1053,6 @@ def test_fpn_family_card_matches_cpu(cuda, name):
     for dev in ("cpu", "cuda"):
         tr = _drawn_trainer(name, TINY_FPN + ["train.warmup_iters=1"],
                              device=dev, seed=2)
-        tr.step_fn = make_train_step_fpn(tr.cfg.train.loss_decode,
-                                         dropout_draw=cpu_draw)
         totals[dev] = [m["total"] for m in api.train_steps(tr, batches)]
     np.testing.assert_allclose(totals["cuda"], totals["cpu"], rtol=1e-3)
     assert dcnv3.dcnv3_sample.launches == k1
@@ -1160,3 +1148,46 @@ def test_k1_with_a_first_row_matches_plain_on_the_banded_map(cuda, dtype,
             assert within_one_bf16_ulp(got.cpu(), want.cpu())
         assert torch.equal(got, whole[:, sl])
 
+
+
+@pytest.mark.parametrize("shape", [(), (7,), (3, 5, 2), (4, 6, 128, 128, 8)])
+def test_threefry_kernel_is_the_plain_version_bitwise(card, shape):
+    """``csrc/threefry.cu`` against the plain threefry: bits, uniforms
+    (two ranges) and keep masks bitwise, and every block of the first
+    and last axes equal to the slice of the whole draw."""
+    k = jr.fold_in(jr.key(3), 11)
+    before = jr.threefry_kernel.launches
+    pairs = [(jr.bits(k, shape, device=card),
+              jr.bits_reference(k, shape)),
+             (jr.uniform(k, shape, device=card),
+              jr.uniform_reference(k, shape)),
+             (jr.uniform(k, shape, -0.3, 2.7, device=card),
+              jr.uniform_reference(k, shape, -0.3, 2.7)),
+             (jr.bernoulli(k, 0.9, shape, device=card),
+              jr.bernoulli_reference(k, 0.9, shape))]
+    torch.cuda.synchronize()
+    assert jr.threefry_kernel.launches == before + 4
+    for got, want in pairs:
+        assert torch.equal(got.cpu(), want)
+    for axis in ((0, -1) if shape else ()):
+        n = shape[axis]
+        whole = jr.uniform(k, shape, device=card)
+        part = jr.uniform(k, shape, axis=axis, start=n // 3,
+                          stop=n - n // 4, device=card)
+        assert torch.equal(part, whole.narrow(axis % len(shape), n // 3,
+                                              n - n // 4 - n // 3))
+
+
+def test_init_weights_on_the_card_is_the_cpus(card):
+    """The tiny flagship's ``init_weights_`` drawn on the card (uniforms
+    through the kernel, the normals' ``erf_inv`` plain) is the CPU's bit
+    for bit."""
+    from spike2former_tpu_torch.engine.weights import init_weights_
+
+    cfg = get_config(PRESET, TINY_OPTS).model
+    cpu = init_weights_(build_model(cfg), 5).state_dict()
+    before = jr.threefry_kernel.launches
+    got = init_weights_(build_model(cfg).to(card), 5).state_dict()
+    assert jr.threefry_kernel.launches > before
+    for key, want in cpu.items():
+        assert torch.equal(got[key].cpu(), want), key

@@ -4,10 +4,12 @@ package's on the CPU, at the tiny widths of ``test_torch_fpn.py``.
 
 The step takes the (ce, lovasz, ohem) decode-loss spec of
 ``tests/test_train_and_eval.py``.  flax's Dropout draws its keep mask
-from ``fold_in(PRNGKey(0), step)``, whose bits the port does not
-reproduce: the tests read JAX's masks (``_jax_dropout_masks``: the model
-applied under the step's key, each Dropout sowing the mask it draws with
-its own key) and hand them to the port (``dropout_draw``).  The rate
+from ``fold_in(PRNGKey(0), step)``; the port draws the same bits
+(``tests/test_torch_jax_random.py`` holds a step started on both sides
+from one seed), and these tests read JAX's masks
+(``_jax_dropout_masks``: the model applied under the step's key, each
+Dropout sowing the mask it draws with its own key) and hand them to the
+port (``dropout_draw``), so that the step is held on its own.  The rate
 stays 0.1, so the dropout branch runs on both sides.
 
 Tolerances: the steps at ``test_torch_train.py``'s (losses 1e-4
@@ -214,16 +216,20 @@ def test_train_step_matches_jax(case):
 
 
 def test_default_dropout_draw_is_seeded_by_seed_and_step():
+    """The step's own dropout is JAX's: keyed by the step alone, as JAX's
+    FPN step keys it by ``fold_in(PRNGKey(0), step)`` whatever the seed
+    (``tests/test_torch_jax_random.py`` holds the masks to JAX's): the
+    same step draws the same mask, another step another."""
     pm = randomize_(build_model(get_config(
         "fpn_msresnet18_512x512_ade20k", TINY_FPN).model), 0)
     sd = {k: v.clone() for k, v in pm.state_dict().items()}
     batch = [torch.from_numpy(a) for a in _seg_batch(3)]
 
-    def first_total(seed):
+    def first_total(step):
         pm.load_state_dict(sd)
         state = ttrain.init_state(pm, TrainConfig(warmup_iters=1))
-        return float(ttrain.make_train_step_fpn(seed=seed)(state, *batch
-                                                           )[1]["total"])
+        state.step = step
+        return float(ttrain.make_train_step_fpn()(state, *batch)[1]["total"])
 
     assert first_total(0) == first_total(0) != first_total(1)
 
@@ -366,8 +372,7 @@ def test_train_cli_matches_the_jax_loop_and_resumes(tmp_path, monkeypatch,
     make_step = ttrain.make_train_step_fpn
     monkeypatch.setattr(
         ttrain, "make_train_step_fpn",
-        lambda spec, seed=0: make_step(spec, seed,
-                                       dropout_draw=jax_masks_draw(masks)))
+        lambda spec: make_step(spec, dropout_draw=jax_masks_draw(masks)))
     root = write_ade_tree(tmp_path / "ade", n=4, seed=6, num_labels=5)
     cfg = get_config(TRAIN_PRESET, opts)
     assert cfg.train.loss_decode == SPEC

@@ -310,14 +310,6 @@ def test_loss_points_config_keys_have_the_jax_defaults():
         12544, "bfloat16")
 
 
-def test_point_generator_is_seeded_per_step_and_microbatch():
-    a = ttrain.point_generator(0, 3, 0, torch.device("cpu"))
-    b = ttrain.point_generator(0, 3, 0, torch.device("cpu"))
-    c = ttrain.point_generator(0, 3, 1, torch.device("cpu"))
-    x, y, z = (torch.rand(8, generator=g) for g in (a, b, c))
-    assert torch.equal(x, y) and not torch.equal(x, z)
-
-
 def _port_point_steps(pm, batches, seed, dtype=torch.float32):
     """Two port steps of a copy of ``pm`` in ``dtype`` on JAX's draws."""
     model = copy.deepcopy(pm).to(dtype)

@@ -12,9 +12,8 @@ the same law, without compiling the model's forward once per seed (an
 XLA compile of a tiny model's init takes ~25 s on the CPU, the trace ~2 s).
 
 The port's side: ``init_laws(model)`` gives each state_dict entry its law
-and ``init_weights_`` draws each entry from it in state_dict order; the
-pool draws the entry's law at the entry's shape from a generator of each
-seed.
+and ``init_weights_`` draws each entry from it; the pool draws the entry's
+law at the entry's shape from one key (``Law.sample``).
 
 A leaf is constant when two seeds give the same bits; a constant leaf must
 equal the port's bit for bit.  A random leaf's pools hold at least
@@ -44,6 +43,7 @@ from scipy import stats
 from spike2former_tpu_torch.engine.convert import from_jax_variables
 from spike2former_tpu_torch.engine.weights import (fast_init_, fast_laws,
                                                    init_laws, init_weights_)
+from spike2former_tpu_torch.utils import jax_random
 
 POOL = 10_000
 # the bit generator of the pools: XLA compiles its draws in a third of
@@ -144,10 +144,10 @@ def need(numel: int) -> int:
 
 def port_pool(law, shape, n: int, stage: int = 0) -> np.ndarray:
     """``n`` draws of the port's ``law`` at ``shape`` (a law's draw does
-    not depend on the shape it fills: one fill of ``n`` stacked)."""
-    t = torch.empty((n,) + tuple(shape))
-    law.draw_(t, torch.Generator().manual_seed(1000 + stage))
-    return t.numpy().ravel()
+    not depend on the shape it fills: one draw of ``n`` stacked, from the
+    key of seed ``1000 + stage``)."""
+    return law.sample(jax_random.key(1000 + stage),
+                      (n,) + tuple(shape)).numpy().ravel()
 
 
 def _port_layout(col: str, path: tuple, leaf: np.ndarray):
